@@ -8,16 +8,26 @@ then exits non-zero without the final result line:
 
 1. device: a CUDA card is required (no CPU fallback); prints its name and
    power limit as nvidia-smi reports them;
-2. build: compiles the four CUDA kernels from `patchioner_tpu_torch/csrc`;
-3. kernels: each kernel against its plain PyTorch version on the card, in
-   float32 (TF32 off) and bfloat16, at the main path's shapes (B = 8,
-   N = 1374, D = 768, the full 591,753-row bank), with CUDA-event timings;
+2. build: compiles the CUDA kernels from `patchioner_tpu_torch/csrc`, one
+   nvcc process per source, all started together;
+3. kernels: each kernel (A-F, J, K, and C with the tanh GELU) against its
+   plain PyTorch version on the card, in float32 (TF32 off) and bfloat16,
+   at the main path's shapes (B = 8, N = 1374, D = 768, 12 heads of 64,
+   the full 591,753-row bank), with CUDA-event timings, the least time the
+   card could take for the same work, and torch's
+   `scaled_dot_product_attention` on the same q, k, v as the attention
+   kernels' library yardstick;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
    bfloat16; the kernels' launch counters prove the path ran through them;
+4b. the same for each further attention configuration of the encoder
+   (`proj_fused`, `fusedqkv_proj`, `flash`, `flash1p`, `flash_builtin`):
+   one batch of 8 served, the launch counters of its kernels asserted;
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
-   drawn near 1 so that kernels A-C move the residual stream.
+   drawn near 1 so that the kernels move the residual stream;
+5b. the same gate between each further attention configuration's prefix
+   and the `fusedqkv` one's, both on the card.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -28,6 +38,7 @@ The second-to-last line is the kernels' JSON summary, the last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -61,6 +72,22 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 F32_ONLY = {"memory_project"}
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
+HD = D // HEADS
+
+# The least time the card could take: the larger of the operations over the peak rate for their type (dense tensor
+# cores in bf16, the SIMT pipes in f32) and the bytes over the memory rate,
+# each input read once and each output written once. NVIDIA H100 SXM.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+# each further attention configuration of the encoder (phase 4b, 5b)
+CONFIGS = {
+    "proj_fused": {"attn_impl": "fusedqkv", "proj_fused": True},
+    "fusedqkv_proj": {"attn_impl": "fusedqkv_proj"},
+    "flash": {"attn_impl": "flash"},
+    "flash1p": {"attn_impl": "flash1p"},
+    "flash_builtin": {"attn_impl": "flash_builtin"},
+}
 
 
 def log(msg: str) -> None:
@@ -113,9 +140,14 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _kernel_cases(dtype, gen):
-    """(name, source, replaces, kernel call, plain call) at the main path's
-    shapes; inputs are seeded random tensors in `dtype`."""
+    """(name, source, replaces, kernel call, plain call, library call or
+    None, flops, bytes) at the main path's shapes; inputs are seeded random
+    tensors in `dtype`, and the work is counted from them."""
     from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
     dev = "cuda"
@@ -123,10 +155,12 @@ def _kernel_cases(dtype, gen):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    x = randn(B, N, D)
+    x, r = randn(B, N, D), randn(B, N, D)
     g, bg = 1 + randn(D, scale=0.1), randn(D, scale=0.1)
     wqkv, bqkv = randn(D, 3 * D, scale=D ** -0.5), randn(3 * D, scale=0.1)
+    wproj, bproj = randn(D, D, scale=D ** -0.5), randn(D, scale=0.1)
     qkv = randn(B, N, 3 * D)
+    q, k, v = attention.split_heads(qkv, HEADS)
     w1, b1 = randn(D, 4 * D, scale=D ** -0.5), randn(4 * D, scale=0.1)
     w2, b2 = randn(4 * D, D, scale=(4 * D) ** -0.5), randn(D, scale=0.1)
     # per channel, so a kernel that reads ls at the wrong index disagrees
@@ -136,24 +170,63 @@ def _kernel_cases(dtype, gen):
                     device=dev),
         dtype=dtype)
     feats = torch.randn(B, D, generator=gen, device=dev)
-    eps = 1e-6
+    eps, scale = 1e-6, HD ** -0.5
+    rows, nb = B * N, bank.num_real
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    attn_flops = 4 * B * HEADS * N * N * HD  # QK^T and PV
+    mlp_args = (x, g, bg, w1, b1, w2, b2, ls)
+    qkv_proj_args = (qkv, x, wproj, bproj, ls)
     return [
         ("ln_dense", "patchioner_tpu_torch/csrc/ln_dense.cu",
          "patchioner_tpu/ops/mlp.py:188",
          lambda: mlp.fused_ln_dense(x, g, bg, wqkv, bqkv, eps=eps),
-         lambda: mlp.ln_dense_plain(x, g, bg, wqkv, bqkv, eps=eps)),
+         lambda: mlp.ln_dense_plain(x, g, bg, wqkv, bqkv, eps=eps), None,
+         2 * rows * D * 3 * D, _nbytes(x, g, bg, wqkv, bqkv, qkv)),
         ("qkv_attention", "patchioner_tpu_torch/csrc/qkv_attention.cu",
          "patchioner_tpu/ops/attention.py:220",
-         lambda: attention.fused_qkv_attention(qkv, num_heads=HEADS, scale=0.125),
-         lambda: attention.qkv_attention_plain(qkv, num_heads=HEADS, scale=0.125)),
+         lambda: attention.fused_qkv_attention(qkv, num_heads=HEADS, scale=scale),
+         lambda: attention.qkv_attention_plain(qkv, num_heads=HEADS, scale=scale),
+         sdpa, attn_flops, _nbytes(qkv, x)),
         ("ln_mlp", "patchioner_tpu_torch/csrc/ln_mlp.cu",
          "patchioner_tpu/ops/mlp.py:114",
-         lambda: mlp.fused_ln_mlp(x, g, bg, w1, b1, w2, b2, ls, eps=eps),
-         lambda: mlp.ln_mlp_plain(x, g, bg, w1, b1, w2, b2, ls, eps=eps)),
+         lambda: mlp.fused_ln_mlp(*mlp_args, eps=eps),
+         lambda: mlp.ln_mlp_plain(*mlp_args, eps=eps), None,
+         4 * rows * D * 4 * D, _nbytes(*mlp_args, x)),
+        ("ln_mlp_gelu_approx", "patchioner_tpu_torch/csrc/ln_mlp.cu",
+         "patchioner_tpu/ops/mlp.py:114",
+         lambda: mlp.fused_ln_mlp(*mlp_args, eps=eps, gelu_approx=True),
+         lambda: mlp.ln_mlp_plain(*mlp_args, eps=eps, gelu_approx=True), None,
+         4 * rows * D * 4 * D, _nbytes(*mlp_args, x)),
         ("memory_project", "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:521",
          lambda: mp.memory_project_streamed(feats, bank, normalize=True),
-         lambda: mp.memory_project_plain(feats, bank, normalize=True)),
+         lambda: mp.memory_project_plain(feats, bank, normalize=True), None,
+         4 * B * nb * D, _nbytes(feats, bank.rows[:nb], bank.inv_norm[:nb], feats)),
+        ("dense_residual", "patchioner_tpu_torch/csrc/ln_dense.cu",
+         "patchioner_tpu/ops/mlp.py:261",
+         lambda: mlp.fused_dense_residual(x, r, wproj, bproj, ls),
+         lambda: mlp.dense_residual_plain(x, r, wproj, bproj, ls), None,
+         2 * rows * D * D, _nbytes(x, r, wproj, bproj, ls, r)),
+        ("qkv_attention_proj", "patchioner_tpu_torch/csrc/qkv_attention_proj.cu",
+         "patchioner_tpu/ops/attention.py:342",
+         lambda: attention.fused_qkv_attention_proj(*qkv_proj_args, num_heads=HEADS,
+                                                    scale=scale),
+         lambda: attention.qkv_attention_proj_plain(*qkv_proj_args, num_heads=HEADS,
+                                                    scale=scale), None,
+         attn_flops + 2 * rows * D * D, _nbytes(*qkv_proj_args, x)),
+        ("flash_attention_1pass", "patchioner_tpu_torch/csrc/flash_attention_1pass.cu",
+         "patchioner_tpu/ops/attention.py:139",
+         lambda: attention.flash_attention_1pass(q, k, v, scale=scale),
+         lambda: attention.attention_plain(q, k, v, scale=scale), sdpa,
+         attn_flops, _nbytes(q, k, v, q)),
+        ("flash_attention", "patchioner_tpu_torch/csrc/flash_attention.cu",
+         "patchioner_tpu/ops/attention.py:437",
+         lambda: attention.flash_attention(q, k, v, scale=scale),
+         lambda: attention.attention_plain(q, k, v, scale=scale), sdpa,
+         attn_flops, _nbytes(q, k, v, q)),
     ]
 
 
@@ -161,7 +234,9 @@ def phase_kernels(seed: int) -> dict:
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        for name, source, replaces, kern, plain in _kernel_cases(dtype, gen):
+        sdpa_ms = None
+        for (name, source, replaces, kern, plain, library, flops,
+             nbytes) in _kernel_cases(dtype, gen):
             tol = TOLERANCE[torch.float32 if name in F32_ONLY else dtype]
             got, ref = kern(), plain()
             torch.cuda.synchronize()
@@ -171,27 +246,63 @@ def phase_kernels(seed: int) -> dict:
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+            peak = PEAK_FLOPS[torch.float32 if name in F32_ONLY else dtype]
+            op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ms = max(op_ms, byte_ms)
+            library_ms = None
+            if library is not None:
+                if sdpa_ms is None:
+                    sdpa_ms = cuda_ms(library)
+                    log(f"[kernels] scaled_dot_product_attention {str(dtype)[6:]} "
+                        f"({B}, {HEADS}, {N}, {HD}): {sdpa_ms:.4f} ms")
+                library_ms = sdpa_ms
             log(f"[kernels] {name} {str(dtype)[6:]}: max|d|={err:.3e} "
                 f"rel={rel:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: rel error {rel:.3e} > {tol:.0e}")
-            if dtype == torch.bfloat16:  # the main path's type
-                summary[name] = {"name": name, "route": "cuda", "source": source,
-                                 "replaces": replaces, "max_abs_err": err,
-                                 "ms": ms, "plain_ms": plain_ms}
+            if dtype == torch.bfloat16 and name in _wrappers():  # the main path's type
+                summary[name] = {
+                    "name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": None, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                    "library_ms": library_ms}
             del got, ref
         torch.cuda.empty_cache()
     return summary
 
 
-def _wrappers():
+def _wrappers() -> dict:
+    """Every kernel wrapper, in the order of the kernel table (A-F, J, K)."""
     from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
     return {"ln_dense": mlp.fused_ln_dense,
             "qkv_attention": attention.fused_qkv_attention,
             "ln_mlp": mlp.fused_ln_mlp,
-            "memory_project": mp.memory_project_streamed}
+            "memory_project": mp.memory_project_streamed,
+            "dense_residual": mlp.fused_dense_residual,
+            "qkv_attention_proj": attention.fused_qkv_attention_proj,
+            "flash_attention_1pass": attention.flash_attention_1pass,
+            "flash_attention": attention.flash_attention}
+
+
+def expected_launches(opts: dict, depth: int, batches: int) -> dict:
+    """Launches of every kernel for `batches` batches of a configuration:
+    A and C each layer, the attention kernel `attn_impl` selects each layer,
+    D once a batch, every other kernel never."""
+    impl = opts.get("attn_impl", "xla")
+    layer = {"ln_dense", "ln_mlp"}
+    if impl in ("xla", "fusedqkv"):
+        layer.add("qkv_attention")
+        if opts.get("proj_fused"):
+            layer.add("dense_residual")
+    layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
+              "flash1p": {"flash_attention_1pass"}}.get(impl, set())
+    counts = {name: depth * batches if name in layer else 0 for name in _wrappers()}
+    counts["memory_project"] = batches
+    return counts
 
 
 def _requests(n: int, seed: int):
@@ -213,24 +324,31 @@ def _padded(traces):
     return pts, valid
 
 
-def phase_main_path(seed: int, smi: str) -> dict:
+def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
+                    n_requests: int = 2 * B) -> tuple[dict, list]:
+    """Serve `n_requests` requests through the flagship config plus `opts`;
+    returns the launch counts of the served run and the captions."""
     from patchioner_tpu_torch import entry
     from patchioner_tpu_torch.models.patchioner import Patchioner
     from patchioner_tpu_torch.serve import CaptionServer
 
+    opts = dict(opts or {})
+    tag = f"[{label}]"
     t0 = time.perf_counter()
-    model = Patchioner.from_config(FLAGSHIP_CONFIG, rng_seed=seed,
+    model = Patchioner.from_config(dict(FLAGSHIP_CONFIG, **opts), rng_seed=seed,
                                    allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"[main] model built in {time.perf_counter() - t0:.1f} s: "
+    log(f"{tag} {opts or 'flagship config'}: model built in "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} at "
         f"{model.crop_dim} px ({model.vit_cfg.num_tokens} tokens), bank "
         f"{model.bank.num_real} x {model.bank.rows.shape[1]} bf16, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
 
-    imgs, traces = _requests(16, seed)
+    imgs, traces = _requests(2 * B, seed)
+    imgs, traces = imgs[:n_requests], traces[:n_requests]
     # one direct batch first, outside the counted run: first-call set-up
     pts, valid = _padded(traces[:B])
     model.caption_traces_fused(imgs[:B], pts, valid)
@@ -248,14 +366,12 @@ def phase_main_path(seed: int, smi: str) -> dict:
     counts = {name: fn.launches for name, fn in wrappers.items()}
     if not all(isinstance(c, str) for c in captions):
         raise AssertionError("a request did not resolve to a caption string")
-    depth = model.vit_cfg.depth
-    expected = {"ln_dense": depth * batches, "qkv_attention": depth * batches,
-                "ln_mlp": depth * batches, "memory_project": batches}
-    log(f"[main] {len(captions)} requests answered in {batches} batches; "
+    expected = expected_launches(opts, model.vit_cfg.depth, batches)
+    log(f"{tag} {len(captions)} requests answered in {batches} batches; "
         f"launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
-    log(f"[main] caption 0: {captions[0][:80]!r}")
+    log(f"{tag} caption 0: {captions[0][:80]!r}")
 
     # the served path's projected prefixes: finite, (B, D), unit norm
     step = entry.make_prefix_step(model.vit_cfg, model.bank.num_real,
@@ -263,7 +379,7 @@ def phase_main_path(seed: int, smi: str) -> dict:
     prefix = step(model.state(), model.pixels_to_device(imgs[:B]),
                   torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda())
     norm_err = (prefix.norm(dim=-1) - 1).abs().max().item()
-    log(f"[main] prefix {tuple(prefix.shape)}, finite "
+    log(f"{tag} prefix {tuple(prefix.shape)}, finite "
         f"{bool(torch.isfinite(prefix).all())}, max |norm - 1| {norm_err:.2e}")
     if prefix.shape != (B, D) or not torch.isfinite(prefix).all() or norm_err > 1e-3:
         raise AssertionError("the main path's projected prefix is malformed")
@@ -276,13 +392,13 @@ def phase_main_path(seed: int, smi: str) -> dict:
         model.caption_traces_fused(imgs[:B], pts, valid)
         times.append(time.perf_counter() - t1)
     batch_ms = statistics.median(times) * 1e3
-    log(f"[main] {len(captions) / wall:.3f} captions/s through the server "
+    log(f"{tag} {len(captions) / wall:.3f} captions/s through the server "
         f"({wall:.3f} s for {len(captions)}), mean request latency "
         f"{snap['mean_latency_ms']} ms, batch of {B}: {batch_ms:.1f} ms "
         f"(median of 3); {smi}")
     del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, captions
 
 
 def phase_f32_crosscheck(seed: int) -> None:
@@ -294,7 +410,7 @@ def phase_f32_crosscheck(seed: int) -> None:
                                  allow_missing_weights=True,
                                  dtype=torch.float32, device="cuda")
     # the random init's layerscale of 1e-5 would leave the residual stream
-    # almost untouched by kernels A-C; draw it per channel near 1 instead
+    # almost untouched by the kernels; draw it per channel near 1 instead
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     for blk in gpu.vit_params["blocks"]:
         for key in ("ls1", "ls2"):
@@ -303,26 +419,39 @@ def phase_f32_crosscheck(seed: int) -> None:
     cpu = gpu.to("cpu")
     imgs, traces = _requests(2, seed + 1)
     pts, valid = _padded(traces)
-    step = entry.make_prefix_step(gpu.vit_cfg, gpu.bank.num_real,
-                                  use_attention=True, normalize=gpu.normalize)
-    prefixes = []
-    for m in (gpu, cpu):
+
+    def prefix(m, vit_cfg):
+        step = entry.make_prefix_step(vit_cfg, m.bank.num_real, use_attention=True,
+                                      normalize=m.normalize)
         t0 = time.perf_counter()
-        prefixes.append(step(m.state(), m.pixels_to_device(imgs),
-                             torch.from_numpy(pts).to(m.device),
-                             torch.from_numpy(valid).to(m.device)))
-        log(f"[f32] prefix on {m.device}: {time.perf_counter() - t0:.1f} s")
-    got, ref = prefixes[0].cpu(), prefixes[1]
-    err = (got - ref).abs().max().item()
-    tol = 1e-4 * max(1.0, ref.abs().max().item())
-    log(f"[f32] prefix card vs CPU: max|d|={err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        raise AssertionError(f"f32 prefix differs: {err:.3e} > {tol:.3e}")
-    tok_gpu, _ = decap.greedy_decode(gpu.decoder, prefixes[0], gpu.gpt2_cfg)
+        out = step(m.state(), m.pixels_to_device(imgs),
+                   torch.from_numpy(pts).to(m.device),
+                   torch.from_numpy(valid).to(m.device))
+        log(f"[f32] prefix on {m.device}, attn_impl={vit_cfg.attn_impl!r}, "
+            f"proj_fused={vit_cfg.proj_fused}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def gate(got, ref, what):
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        log(f"[f32] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"f32 prefix {what} differs: {err:.3e} > {tol:.3e}")
+
+    on_card = prefix(gpu, gpu.vit_cfg)
+    ref = prefix(cpu, cpu.vit_cfg)
+    gate(on_card.cpu(), ref, "card vs CPU")
+    tok_gpu, _ = decap.greedy_decode(gpu.decoder, on_card, gpu.gpt2_cfg)
     tok_cpu, _ = decap.greedy_decode(cpu.decoder, ref, cpu.gpt2_cfg)
     agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
     log(f"[f32] caption-token agreement card vs CPU (reported, not asserted): "
         f"{agree:.4f}")
+    # phase 5b: each further attention configuration against fusedqkv's
+    fusedqkv = dataclasses.replace(gpu.vit_cfg, attn_impl="fusedqkv")
+    base = prefix(gpu, fusedqkv)
+    for label, opts in CONFIGS.items():
+        gate(prefix(gpu, dataclasses.replace(fusedqkv, **opts)), base,
+             f"{label} vs fusedqkv on the card")
 
 
 def main() -> None:
@@ -330,10 +459,24 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     summary = phase_kernels(args.seed)
-    counts = phase_main_path(args.seed, smi)
+    counts, captions = phase_main_path(args.seed, smi)
+    launches = {k: counts[k] for k in ("ln_dense", "qkv_attention", "ln_mlp",
+                                       "memory_project")}
+    # phase 4b: the kernel each further configuration adds is read from its
+    # own served run
+    added = {"proj_fused": "dense_residual", "fusedqkv_proj": "qkv_attention_proj",
+             "flash1p": "flash_attention_1pass", "flash": "flash_attention"}
+    for label, opts in CONFIGS.items():
+        counts, caps = phase_main_path(args.seed, smi, label, opts, n_requests=B)
+        if label in added:
+            launches[added[label]] = counts[added[label]]
+        same = sum(a == b for a, b in zip(caps, captions))
+        log(f"[{label}] bf16 captions equal to fusedqkv's (reported, not "
+            f"asserted): {same}/{len(caps)}")
     phase_f32_crosscheck(args.seed)
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
@@ -341,7 +484,10 @@ def main() -> None:
         raise AssertionError(f"JAX or the JAX package was imported: {reference}")
     log("[imports] neither jax nor patchioner_tpu loaded")
     for key, row in summary.items():
-        row["launches"] = counts[key]
+        row["launches"] = launches[key]
+        if not row["launches"]:
+            raise AssertionError(f"{key} was never launched on its path")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s for the whole run")
     log(smi)
     log(json.dumps({"kernels": list(summary.values())}))
     log(json.dumps({"ok": True, "device": {

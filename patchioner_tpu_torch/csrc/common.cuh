@@ -61,6 +61,12 @@ __device__ __forceinline__ void row_stats(const T* row, int d, float eps,
   }
 }
 
+// Element strides of a (batch, head, token) row of 64 values: how the
+// attention kernels address q, k, v and their output in either layout.
+struct RowLayout {
+  long long batch, head, row;
+};
+
 }  // namespace pt
 
 // Host side: raise the dynamic shared-memory cap of a kernel once.

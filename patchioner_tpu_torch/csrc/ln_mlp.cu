@@ -16,11 +16,12 @@
 // and streams the hidden dimension in 32-wide chunks. The block first
 // writes LN(x) of its rows to shared memory (two-pass f32 statistics,
 // rounded to the element type T). For each hidden chunk it computes fc1 +
-// bias + exact erf GELU into shared memory, then adds that chunk's fc2
-// contribution to an f32 output tile (f32: 4 rows x 24 columns of
-// registers per thread; bf16: 12 16x16 accumulator fragments per warp,
-// with fc1's K split across two warp halves and the halves summed in f32,
-// and weights copied 16 bytes at a time). Because the fc2 sum stays f32
+// bias + GELU (exact erf, or tanh with gelu_approx) into shared memory,
+// then adds that chunk's fc2 contribution to an f32 output tile (f32: 4
+// rows x 24 columns of registers per thread; bf16: 12 16x16 accumulator
+// fragments per warp, with fc1's K split across two warp halves and the
+// halves summed in f32, and weights copied 16 bytes at a time). Because
+// the fc2 sum stays f32
 // across all chunks, the reference's rounding points (ops/mlp.py:_kernel)
 // are kept exactly: fc1's sum rounds to T before + b1, GELU runs in f32
 // and rounds to T, fc2's full sum rounds to T before + b2, and
@@ -36,7 +37,11 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int THREADS = 256, BM = 32, HC = 32, MAX_COLS = 24;
 
-__device__ __forceinline__ float gelu(float h) {
+// Exact erf GELU, or with `approx` the tanh form of
+// jax.nn.gelu(approximate=True): 0.5 h (1 + tanh(sqrt(2/pi) (h + 0.044715 h^3))).
+__device__ __forceinline__ float gelu(float h, bool approx) {
+  if (approx)
+    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
 }
 
@@ -69,8 +74,9 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ bg, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
                   const float* __restrict__ b2, const float* __restrict__ ls,
-                  float* __restrict__ out, int M, int D, int H, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                  float* __restrict__ out, int M, int D, int H, float eps,
+                  bool approx) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DP = D + 8;  // padded rows: the 4 rows a warp reads hit 4 banks
   float* Ys = (float*)smem_raw;
   float* W2s = Ys + BM * DP;
@@ -106,7 +112,7 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Hs[r1 * HC + c1 + j] = gelu(hacc[j] + b1[h0 + c1 + j]);
+    for (int j = 0; j < 4; ++j) Hs[r1 * HC + c1 + j] = gelu(hacc[j] + b1[h0 + c1 + j], approx);
     for (int e = tid; e < HC * D; e += THREADS) W2s[e] = w2[(size_t)(h0 + e / D) * D + e % D];
     __syncthreads();
 #pragma unroll 4
@@ -151,7 +157,8 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const bf16* __restrict__ bg, const bf16* __restrict__ w1,
                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                    const bf16* __restrict__ b2, const bf16* __restrict__ ls,
-                   bf16* __restrict__ out, int M, int D, int H, float eps) {
+                   bf16* __restrict__ out, int M, int D, int H, float eps,
+                   bool approx) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DP = D + 8;
   bf16* Ys = (bf16*)smem_raw;
@@ -206,7 +213,7 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       const int r = e / HC, c = e % HC;
       const float sum = Hp[r * PLD + c] + Hp[BM * PLD + r * PLD + c];
       const float h = pt::round_t<bf16>(pt::round_t<bf16>(sum) + pt::to_f(b1[h0 + c]));
-      Hb[r * HLD + c] = pt::from_f<bf16>(gelu(h));
+      Hb[r * HLD + c] = pt::from_f<bf16>(gelu(h, approx));
     }
     __syncthreads();
 #pragma unroll
@@ -246,7 +253,8 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
                          const void* w1, const void* b1, const void* w2,
                          const void* b2, const void* ls, void* out, int M,
-                         int D, int H, float eps, int dtype, void* stream) {
+                         int D, int H, float eps, int gelu_approx, int dtype,
+                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (M + BM - 1) / BM;
   cudaError_t err;
@@ -257,7 +265,7 @@ extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
     ln_mlp_bf16_kernel<<<blocks, THREADS, smem, s>>>(
         (const bf16*)x, (const bf16*)g, (const bf16*)bg, (const bf16*)w1,
         (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (const bf16*)ls,
-        (bf16*)out, M, D, H, eps);
+        (bf16*)out, M, D, H, eps, gelu_approx != 0);
   } else {
     const size_t smem = (size_t)(BM * (D + 8) + HC * D + 32 * HC + BM * HC) * sizeof(float);
     err = pt_allow_smem(ln_mlp_f32_kernel, smem);
@@ -265,7 +273,7 @@ extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
     ln_mlp_f32_kernel<<<blocks, THREADS, smem, s>>>(
         (const float*)x, (const float*)g, (const float*)bg, (const float*)w1,
         (const float*)b1, (const float*)w2, (const float*)b2, (const float*)ls,
-        (float*)out, M, D, H, eps);
+        (float*)out, M, D, H, eps, gelu_approx != 0);
   }
   return (int)cudaGetLastError();
 }

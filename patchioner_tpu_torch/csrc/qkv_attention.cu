@@ -6,155 +6,29 @@
 // Bound on the H100: at the flagship shape (B = 8, N = 1374, 12 heads of
 // 64) QK^T and PV are 46 GFLOP per layer against ~68 MB of qkv and output,
 // so the kernel is bound by arithmetic, and the plain version's cost is the
-// (B, H, N, N) f32 logits tensor (725 MB) it writes and reads. This first
-// version runs the products on the SIMT float pipes (the tensor-core path is
-// later work) and never materialises the logits.
+// (B, H, N, N) f32 logits tensor (725 MB) it writes and reads. The kernel
+// never materialises the logits.
 //
 // Design: the TPU kernel keeps a head's whole key range resident; K plus V
 // for one head at N = 1374 is 352 KB in bf16, over an SM's shared memory.
-// So one block owns 64 queries of one (batch, head) and streams 64-key
-// tiles with an online softmax: running row max and sum, the f32
-// accumulator rescaled when the max moves, one division by the sum at the
-// end. This is the reference's exact softmax up to rounding. q, k and v of
-// head h are read at columns h*hd, D + h*hd and 2D + h*hd of a token's row.
-// Keys at or beyond num_real_k get the logit -1e30, as in the reference;
-// the ragged query and key tails are masked by bounds, not by padding.
-// Logits and softmax are f32 for both element types; q * scale and p are
-// rounded to T before their products, as in the reference.
-#include "common.cuh"
+// So it runs the streamed online softmax that kernel K runs, on the tensor
+// cores in bf16 (attention_wmma.cuh) and on the SIMT pipes in float32
+// (attention_simt.cuh), with q, k and v of head h read at columns h*hd,
+// D + h*hd and 2D + h*hd of a token's row and the output written at column
+// h*hd of the merged row.
+#include "attention_simt.cuh"
+#include "attention_wmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKEYS = 64, HD = 64, THREADS = 256, LD = HD + 1;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-qkv_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N,
-                     int H, int num_real_k, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = (float*)smem_raw;  // [BQ][LD]
-  float* Ks = Qs + BQ * LD;      // [BKEYS][LD]
-  float* Vs = Ks + BKEYS * LD;   // [BKEYS][LD]
-  float* Ps = Vs + BKEYS * LD;   // [BQ][LD] probabilities, rounded to T
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, row_stride = 3 * D;
-  const T* base = qkv + (size_t)b * N * row_stride;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float scale_t = pt::round_t<T>(scale);
-
-  for (int e = tid; e < BQ * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD, q = q0 + r;
-    float v = 0.f;
-    if (q < N) v = pt::round_t<T>(pt::to_f(base[(size_t)q * row_stride + h * HD + d]) * scale_t);
-    Qs[r * LD + d] = v;
-  }
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += BKEYS) {
-    __syncthreads();
-    for (int e = tid; e < BKEYS * HD; e += THREADS) {
-      const int r = e / HD, d = e % HD, k = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (k < N) {
-        const T* row = base + (size_t)k * row_stride + h * HD + d;
-        kv = pt::to_f(row[D]);
-        vv = pt::to_f(row[2 * D]);
-      }
-      Ks[r * LD + d] = kv;
-      Vs[r * LD + d] = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -1e30f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + tx + 16 * j;
-        if (k >= N || k >= num_real_k) s[i][j] = -1e30f;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float rescale = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty * 4 + i) * LD + tx + 16 * j] = pt::round_t<T>(p);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[i] = l[i] * rescale + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= rescale;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int k = 0; k < BKEYS; ++k) {
-      float pa[4], va[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty * 4 + i) * LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) va[j] = Vs[k * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    if (q >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[((size_t)b * N + q) * D + h * HD + tx + 16 * j] = pt::from_f<T>(acc[i][j] / l[i]);
-  }
-}
-
-template <typename T>
-int launch(const void* qkv, void* out, int B, int N, int H, int num_real_k,
-           float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + 2 * BKEYS + BQ) * LD * sizeof(float);
-  cudaError_t err = pt_allow_smem(qkv_attention_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
-  qkv_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)qkv, (T*)out, N, H, num_real_k, scale);
-  return (int)cudaGetLastError();
+template <typename T, typename Launch>
+int launch(Launch fn, const void* qkv, void* out, int B, int N, int H,
+           int num_real_k, float scale, cudaStream_t stream) {
+  const long long D = (long long)H * 64;
+  const T* q = (const T*)qkv;
+  const pt::RowLayout in{N * 3 * D, 64, 3 * D};
+  const pt::RowLayout ol{N * D, 64, D};
+  return fn(q, q + D, q + 2 * D, (T*)out, in, ol, B, H, N, num_real_k, scale, stream);
 }
 
 }  // namespace
@@ -165,6 +39,8 @@ extern "C" int pt_qkv_attention(const void* qkv, void* out, int B, int N,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == pt::kBF16)
-    return launch<__nv_bfloat16>(qkv, out, B, N, H, num_real_k, scale, s);
-  return launch<float>(qkv, out, B, N, H, num_real_k, scale, s);
+    return launch<pt::bf16_t>(pt::launch_attention_wmma, qkv, out, B, N, H,
+                              num_real_k, scale, s);
+  return launch<float>(pt::launch_attention_simt, qkv, out, B, N, H,
+                       num_real_k, scale, s);
 }

@@ -1,11 +1,12 @@
 """The flagship trace-caption step, in PyTorch.
 
 Twins of `__graft_entry__.make_prefix_step`, `make_caption_step`,
-`make_state` and `example_inputs`: pixels -> ViT encoder (kernels A, B, C)
--> CLS->patch attention extraction -> trace pooling -> support-memory
-projection (kernel D) -> [Talk2DINO inversion] -> 30-step greedy DeCap
-decode. The device of the state and inputs decides where it runs: on CUDA
-tensors every kernel launches, on CPU tensors their plain versions run.
+`make_state` and `example_inputs`: pixels -> ViT encoder (kernels A and C,
+and the attention kernels its `attn_impl` selects) -> CLS->patch attention
+extraction -> trace pooling -> support-memory projection (kernel D) ->
+[Talk2DINO inversion] -> 30-step greedy DeCap decode. The device of the
+state and inputs decides where it runs: on CUDA tensors every kernel
+launches, on CPU tensors their plain versions run.
 `Patchioner` builds its fused trace step from these same functions.
 """
 
@@ -18,7 +19,19 @@ from patchioner_tpu_torch.models import decap, talk2dino, vit
 from patchioner_tpu_torch.ops import memory_projection as memproj
 from patchioner_tpu_torch.ops import region_pooling as rp
 
-__all__ = ["make_prefix_step", "make_caption_step", "make_state", "example_inputs"]
+__all__ = ["make_prefix_step", "make_caption_step", "make_state", "example_inputs",
+           "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" without a card raises, never
+    falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on a CUDA card by default and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return device
 
 
 def make_prefix_step(vit_cfg: vit.ViTConfig, bank_num_real: int, *,
@@ -70,9 +83,11 @@ def make_state(vit_params: dict, decoder: decap.DecapParams,
 
 
 def example_inputs(batch: int, img: int = 518, n_pts: int = 64, seed: int = 0,
-                   device="cpu"):
+                   device="cuda"):
     """The JAX entry's example inputs from the same numpy seed: (pixels
-    (B, img, img, 3) f32, trace points (B, n_pts, 2), valid (B, n_pts))."""
+    (B, img, img, 3) f32, trace points (B, n_pts, 2), valid (B, n_pts)) on
+    `device`, the card unless the caller asks for "cpu"."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     pixels = rng.standard_normal((batch, img, img, 3)).astype(np.float32)
     pts = rng.uniform(0, 1, (batch, n_pts, 2)).astype(np.float32)

@@ -2,7 +2,8 @@
 
 `lib()` builds the kernels on first use (`kernels.build`) and loads them.
 Nothing here runs at import time, so the CPU tests import every module
-without nvcc or a card. `launch(name, *args)` calls one C entry point on
+without nvcc or a card. `check_operands` holds a wrapper's tensors to what
+every kernel takes, and `launch(name, *args)` calls one C entry point on
 the current CUDA stream and raises when it reports a CUDA error.
 """
 
@@ -18,8 +19,12 @@ _F = ctypes.c_float
 # C signature of each entry point; the stream is always the last argument
 SIGNATURES = {
     "pt_ln_dense": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
-    "pt_ln_mlp": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    "pt_dense_residual": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "pt_ln_mlp": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_qkv_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "pt_qkv_attention_proj": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
+    "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
+    "pt_flash_attention_1pass": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_memory_project": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _I, _P],
 }
 
@@ -51,6 +56,20 @@ def dtype_code(t) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[name]
+
+
+def check_operands(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
+    tensor of the first one's device and type."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: every operand must be {dtype} on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
 
 
 def launch(name: str, *args) -> None:

@@ -5,7 +5,8 @@ plain C interface, so the library links against nothing of PyTorch and is
 loaded with ctypes (`kernels.lib()`). The build happens at first use, into
 `build/kernels/<hash>/` at the root of the checkout, where the hash covers
 the sources and the compiler flags: an edited source builds anew, an
-unchanged one is reused.
+unchanged one is reused. Each source compiles in its own nvcc process, all
+started together, and one more links the objects.
 """
 
 from __future__ import annotations
@@ -22,10 +23,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIB_NAME = "libpatchioner_kernels.so"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -65,17 +65,34 @@ def build() -> tuple[str, float]:
     if os.path.isfile(lib):
         return lib, 0.0
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.partial"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.partial"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    tmp = f"{lib}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+    log, failed = [], False
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(log))
     os.replace(tmp, lib)
     return lib, seconds
 

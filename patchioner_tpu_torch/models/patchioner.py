@@ -6,12 +6,18 @@ Twin of the trace path of `patchioner_tpu/models/patchioner.py`:
 (`patchioner_tpu_torch.serve`, twin of `patchioner_tpu/serve.py:530-564`)
 drives. The step itself is `entry.make_caption_step`.
 
-`from_config` takes the reference YAML schema (a path or a dict). Any key
-that leaves this subset raises NotImplementedError: other backbones,
-ViECap / MeaCap / ClipCap, argmax-text, int8 banks or encoders, a non-qkv
+`from_config` takes the reference YAML schema (a path or a dict), with
+the encoder keys `attn_impl`, `proj_fused` and `gelu_approx` of the
+reference's `from_config` (patchioner.py:487-505). Any key that leaves
+this subset raises NotImplementedError: other backbones (ViT-L and ViT-g
+among them), ViECap / MeaCap / ClipCap, argmax-text, int8 banks or
+encoders, the compute-dtype softmax (`softmax_f32: false`), a non-qkv
 attention_type, and checkpoint or bank files, which are not ported yet.
 With `allow_missing_weights=True` the weights and the bank are seeded
 random tensors drawn with `torch.Generator`.
+
+The model lives on `device`, "cuda" unless the caller asks for "cpu";
+without a card, asking for "cuda" raises.
 """
 
 from __future__ import annotations
@@ -45,24 +51,28 @@ _BANK_NAME_KEYS = {
     "clip_model_name", "talk2dino_attn_type",
 }
 # the reference's encoder kernel-stack switches (configs/*tpu-serving.yaml):
-# numerics-preserving, and the port always runs its own kernels on CUDA
-_KERNEL_STACK_KEYS = {"attn_impl", "qkv_fused", "mlp_fused"}
+# numerics-preserving; the port always runs kernels A and C on CUDA
+_KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
+# encoder keys read into ViTConfig (vit.py:93-104 of the reference)
+_ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {
     "calculate_argmax_text", "viecap", "clipcap", "memory_bank_int8",
-    "encoder_w8a8", "gelu_approx", "proj_fused", "regionclip_config",
+    "encoder_w8a8", "regionclip_config",
     "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
     "use_open_clip", "invite_config", "memory_bank_path",
 }
+# kernel C holds a 32-row block's LN(x) and f32 output in shared memory
+_MAX_EMBED_DIM = 768
 
 
 def _check_config(config: dict) -> None:
     for key, value in config.items():
-        if key in _KEYS or key in _BANK_NAME_KEYS:
+        if key in _KEYS or key in _BANK_NAME_KEYS or key in _KERNEL_STACK_KEYS:
             continue
-        if key in _KERNEL_STACK_KEYS:
-            if key == "attn_impl" and value not in (None, "xla", "fusedqkv"):
-                raise NotImplementedError(f"attn_impl={value!r} is not ported yet")
+        if key == "attn_impl" and value not in (None, *vit.ViTConfig.ATTN_IMPLS):
+            raise NotImplementedError(f"attn_impl={value!r} is not ported")
+        if key in _ENCODER_KEYS:
             continue
         if key == "softmax_f32" and value in (None, True):
             continue
@@ -82,6 +92,13 @@ def _check_config(config: dict) -> None:
         raise NotImplementedError("captioning without a support memory is not ported yet")
 
 
+def _encoder_options(config: dict) -> dict:
+    """The ViTConfig fields the encoder keys set; a key left out or None
+    keeps the default."""
+    opts = {k: config[k] for k in _ENCODER_KEYS if config.get(k) is not None}
+    return {k: v if k == "attn_impl" else bool(v) for k, v in opts.items()}
+
+
 def _as_nhwc(imgs) -> torch.Tensor:
     x = torch.as_tensor(np.asarray(imgs)) if not torch.is_tensor(imgs) else imgs
     if x.dim() != 4:
@@ -96,11 +113,11 @@ class Patchioner:
                  gpt2_cfg: gpt2.GPT2Config, decoder: decap.DecapParams,
                  bank: memproj.PreparedBank, normalize: bool = True,
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
-                 device="cpu", tokenizer=None,
+                 device="cuda", tokenizer=None,
                  entry_length: int = decap.ENTRY_LENGTH):
         self.vit_cfg = vit_cfg
         self.gpt2_cfg = gpt2_cfg
-        self.device = torch.device(device)
+        self.device = entry.resolve_device(device)
         self.vit_params = vit.cast_params(vit_params, vit_cfg.dtype, self.device)
         self.decoder = decap.DecapParams(
             *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
@@ -129,7 +146,7 @@ class Patchioner:
                     allow_missing_weights: bool = False,
                     random_bank_size: Optional[int] = None,
                     dtype: torch.dtype = torch.float32,
-                    device="cpu") -> "Patchioner":
+                    device="cuda") -> "Patchioner":
         if isinstance(config, str):
             import yaml
 
@@ -146,16 +163,21 @@ class Patchioner:
                 "no loadable DINOv2 / DeCap weights (checkpoint loading is not "
                 "ported yet); pass allow_missing_weights=True for seeded "
                 "random weights")
-        device = torch.device(device)
+        device = entry.resolve_device(device)
 
         def gen(offset):
             return torch.Generator(device=device).manual_seed(rng_seed + offset)
 
         vit_cfg = vit.config_for(
             config["dino_model"], img_size=int(config.get("crop_dim", 518)),
-            dtype=dtype, **dict(config.get("dino_geometry") or {}))
+            dtype=dtype, **_encoder_options(config),
+            **dict(config.get("dino_geometry") or {}))
         if vit_cfg.ffn != "mlp":
             raise NotImplementedError(f"{config['dino_model']} (SwiGLU FFN) is not ported yet")
+        if vit_cfg.embed_dim > _MAX_EMBED_DIM:
+            raise NotImplementedError(
+                f"{config['dino_model']} (D = {vit_cfg.embed_dim}) is not ported yet: "
+                f"kernel C takes D <= {_MAX_EMBED_DIM}")
         vit_params = vit.init_vit(vit_cfg, gen(0), device)
 
         prefix_size = int(config["prefix_size"])

@@ -7,23 +7,36 @@ parameter layout, `interpolate_pos_embed`, `vit_forward` and
 JAX package's layout (dense weights stored (in, out)); `io.bridge` converts
 a JAX tree.
 
-Each block runs three kernels of this package: LN + qkv (kernel A),
-attention on the fused qkv (kernel B) and LN + MLP (kernel C). The
-out-projection, layerscale and residual between them are a plain matmul, as
-they are plain XLA in the reference. The token axis is not padded.
+Each block runs LN + qkv (kernel A), then the attention half that
+`attn_impl` selects, as the reference's `_block` / `_attention` do
+(vit.py:376-471, 543-622), then LN + MLP (kernel C):
+
+- 'xla', 'fusedqkv': attention on the fused qkv (kernel B), then the
+  out-projection, layerscale and residual as a plain matmul (plain XLA in
+  the reference) or, with `proj_fused`, as kernel E;
+- 'fusedqkv_proj': attention, out-projection, layerscale and residual in
+  one kernel (F);
+- 'flash', 'flash1p', 'flash_builtin': q, k and v split into (B, H, N, hd)
+  for kernel K, kernel J or torch's `scaled_dot_product_attention` (the
+  port's counterpart of jax's bundled kernel), merged back, then the plain
+  out-projection.
+
+The token axis is not padded, so no key is masked.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from patchioner_tpu_torch.ops.attention import fused_qkv_attention
-from patchioner_tpu_torch.ops.mlp import fused_ln_dense, fused_ln_mlp, ln_rows
+from patchioner_tpu_torch.ops import attention
+from patchioner_tpu_torch.ops.mlp import (dense_residual_plain, fused_dense_residual,
+                                          fused_ln_dense, fused_ln_mlp, ln_rows)
 
 __all__ = ["ViTConfig", "VARIANTS", "config_for", "init_vit", "cast_params",
            "interpolate_pos_embed", "vit_forward", "process_self_attention"]
@@ -46,7 +59,22 @@ class ViTConfig:
     # non-small model, whatever the true head count (vit.py:85-90)
     extract_heads: int = 16
     extract_scale: float = 0.125
+    # the attention half of each block (module note); 'xla' and 'fusedqkv'
+    # both run kernel B here
+    attn_impl: str = "xla"
+    # out-projection + layerscale + residual as kernel E ('fusedqkv' only)
+    proj_fused: bool = False
+    # tanh GELU in kernel C, a numerics change opted into by config
+    gelu_approx: bool = False
     dtype: torch.dtype = torch.float32
+
+    ATTN_IMPLS = ("xla", "fusedqkv", "fusedqkv_proj", "flash", "flash1p",
+                  "flash_builtin")
+
+    def __post_init__(self):
+        if self.attn_impl not in self.ATTN_IMPLS:
+            raise ValueError(f"attn_impl={self.attn_impl!r} is not one of "
+                             f"{self.ATTN_IMPLS}")
 
     @property
     def grid_size(self) -> int:
@@ -170,20 +198,48 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int, dst_grid: int,
     return torch.cat([cls_pos, grid.to(pos_embed.dtype)], dim=1)
 
 
+def _merged_attention(qkv: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """The merged (B, N, D) attention output of every impl but fusedqkv_proj."""
+    nh = cfg.num_heads
+    scale = (qkv.shape[-1] // 3 // nh) ** -0.5
+    if cfg.attn_impl in ("xla", "fusedqkv"):
+        return attention.fused_qkv_attention(qkv, num_heads=nh, scale=scale)
+    q, k, v = attention.split_heads(qkv, nh)
+    if cfg.attn_impl == "flash":
+        o = attention.flash_attention(q, k, v, scale=scale)
+    elif cfg.attn_impl == "flash1p":
+        o = attention.flash_attention_1pass(q, k, v, scale=scale)
+    else:  # flash_builtin: torch's fused attention, as jax's bundled kernel
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return attention.merge_heads(o)
+
+
 def _block(x: torch.Tensor, blk: dict, cfg: ViTConfig):
     d = x.shape[-1]
-    hd = d // cfg.num_heads
     qkv = fused_ln_dense(x, blk["norm1"]["scale"], blk["norm1"]["bias"],
                          blk["qkv"]["w"], blk["qkv"]["b"], eps=cfg.ln_eps)
-    merged = fused_qkv_attention(qkv, num_heads=cfg.num_heads, scale=hd ** -0.5)
-    a = torch.matmul(merged, blk["proj"]["w"]) + blk["proj"]["b"]
-    if cfg.layerscale:
-        a = a * blk["ls1"]
-    x = x + a
+    ls1 = blk["ls1"] if cfg.layerscale else torch.ones_like(blk["proj"]["b"])
+    proj = (blk["proj"]["w"], blk["proj"]["b"], ls1)
+    if cfg.attn_impl == "fusedqkv_proj":
+        x = attention.fused_qkv_attention_proj(
+            qkv, x, *proj, num_heads=cfg.num_heads,
+            scale=(d // cfg.num_heads) ** -0.5)
+    else:
+        merged = _merged_attention(qkv, cfg)
+        if cfg.proj_fused and cfg.attn_impl == "fusedqkv":
+            x = fused_dense_residual(merged, x, *proj)
+        else:
+            if cfg.proj_fused:
+                warnings.warn(
+                    f"proj_fused requested but unusable here (attn_impl="
+                    f"{cfg.attn_impl!r} (needs 'fusedqkv')); falling back to the "
+                    "plain out-projection", stacklevel=3)
+            x = dense_residual_plain(merged, x, *proj)
     ls2 = blk["ls2"] if cfg.layerscale else torch.ones_like(blk["fc2"]["b"])
     x = fused_ln_mlp(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
                      blk["fc1"]["w"], blk["fc1"]["b"], blk["fc2"]["w"],
-                     blk["fc2"]["b"], ls2, eps=cfg.ln_eps)
+                     blk["fc2"]["b"], ls2, eps=cfg.ln_eps,
+                     gelu_approx=cfg.gelu_approx)
     return x, qkv
 
 

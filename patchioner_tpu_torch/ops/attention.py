@@ -1,16 +1,27 @@
-"""Attention on the fused qkv activation (kernel B).
+"""The encoder's attention kernels: B, F, J and K.
 
-Twin of `patchioner_tpu/ops/attention.py:fused_qkv_attention`. `qkv` is the
-(B, N, 3D) output of the qkv projection, laid out (3, H, hd) on the last
-axis; the result is the merged (B, N, D) attention output. The wrapper runs
-the hand-written CUDA kernel (`csrc/qkv_attention.cu`, whose note gives the
-bound and design) on CUDA tensors and `qkv_attention_plain` on CPU tensors;
-`fused_qkv_attention.launches` counts kernel launches.
+Twins of `patchioner_tpu/ops/attention.py`:
 
-Semantics (ops/attention.py:_softmax_attend): q * scale rounded to q's
-type, f32 logits, keys at or beyond `num_real_k` masked to -1e30, exact f32
-softmax, probabilities rounded to v's type before PV, the f32 PV sum divided
-by the f32 row sum.
+- `fused_qkv_attention` (kernel B, `csrc/qkv_attention.cu`): attention read
+  from the fused (B, N, 3D) qkv activation, laid out (3, H, hd) on the last
+  axis, written as the merged (B, N, D) output;
+- `fused_qkv_attention_proj` (kernel F, `csrc/qkv_attention_proj.cu`): B
+  with the out-projection, bias, layerscale and residual add folded in;
+- `flash_attention` (kernel K, `csrc/flash_attention.cu`): online-softmax
+  attention on (B, H, N, hd) q, k and v;
+- `flash_attention_1pass` (kernel J, `csrc/flash_attention_1pass.cu`):
+  the same function with a one-pass exact softmax.
+
+Each wrapper runs its hand-written CUDA kernel (whose note gives the bound
+and design) on CUDA tensors and its plain PyTorch version on CPU tensors;
+`launches` on each wrapper counts kernel launches. The kernels take head
+dim 64 and raise on any other.
+
+Semantics (ops/attention.py:_softmax_attend, _flash_kernel): q * scale
+rounded to q's type T, f32 logits, keys at or beyond `num_real_k` masked
+to -1e30, f32 softmax, probabilities rounded to T before PV, the f32 PV sum
+divided by the f32 row sum. The plain versions take the exact softmax; K's
+online rescaling differs from it only in where p is rounded.
 """
 
 from __future__ import annotations
@@ -21,24 +32,85 @@ import torch
 
 from patchioner_tpu_torch import kernels
 
-__all__ = ["qkv_attention_plain", "fused_qkv_attention"]
+__all__ = [
+    "attention_plain",
+    "qkv_attention_plain",
+    "qkv_attention_proj_plain",
+    "fused_qkv_attention",
+    "fused_qkv_attention_proj",
+    "flash_attention",
+    "flash_attention_1pass",
+    "split_heads",
+    "merge_heads",
+]
+
+HEAD_DIM = 64
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, num_real_k: Optional[int] = None) -> torch.Tensor:
+    """(B, H, N, hd) x3 -> (B, H, N, hd) in q's type."""
+    n = k.shape[-2]
+    q = q * torch.tensor(scale, dtype=q.dtype)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))  # (B, H, N, N)
+    if num_real_k is not None and num_real_k < n:
+        s = s.masked_fill(torch.arange(n, device=q.device) >= num_real_k, -1e30)
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype)
+
+
+def split_heads(qkv: torch.Tensor, num_heads: int):
+    """(B, N, 3D) fused qkv -> q, k, v, each (B, H, N, hd) and contiguous."""
+    b, n, three_d = qkv.shape
+    hd = three_d // 3 // num_heads
+    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, hd) -> (B, N, H * hd)."""
+    b, h, n, hd = o.shape
+    return o.transpose(1, 2).reshape(b, n, h * hd)
 
 
 def qkv_attention_plain(qkv: torch.Tensor, *, num_heads: int, scale: float,
                         num_real_k: Optional[int] = None) -> torch.Tensor:
+    q, k, v = split_heads(qkv, num_heads)
+    return merge_heads(attention_plain(q, k, v, scale=scale, num_real_k=num_real_k))
+
+
+def qkv_attention_proj_plain(qkv, x_res, w_proj, b_proj, ls, *, num_heads: int,
+                             scale: float, num_real_k: Optional[int] = None):
+    """`x_res + ls * (attention(qkv) @ w_proj + b_proj)` with kernel F's
+    rounding points (ops/attention.py:_fusedqkv_proj_kernel): each head's
+    output rounded to T, the out-projection summed in f32 over all heads,
+    bias, layerscale and residual added in f32, one rounding at the end."""
+    merged = qkv_attention_plain(qkv, num_heads=num_heads, scale=scale,
+                                 num_real_k=num_real_k)
+    acc = torch.matmul(merged.float(), w_proj.float())
+    out = x_res.float() + (acc + b_proj.float()) * ls.float()
+    return out.to(x_res.dtype)
+
+
+def _num_real_k(num_real_k, n, name):
+    nrk = n if num_real_k is None else int(num_real_k)
+    if not 1 <= nrk <= n:
+        raise ValueError(f"{name}: num_real_k={nrk} not in [1, {n}]")
+    return nrk
+
+
+def _qkv_heads(name, qkv, num_heads):
+    if qkv.dim() != 3:
+        raise ValueError(f"{name}: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
     d = three_d // 3
-    hd = d // num_heads
-    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q = q * torch.tensor(scale, dtype=qkv.dtype)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))  # (B, H, N, N)
-    if num_real_k is not None and num_real_k < n:
-        s = s.masked_fill(torch.arange(n, device=qkv.device) >= num_real_k, -1e30)
-    s = s - s.amax(-1, keepdim=True)
-    p = torch.exp(s)
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / l
-    return o.to(qkv.dtype).transpose(1, 2).reshape(b, n, d)
+    if d * 3 != three_d or d % num_heads or d // num_heads != HEAD_DIM:
+        raise ValueError(f"{name}: needs head_dim {HEAD_DIM}, got 3D={three_d}, "
+                         f"heads={num_heads}")
+    return b, n, d
 
 
 def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, scale: float,
@@ -47,28 +119,96 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, scale: float,
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads=num_heads, scale=scale,
                                    num_real_k=num_real_k)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_attention: no kernel for {qkv.device}")
-    if qkv.dim() != 3 or not qkv.is_contiguous():
-        raise ValueError("fused_qkv_attention: qkv must be contiguous (B, N, 3D)")
-    b, n, three_d = qkv.shape
-    d = three_d // 3
-    if d * 3 != three_d or d % num_heads or d // num_heads != 64:
-        raise ValueError(
-            f"fused_qkv_attention: needs head_dim 64, got 3D={three_d}, "
-            f"heads={num_heads}"
-        )
-    nrk = n if num_real_k is None else int(num_real_k)
-    if not 1 <= nrk <= n:
-        raise ValueError(f"fused_qkv_attention: num_real_k={nrk} not in [1, {n}]")
-    code = kernels.dtype_code(qkv)
+    kernels.check_operands("fused_qkv_attention", qkv)
+    b, n, d = _qkv_heads("fused_qkv_attention", qkv, num_heads)
+    nrk = _num_real_k(num_real_k, n, "fused_qkv_attention")
     out = torch.empty(b, n, d, device=qkv.device, dtype=qkv.dtype)
-    kernels.launch(
-        "pt_qkv_attention", qkv.data_ptr(), out.data_ptr(), b, n, num_heads,
-        nrk, float(scale), code,
-    )
+    kernels.launch("pt_qkv_attention", qkv.data_ptr(), out.data_ptr(), b, n,
+                   num_heads, nrk, float(scale), kernels.dtype_code(qkv))
     fused_qkv_attention.launches += 1
     return out
 
 
 fused_qkv_attention.launches = 0
+
+
+def fused_qkv_attention_proj(qkv, x_res, w_proj, b_proj, ls, *, num_heads: int,
+                             scale: float, num_real_k: Optional[int] = None):
+    """Kernel F on CUDA tensors, `qkv_attention_proj_plain` on CPU tensors.
+    `ls` is the (D,) layerscale (ones when the block has none)."""
+    kw = dict(num_heads=num_heads, scale=scale, num_real_k=num_real_k)
+    if qkv.device.type == "cpu":
+        return qkv_attention_proj_plain(qkv, x_res, w_proj, b_proj, ls, **kw)
+    name = "fused_qkv_attention_proj"
+    kernels.check_operands(name, qkv, x_res, w_proj, b_proj, ls)
+    b, n, d = _qkv_heads(name, qkv, num_heads)
+    if (x_res.shape != (b, n, d) or w_proj.shape != (d, d) or d > 768
+            or b_proj.shape != (d,) or ls.shape != (d,)
+            or (qkv.dtype == torch.bfloat16 and num_heads % 2)):
+        raise ValueError(
+            f"{name}: needs x_res (B, N, D), w_proj (D, D), b_proj and ls (D,) "
+            f"with D <= 768, and an even head count in bfloat16; got qkv "
+            f"{tuple(qkv.shape)} with {num_heads} heads, x_res "
+            f"{tuple(x_res.shape)}, w_proj {tuple(w_proj.shape)}")
+    nrk = _num_real_k(num_real_k, n, name)
+    out = torch.empty_like(x_res)
+    kernels.launch("pt_qkv_attention_proj",
+                   *(t.data_ptr() for t in (qkv, x_res, w_proj, b_proj, ls, out)),
+                   b, n, num_heads, nrk, float(scale), kernels.dtype_code(qkv))
+    fused_qkv_attention_proj.launches += 1
+    return out
+
+
+fused_qkv_attention_proj.launches = 0
+
+
+def _bhnd(name, q, k, v):
+    kernels.check_operands(name, q, k, v)
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape \
+            or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: needs q, k, v of one shape (B, H, N, "
+                         f"{HEAD_DIM}); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return q.shape
+
+
+def flash_attention(q, k, v, *, scale: float, num_real_k: Optional[int] = None):
+    """Kernel K on CUDA tensors, `attention_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale=scale, num_real_k=num_real_k)
+    b, h, n, _ = _bhnd("flash_attention", q, k, v)
+    nrk = _num_real_k(num_real_k, n, "flash_attention")
+    out = torch.empty_like(q)
+    kernels.launch("pt_flash_attention",
+                   *(t.data_ptr() for t in (q, k, v, out)), b * h, n, nrk,
+                   float(scale), kernels.dtype_code(q))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+# J keeps a 16-query tile's whole f32 logit rows in shared memory beside
+# eight 64-key tiles: 16 x 2432 x 4 B + 74 KB fills the SM's 227 KB
+FLASH1P_MAX_N = 2432
+
+
+def flash_attention_1pass(q, k, v, *, scale: float,
+                          num_real_k: Optional[int] = None):
+    """Kernel J on CUDA tensors, `attention_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale=scale, num_real_k=num_real_k)
+    b, h, n, _ = _bhnd("flash_attention_1pass", q, k, v)
+    if n > FLASH1P_MAX_N:
+        raise ValueError(f"flash_attention_1pass: N={n} > {FLASH1P_MAX_N}: the "
+                         "logit rows do not fit in shared memory")
+    nrk = _num_real_k(num_real_k, n, "flash_attention_1pass")
+    out = torch.empty_like(q)
+    kernels.launch("pt_flash_attention_1pass",
+                   *(t.data_ptr() for t in (q, k, v, out)), b * h, n, nrk,
+                   float(scale), kernels.dtype_code(q))
+    flash_attention_1pass.launches += 1
+    return out
+
+
+flash_attention_1pass.launches = 0

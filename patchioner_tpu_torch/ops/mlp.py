@@ -1,15 +1,17 @@
-"""LN + dense (kernel A) and LN + MLP (kernel C) of the ViT encoder block.
+"""LN + dense (kernel A), dense + layerscale + residual (kernel E) and
+LN + MLP (kernel C) of the ViT encoder block.
 
-Twins of `patchioner_tpu/ops/mlp.py:fused_ln_dense` and `fused_ln_mlp`.
-Each wrapper runs its hand-written CUDA kernel (`csrc/ln_dense.cu`,
-`csrc/ln_mlp.cu`, whose notes give the bound and design) on CUDA tensors
-and its plain PyTorch version on CPU tensors. `launches` on each wrapper
-counts kernel launches.
+Twins of `patchioner_tpu/ops/mlp.py:fused_ln_dense`, `fused_dense_residual`
+and `fused_ln_mlp`. Each wrapper runs its hand-written CUDA kernel
+(`csrc/ln_dense.cu` for A and E, `csrc/ln_mlp.cu`, whose notes give the
+bound and design) on CUDA tensors and its plain PyTorch version on CPU
+tensors. `launches` on each wrapper counts kernel launches.
 
 Rounding points follow the reference kernels (ops/mlp.py:_kernel,
-_ln_dense_kernel): f32 two-pass LN statistics, LN output rounded to the
-activation type T before a product, every product's f32 sum rounded to T
-before its bias, GELU (exact erf) in f32.
+_ln_dense_kernel, _dense_res_kernel): f32 two-pass LN statistics, LN
+output rounded to the activation type T before a product, every product's
+f32 sum rounded to T before its bias, each elementwise step after it
+rounded to T, GELU (exact erf, or tanh with `gelu_approx`) in f32.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ __all__ = [
     "ln_rows",
     "ln_dense_plain",
     "ln_mlp_plain",
+    "dense_residual_plain",
     "fused_ln_dense",
     "fused_ln_mlp",
+    "fused_dense_residual",
 ]
 
 
@@ -45,35 +49,30 @@ def ln_dense_plain(x, ln_scale, ln_bias, w, bias, *, eps: float):
     return torch.matmul(y, w) + bias
 
 
-def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float):
+def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
+                 gelu_approx: bool = False):
     """`x + ls * fc2(GELU(fc1(LN(x))))`. The order of operations is the one
     kernel C follows: the fc2 product is summed in f32 over the whole
-    hidden axis before it is rounded to T."""
+    hidden axis before it is rounded to T. `gelu_approx` takes the tanh
+    GELU of `jax.nn.gelu(approximate=True)` in place of the exact erf."""
     y = ln_rows(x, ln_scale, ln_bias, eps)
     h = torch.matmul(y, w1) + b1
-    h = F.gelu(h.float()).to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh" if gelu_approx else "none").to(x.dtype)
     o = torch.matmul(h, w2) + b2
     return x + o * ls
 
 
-def _check_cuda(name, x, *params):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    for t in (x, *params):
-        if t.device != x.device or t.dtype != x.dtype:
-            raise ValueError(
-                f"{name}: every operand must be {x.dtype} on {x.device}, "
-                f"got {t.dtype} on {t.device}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
+def dense_residual_plain(x, residual, w, bias, ls):
+    """`residual + ls * (x @ w + bias)`, (B, N, D) x (D, O) -> (B, N, O):
+    the product's f32 sum rounded to T, then each step rounded to T."""
+    return residual + (torch.matmul(x, w) + bias) * ls
 
 
 def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
     """Kernel A on CUDA tensors, `ln_dense_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return ln_dense_plain(x, ln_scale, ln_bias, w, bias, eps=eps)
-    _check_cuda("fused_ln_dense", x, ln_scale, ln_bias, w, bias)
+    kernels.check_operands("fused_ln_dense", x, ln_scale, ln_bias, w, bias)
     d, o = w.shape
     if x.shape[-1] != d or (x.dtype == torch.bfloat16 and (d % 64 or o % 128)):
         raise ValueError(
@@ -94,11 +93,13 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
 fused_ln_dense.launches = 0
 
 
-def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float):
+def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
+                 gelu_approx: bool = False):
     """Kernel C on CUDA tensors, `ln_mlp_plain` on CPU tensors."""
     if x.device.type == "cpu":
-        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps=eps)
-    _check_cuda("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
+        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps=eps,
+                            gelu_approx=gelu_approx)
+    kernels.check_operands("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
     d = x.shape[-1]
     h = w1.shape[1]
     align = 128 if x.dtype == torch.bfloat16 else 32
@@ -111,10 +112,38 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float):
     kernels.launch(
         "pt_ln_mlp", *(t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1,
                                                w2, b2, ls, out)),
-        x.numel() // d, d, h, float(eps), kernels.dtype_code(x),
+        x.numel() // d, d, h, float(eps), int(bool(gelu_approx)),
+        kernels.dtype_code(x),
     )
     fused_ln_mlp.launches += 1
     return out
 
 
 fused_ln_mlp.launches = 0
+
+
+def fused_dense_residual(x, residual, w, bias, ls):
+    """Kernel E on CUDA tensors, `dense_residual_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return dense_residual_plain(x, residual, w, bias, ls)
+    kernels.check_operands("fused_dense_residual", x, residual, w, bias, ls)
+    d, o = w.shape
+    if (x.shape[-1] != d or residual.shape != (*x.shape[:-1], o)
+            or (x.dtype == torch.bfloat16 and (d % 64 or o % 128))):
+        raise ValueError(
+            f"fused_dense_residual: needs x (..., D), w (D, O), residual "
+            f"(..., O), with D % 64 == 0 and O % 128 == 0 in bfloat16; got x "
+            f"{tuple(x.shape)}, w {tuple(w.shape)}, residual "
+            f"{tuple(residual.shape)}"
+        )
+    out = torch.empty_like(residual)
+    kernels.launch(
+        "pt_dense_residual", *(t.data_ptr() for t in (x, residual, w, bias, ls,
+                                                      out)),
+        x.numel() // d, d, o, kernels.dtype_code(x),
+    )
+    fused_dense_residual.launches += 1
+    return out
+
+
+fused_dense_residual.launches = 0

@@ -1,10 +1,12 @@
 """Where the time of one flagship batch goes in the PyTorch port, on a card.
 
-    python3 -m scripts.profile_torch_flagship     # from the repo root
+    python3 -m scripts.profile_torch_flagship             # every configuration
+    python3 -m scripts.profile_torch_flagship flash ...   # the ones named
 
 Builds the flagship model of `chip_smoke.py` (ViT-B/14-reg at 518 px, the
-591,753-row bank, 30-step DeCap decode, seeded random bf16 weights) and
-captions one batch of 8 trace requests:
+591,753-row bank, 30-step DeCap decode, seeded random bf16 weights), once
+for each attention configuration of its encoder (`fusedqkv` and the ones
+of `chip_smoke.CONFIGS`), and captions one batch of 8 trace requests:
 
 - the stage split (encoder, trace pooling + memory projection, decode)
   with CUDA events, over 5 batches;
@@ -18,6 +20,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -50,39 +53,57 @@ def stage_ms(model, imgs, pts, valid) -> list:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_flagship: needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    model = Patchioner.from_config(chip_smoke.FLAGSHIP_CONFIG, allow_missing_weights=True,
+def profile_config(label: str, opts: dict, smi: str) -> None:
+    model = Patchioner.from_config(dict(chip_smoke.FLAGSHIP_CONFIG, **opts),
+                                   allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     imgs, traces = chip_smoke._requests(chip_smoke.B, 0)
     pts, valid = chip_smoke._padded(traces)
     model.caption_traces_fused(imgs, pts, valid)  # first-call set-up
     pts_d, valid_d = torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda()
     stages = [stage_ms(model, imgs, pts_d, valid_d) for _ in range(5)]
-    print("stage ms (encoder, pooling + projection, decode), 5 batches:",
-          json.dumps(stages))
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model.caption_traces_fused(imgs, pts, valid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+    print(f"== {label} {opts}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=8))
     # only the device's own events: an operator's row repeats the time of
     # the kernels it launched
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    print(json.dumps({"profiled_batch_wall_ms": wall_ms, "device_ms": device_ms,
+    print(json.dumps({"config": label,
+                      "stage_ms (encoder, pooling + projection, decode), 5 batches": stages,
+                      "profiled_batch_wall_ms": wall_ms, "device_ms": device_ms,
                       "idle_share": 1 - device_ms / wall_ms,
                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "card": smi}))
+    del model
+    torch.cuda.empty_cache()
+
+
+def main() -> None:
+    configs = {"fusedqkv": {"attn_impl": "fusedqkv"}, **chip_smoke.CONFIGS}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("configs", nargs="*",
+                    help=f"any of {', '.join(configs)}; every one when none is named")
+    args = ap.parse_args()
+    unknown = sorted(set(args.configs) - set(configs))
+    if unknown:
+        ap.error(f"unknown configurations {unknown}")
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_flagship: needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    for label in args.configs or configs:
+        profile_config(label, configs[label], smi)
 
 
 if __name__ == "__main__":

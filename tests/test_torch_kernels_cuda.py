@@ -71,9 +71,10 @@ def test_ln_dense_kernel(cuda, dtype, o):
     _check(got, mlp.ln_dense_plain(*args, eps=1e-6), dtype)
 
 
+@pytest.mark.parametrize("gelu_approx", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [256, 96])
-def test_ln_mlp_kernel(cuda, dtype, d):
+def test_ln_mlp_kernel(cuda, dtype, d, gelu_approx):
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = 4 * d
     args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
@@ -87,8 +88,9 @@ def test_ln_mlp_kernel(cuda, dtype, d):
         with pytest.raises(ValueError, match="D % 128"):
             mlp.fused_ln_mlp(*args, eps=1e-6)
         return
-    got = _counted(mlp.fused_ln_mlp, lambda: mlp.fused_ln_mlp(*args, eps=1e-6))
-    _check(got, mlp.ln_mlp_plain(*args, eps=1e-6), dtype)
+    kw = dict(eps=1e-6, gelu_approx=gelu_approx)
+    got = _counted(mlp.fused_ln_mlp, lambda: mlp.fused_ln_mlp(*args, **kw))
+    _check(got, mlp.ln_mlp_plain(*args, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -100,6 +102,54 @@ def test_qkv_attention_kernel(cuda, dtype, n, num_real_k):
     got = _counted(attention.fused_qkv_attention,
                    lambda: attention.fused_qkv_attention(qkv, **kw))
     _check(got, attention.qkv_attention_plain(qkv, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("o", [256, 320])
+def test_dense_residual_kernel(cuda, dtype, o):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args = (_randn(gen, 2, 77, 128, dtype=dtype), _randn(gen, 2, 77, o, dtype=dtype),
+            _randn(gen, 128, o, dtype=dtype, scale=128 ** -0.5),
+            _randn(gen, o, dtype=dtype, scale=0.1),
+            1 + _randn(gen, o, dtype=dtype, scale=0.1))  # per-channel layerscale
+    if dtype == torch.bfloat16 and o % 128:  # the tensor-core tile's width
+        with pytest.raises(ValueError, match="O % 128"):
+            mlp.fused_dense_residual(*args)
+        return
+    got = _counted(mlp.fused_dense_residual, lambda: mlp.fused_dense_residual(*args))
+    _check(got, mlp.dense_residual_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [4, 3])
+@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)])
+def test_qkv_attention_proj_kernel(cuda, dtype, heads, n, num_real_k):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d = heads * 64
+    args = (_randn(gen, 2, n, 3 * d, dtype=dtype), _randn(gen, 2, n, d, dtype=dtype),
+            _randn(gen, d, d, dtype=dtype, scale=d ** -0.5),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            1 + _randn(gen, d, dtype=dtype, scale=0.1))
+    kw = dict(num_heads=heads, scale=0.125, num_real_k=num_real_k)
+    if dtype == torch.bfloat16 and heads % 2:  # the tensor-core kernel's head pairs
+        with pytest.raises(ValueError, match="even head count"):
+            attention.fused_qkv_attention_proj(*args, **kw)
+        return
+    got = _counted(attention.fused_qkv_attention_proj,
+                   lambda: attention.fused_qkv_attention_proj(*args, **kw))
+    _check(got, attention.qkv_attention_proj_plain(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_1pass"])
+def test_flash_attention_kernels(cuda, dtype, n, num_real_k, name):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (_randn(gen, 2, 3, n, 64, dtype=dtype) for _ in range(3))
+    wrapper = getattr(attention, name)
+    kw = dict(scale=0.125, num_real_k=num_real_k)
+    got = _counted(wrapper, lambda: wrapper(q, k, v, **kw))
+    _check(got, attention.attention_plain(q, k, v, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -121,9 +171,13 @@ def test_memory_project_kernel(cuda, dtype, normalize):
            torch.float32)
 
 
-def test_slice_on_the_card_matches_the_cpu(cuda):
+@pytest.mark.parametrize("opts", [
+    {}, {"attn_impl": "fusedqkv", "proj_fused": True, "gelu_approx": True},
+    {"attn_impl": "fusedqkv_proj"}, {"attn_impl": "flash"},
+    {"attn_impl": "flash1p"}, {"attn_impl": "flash_builtin"}], ids=str)
+def test_slice_on_the_card_matches_the_cpu(cuda, opts):
     cfg = vit.ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2,
-                        num_registers=4, extract_heads=4, pos_grid=4)
+                        num_registers=4, extract_heads=4, pos_grid=4, **opts)
     gcfg = gpt2.GPT2Config(vocab_size=1000, n_positions=64, n_embd=128,
                            n_layer=2, n_head=4)
     gen = torch.Generator().manual_seed(4)
@@ -133,7 +187,7 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     decoder = decap.init_decap(gcfg, 128, gen)
     bank = mp.prepare_bank(torch.randn(300, 128, generator=gen))
     state = entry.make_state(params, decoder, bank)
-    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=5)
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=5, device="cpu")
     step = entry.make_prefix_step(cfg, bank.num_real)
     ref = step(state, *inputs)
     gpu_state = {k: v for k, v in state.items() if k not in ("vit", "decoder")}

@@ -86,3 +86,35 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
     args = [t.to("meta") for t in _t(*_mlp_inputs(np.random.default_rng(5), n=8))]
     with pytest.raises(ValueError, match="no kernel"):
         mlp.fused_ln_mlp(*args, eps=1e-6)
+
+
+def test_ln_mlp_plain_takes_the_tanh_gelu_of_the_pallas_kernel():
+    args = _mlp_inputs(np.random.default_rng(6))
+    got = mlp.fused_ln_mlp(*_t(*args), eps=1e-6, gelu_approx=True).numpy()
+    x, g, bg, w1, b1, w2, b2, ls = map(jnp.asarray, args)
+    want = jmlp.fused_ln_mlp(x, g, bg, w1, b1, w2, b2, ls, eps=1e-6,
+                             gelu_approx=True, block_q=128, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+    exact = mlp.fused_ln_mlp(*_t(*args), eps=1e-6).numpy()
+    assert np.max(np.abs(got - exact)) > 10 * TOL  # a different function
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_residual_plain_matches_pallas_kernel(dtype):
+    # f32: summation order only; bf16: max|d| / max|ref| <= 2e-2, a few
+    # bf16 rounding boundaries (2^-8 relative) crossed in another order
+    rng = np.random.default_rng(7)
+    x, r = _arr(rng, 2, 256, 128), _arr(rng, 2, 256, 256)
+    w, b = _arr(rng, 128, 256, scale=128 ** -0.5), _arr(rng, 256, scale=0.1)
+    ls = rng.uniform(0.5, 1.5, 256).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jmlp.fused_dense_residual(
+        *(jnp.asarray(a, jdt) for a in (x, r, w, b, ls)), block_q=128,
+        interpret=True).astype(jnp.float32))
+    got = mlp.fused_dense_residual(*(torch.from_numpy(a).to(tdt)
+                                     for a in (x, r, w, b, ls))).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    else:
+        assert np.max(np.abs(got - want)) <= 2e-2 * np.max(np.abs(want))

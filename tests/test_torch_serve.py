@@ -80,7 +80,8 @@ def test_port_model_captions_identically_behind_both_servers():
            "dino_geometry": {"embed_dim": 64, "depth": 1, "num_heads": 1,
                              "extract_heads": 1},
            "decap_arch": {"n_layer": 1, "n_embd": 64, "n_head": 1, "vocab_size": 49408}}
-    model = Patchioner.from_config(cfg, allow_missing_weights=True, rng_seed=3)
+    model = Patchioner.from_config(cfg, allow_missing_weights=True, rng_seed=3,
+                                   device="cpu")
     imgs, traces = _requests(1, n=5)
     caps = []
     for cls in SERVERS:

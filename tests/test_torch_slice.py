@@ -22,6 +22,7 @@ from patchioner_tpu.models import vit as jvit
 from patchioner_tpu.ops import memory_projection as jmp
 from patchioner_tpu.serve import CaptionServer
 from patchioner_tpu_torch import entry
+from patchioner_tpu_torch import serve
 from patchioner_tpu_torch.io import bridge
 from patchioner_tpu_torch.models import gpt2, talk2dino, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
@@ -56,7 +57,7 @@ def jax_slice():
 
 def test_caption_step_matches_jax_entry_at_f32(jax_slice):
     cfg, gcfg = vit.ViTConfig(**VIT_GEOM), gpt2.GPT2Config(**GPT_GEOM)
-    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=4)
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=4, device="cpu")
     prefix = entry.make_prefix_step(cfg, jax_slice["num_real"])(jax_slice["state"], *inputs)
     ref = jax_slice["prefix"]
     # the gate __graft_entry__ uses for sharded-vs-single prefixes
@@ -87,7 +88,7 @@ def test_prefix_step_applies_the_inversion_when_the_state_has_one(jax_slice):
     rng = np.random.default_rng(6)
     inv = talk2dino.build_inversion(
         {"linear": {"w": rng.standard_normal((64, 128)), "b": rng.standard_normal(128)}})
-    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=4)
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=4, device="cpu")
     step = entry.make_prefix_step(cfg, jax_slice["num_real"])
     plain = step(jax_slice["state"], *inputs)
     inverted = step(dict(jax_slice["state"], inversion=inv), *inputs)
@@ -104,7 +105,7 @@ SERVER_CONFIG = {
 
 def test_port_model_answers_through_caption_server():
     model = Patchioner.from_config(SERVER_CONFIG, allow_missing_weights=True,
-                                   random_bank_size=256)
+                                   random_bank_size=256, device="cpu")
     assert model.supports_fused_trace_path() and model.crop_dim == 140
     rng = np.random.default_rng(7)
     imgs = rng.integers(0, 256, (5, 140, 140, 3), dtype=np.uint8)
@@ -136,7 +137,8 @@ def test_chip_smoke_config_is_configs_mlp_k_yaml():
 @pytest.mark.parametrize("path", ["mlp.k.yaml", "mlp.k.tpu-serving.yaml"])
 def test_shipped_flagship_configs_build(path):
     model = Patchioner.from_config(os.path.join(REPO, "configs", path),
-                                   allow_missing_weights=True, random_bank_size=8)
+                                   allow_missing_weights=True, random_bank_size=8,
+                                   device="cpu")
     assert model.vit_cfg.num_tokens == 1374 and model.bank.num_real == 8
 
 
@@ -145,18 +147,19 @@ def test_shipped_flagship_configs_build(path):
     {"attention_type": "kkv"}, {"dino_model": "dinov2_vitg14_reg"},
     {"dino_model": "vit_base_patch16_clip_224.openai"},
     {"memory_bank_int8": True}, {"calculate_argmax_text": True},
-    {"attn_impl": "flash"}, {"gelu_approx": True},
+    {"encoder_w8a8": True}, {"softmax_f32": False},
     {"memory_bank_path": "bank.h5"}, {"an_unknown_key": 1},
 ])
 def test_keys_outside_the_subset_raise(extra):
     with pytest.raises(NotImplementedError):
         Patchioner.from_config(dict(SERVER_CONFIG, **extra),
-                               allow_missing_weights=True, random_bank_size=8)
+                               allow_missing_weights=True, random_bank_size=8,
+                               device="cpu")
 
 
 def test_missing_weights_need_the_explicit_opt_in():
     with pytest.raises(FileNotFoundError):
-        Patchioner.from_config(SERVER_CONFIG, random_bank_size=8)
+        Patchioner.from_config(SERVER_CONFIG, random_bank_size=8, device="cpu")
 
 
 _NO_JAX = """
@@ -168,7 +171,7 @@ cfg = {"dino_model": "dinov2_vits14_reg", "crop_dim": 28, "prefix_size": 64,
        "support_memory_size": 16, "dino_geometry": {"embed_dim": 64, "depth": 1,
        "num_heads": 1, "extract_heads": 1}, "decap_arch": {"n_layer": 1, "n_embd": 64, "n_head": 1,
        "vocab_size": 49408}}
-m = Patchioner.from_config(cfg, allow_missing_weights=True)
+m = Patchioner.from_config(cfg, allow_missing_weights=True, device="cpu")
 caps = m.caption_traces_fused(np.zeros((2, 28, 28, 3), np.uint8),
                               np.full((2, 4, 2), 0.5, np.float32), np.ones((2, 4), np.float32))
 assert len(caps) == 2
@@ -200,3 +203,105 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_vit_l_is_refused_until_kernel_c_takes_d_1024():
+    for variant in ("dinov2_vitl14", "dinov2_vitl14_reg"):
+        with pytest.raises(NotImplementedError, match="kernel C"):
+            Patchioner.from_config(dict(SERVER_CONFIG, dino_model=variant),
+                                   allow_missing_weights=True, random_bank_size=8,
+                                   device="cpu")
+
+
+_NO_CARD = """
+from patchioner_tpu_torch import entry
+from patchioner_tpu_torch.models.patchioner import Patchioner
+cfg = {"dino_model": "dinov2_vits14_reg", "crop_dim": 28, "prefix_size": 64,
+       "support_memory_size": 16}
+for call in (lambda: Patchioner.from_config(cfg, allow_missing_weights=True),
+             lambda: entry.example_inputs(1, img=28)):
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran without a card")
+"""
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", _NO_CARD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("raised:") == 2 and "device='cpu'" in proc.stdout
+    assert "ran without a card" not in proc.stdout
+
+
+# every attention configuration the port accepts, through from_config at the
+# reduced geometry of the JAX slice above (bridged weights, layerscale near
+# 1 so that the attention half moves the residual stream)
+SLICE_CONFIGS = [
+    {"attn_impl": "fusedqkv", "gelu_approx": True},
+    {"attn_impl": "fusedqkv", "proj_fused": True},
+    {"attn_impl": "fusedqkv_proj"},
+    {"attn_impl": "flash"},
+    {"attn_impl": "flash1p"},
+    {"attn_impl": "flash_builtin"},
+]
+TINY_CONFIG = {
+    "dino_model": "dinov2_vitb14_reg", "crop_dim": 56, "prefix_size": 128,
+    "support_memory_size": 200, "normalize": True,
+    "dino_geometry": {k: VIT_GEOM[k] for k in ("embed_dim", "depth", "num_heads",
+                                               "extract_heads", "pos_grid")},
+}
+
+
+@pytest.fixture(scope="module")
+def jax_weights():
+    sys.path.insert(0, REPO)
+    import __graft_entry__ as ge
+
+    vparams = jvit.init_vit(jax.random.PRNGKey(7), jvit.ViTConfig(**VIT_GEOM))
+    ls = np.random.default_rng(8).uniform(0.5, 1.5, (2, 2, 128)).astype(np.float32)
+    vparams["blocks"] = [dict(b, ls1=jnp.asarray(ls[i, 0]), ls2=jnp.asarray(ls[i, 1]))
+                         for i, b in enumerate(vparams["blocks"])]
+    dec = jdecap.init_decap(jax.random.PRNGKey(9), jgpt2.GPT2Config(**GPT_GEOM),
+                            prefix_size=128)
+    rows = np.random.default_rng(10).standard_normal((200, 128)).astype(np.float32)
+    return ge, vparams, dec, jmp.prepare_bank(jnp.asarray(rows), block_m=128)
+
+
+@pytest.mark.parametrize("opts", SLICE_CONFIGS, ids=lambda o: "-".join(
+    f"{k}={v}" for k, v in o.items()))
+def test_each_attention_config_is_token_exact_and_serves(opts, jax_weights):
+    from jax.experimental.pallas import tpu as pltpu
+
+    ge, vparams, dec, bank = jax_weights
+    jcfg, jg = jvit.ViTConfig(**VIT_GEOM, **opts), jgpt2.GPT2Config(**GPT_GEOM)
+    inputs = ge.example_inputs(batch=3, img=56, n_pts=16, seed=11)
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = ge.make_caption_step(jcfg, jg, False, bank.num_real)(
+            ge.make_state(vparams, dec, bank), *inputs)
+
+    built = Patchioner.from_config(dict(TINY_CONFIG, **opts), allow_missing_weights=True,
+                                   random_bank_size=8, device="cpu")
+    cfg = built.vit_cfg
+    assert (cfg.attn_impl, cfg.proj_fused, cfg.gelu_approx) == (
+        opts["attn_impl"], opts.get("proj_fused", False), opts.get("gelu_approx", False))
+    gcfg = gpt2.GPT2Config(**GPT_GEOM)
+    model = Patchioner(vit_cfg=cfg, vit_params=bridge.vit_from_jax(vparams, cfg),
+                       gpt2_cfg=gcfg, decoder=bridge.decap_from_jax(dec),
+                       bank=bridge.bank_from_jax(bank), config=built.config,
+                       device="cpu")
+    step = entry.make_caption_step(cfg, gcfg, bank.num_real)
+    tokens, _ = step(model.state(), *entry.example_inputs(batch=3, img=56, n_pts=16,
+                                                          seed=11, device="cpu"))
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+
+    rng = np.random.default_rng(12)
+    imgs = rng.integers(0, 256, (3, 56, 56, 3), dtype=np.uint8)
+    traces = [rng.uniform(0, 1, (5, 2)).tolist() for _ in range(3)]
+    with serve.CaptionServer(model, max_batch=4, max_delay_ms=50.0) as server:
+        caps = server.caption(imgs, traces, timeout=120)
+    assert len(caps) == 3 and all(isinstance(c, str) for c in caps)

@@ -92,3 +92,58 @@ def test_trace_pool_divides_by_the_full_grid(with_attn):
     got = rp.trace_pool(torch.from_numpy(tokens), torch.from_numpy(grid),
                         None if attn is None else torch.from_numpy(attn))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+# every attention configuration of the encoder: the attn_impl, proj_fused
+# and gelu_approx keys that select the port's kernels B, E, F, J, K (and
+# torch's fused attention for flash_builtin) against the JAX encoder with
+# its Pallas kernels in interpret mode; JAX's own gate for these impls
+# (tests/test_attention.py), f32 both sides
+ENCODER_CONFIGS = [
+    dict(attn_impl="fusedqkv", gelu_approx=True),
+    dict(attn_impl="fusedqkv", proj_fused=True),
+    dict(attn_impl="fusedqkv_proj"),
+    dict(attn_impl="flash"),
+    dict(attn_impl="flash1p"),
+    dict(attn_impl="flash_builtin"),
+]
+
+
+@pytest.mark.parametrize("opts", ENCODER_CONFIGS, ids=lambda o: "-".join(
+    f"{k}={v}" for k, v in o.items()))
+def test_vit_forward_matches_jax_per_attention_config(opts):
+    from jax.experimental.pallas import tpu as pltpu
+
+    geom = dict(img_size=56, embed_dim=128, depth=2, num_heads=2, num_registers=4,
+                extract_heads=4, pos_grid=4)
+    jcfg = jvit.ViTConfig(**geom, **opts)
+    params = jvit.init_vit(jax.random.PRNGKey(2), jcfg)
+    ls = np.random.default_rng(3).uniform(0.5, 1.5, (2, 2, 128)).astype(np.float32)
+    params["blocks"] = [dict(b, ls1=jnp.asarray(ls[i, 0]), ls2=jnp.asarray(ls[i, 1]))
+                        for i, b in enumerate(params["blocks"])]
+    pixels = np.random.default_rng(4).standard_normal((2, 56, 56, 3)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jvit.vit_forward(params, jnp.asarray(pixels), jcfg)
+    cfg = vit.ViTConfig(**geom, **opts)
+    got = vit.vit_forward(bridge.vit_from_jax(params, cfg), torch.from_numpy(pixels), cfg)
+    for key in ("x_norm_patchtokens", "x_norm_clstoken", "qkv_last"):
+        assert got[key].shape == want[key].shape, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=5e-4, atol=5e-5, err_msg=key)
+
+
+def test_proj_fused_outside_fusedqkv_warns_and_runs_the_plain_projection():
+    geom = dict(img_size=28, embed_dim=128, depth=1, num_heads=2, num_registers=0,
+                extract_heads=2, pos_grid=2)
+    cfg = vit.ViTConfig(**geom, attn_impl="flash", proj_fused=True)
+    params = vit.init_vit(cfg, torch.Generator().manual_seed(0))
+    pixels = torch.randn(1, 28, 28, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.warns(UserWarning, match="proj_fused"):
+        got = vit.vit_forward(params, pixels, cfg)
+    want = vit.vit_forward(params, pixels, vit.ViTConfig(**geom, attn_impl="flash"))
+    torch.testing.assert_close(got["x_prenorm"], want["x_prenorm"], rtol=0, atol=0)
+
+
+def test_an_unknown_attn_impl_is_refused():
+    with pytest.raises(ValueError, match="attn_impl"):
+        vit.ViTConfig(attn_impl="flash2")
