@@ -10,22 +10,31 @@ then exits non-zero without the final result line:
    power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from `patchioner_tpu_torch/csrc`, one
    nvcc process per source, all started together;
-3. kernels: each kernel (A-F, J, K, and C with the tanh GELU) against its
-   plain PyTorch version on the card, in float32 (TF32 off) and bfloat16,
-   at the main path's shapes (B = 8, N = 1374, D = 768, 12 heads of 64,
-   the full 591,753-row bank), with CUDA-event timings, the least time the
-   card could take for the same work, and torch's
+3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
+   PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
+   shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
+   heads of 64, the full 591,753-row bank, in int8 for H), ViT-g's for G
+   (D = 1536, SwiGLU hidden 4096) and for D over giant's 1536-wide bank,
+   and the flagship MLP's for I (int8 weights), with CUDA-event timings,
+   the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
-   kernels' library yardstick;
+   kernels' library yardstick. No model path reaches I: its launches are
+   this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
    bfloat16; the kernels' launch counters prove the path ran through them;
 4b. the same for each further attention configuration of the encoder
    (`proj_fused`, `fusedqkv_proj`, `flash`, `flash1p`, `flash_builtin`):
    one batch of 8 served, the launch counters of its kernels asserted;
+4c. giant: ViT-g/14-reg at full width (40 layers, D = 1536, 24 heads,
+   SwiGLU FFN) with the 591,753 x 1536 bank, one batch of 8 served: A, B
+   and G 40 launches a batch, D one;
+4d. int8 bank: the flagship with `memory_bank_int8: true`, one batch of 8
+   served: H one launch a batch, D none;
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
-   drawn near 1 so that the kernels move the residual stream;
+   drawn near 1 so that the kernels move the residual stream, for the
+   flagship, the int8-bank flagship and giant cut to 4 layers (full width);
 5b. the same gate between each further attention configuration's prefix
    and the `fusedqkv` one's, both on the card.
 
@@ -60,6 +69,8 @@ FLAGSHIP_CONFIG = {
     "attention_type": "qkv",
     "projection_type": "coco",
 }
+# ViT-g/14 with registers: the bank and prefix live in encoder space
+GIANT_CONFIG = dict(FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg", prefix_size=1536)
 
 # Max |kernel - plain| over max |plain|. float32: the two differ only in the
 # order of f32 sums (relative error ~1e-6 over <= 3072 terms), so 1e-4
@@ -67,17 +78,24 @@ FLAGSHIP_CONFIG = {
 # a value across one bf16 rounding boundary (2^-8 = 3.9e-3 relative), and a
 # result passes through up to three such roundings. The memory projection
 # reads the same bank rows on both sides and computes in f32 whatever the
-# bank's type, so it is held to the f32 bound in both.
+# bank's type, so it is held to the f32 bound in both (H dequantizes the
+# same int8 rows on both sides). I quantizes its activations per row: an f32
+# difference of one ulp in LN(x) or GELU can move a value across a rounding
+# boundary of round(a / s), which moves an output by about amax / 127 * |w|,
+# so it takes 1e-3 in float32.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-F32_ONLY = {"memory_project"}
+F32_ONLY = {"memory_project", "memory_project_int8", "memory_project_giant"}
+W8_F32_TOLERANCE = 1e-3
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
 HD = D // HEADS
+GD, GH = 1536, 4096  # ViT-g's width and SwiGLU hidden
 
-# The least time the card could take: the larger of the operations over the peak rate for their type (dense tensor
-# cores in bf16, the SIMT pipes in f32) and the bytes over the memory rate,
-# each input read once and each output written once. NVIDIA H100 SXM.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The least time the card could take: the larger of the operations over the
+# peak rate for their type (dense tensor cores in bf16 and int8, the SIMT
+# pipes in f32) and the bytes over the memory rate, each input read once
+# and each output written once. NVIDIA H100 SXM.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # each further attention configuration of the encoder (phase 4b, 5b)
@@ -146,8 +164,9 @@ def _nbytes(*tensors) -> int:
 
 def _kernel_cases(dtype, gen):
     """(name, source, replaces, kernel call, plain call, library call or
-    None, flops, bytes) at the main path's shapes; inputs are seeded random
-    tensors in `dtype`, and the work is counted from them."""
+    None, operations, bytes) at the shapes each kernel's path gives it;
+    inputs are seeded random tensors in `dtype` (the banks' features f32, H's
+    rows and I's weights int8), and the work is counted from them."""
     from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
     dev = "cuda"
@@ -172,6 +191,19 @@ def _kernel_cases(dtype, gen):
     feats = torch.randn(B, D, generator=gen, device=dev)
     eps, scale = 1e-6, HD ** -0.5
     rows, nb = B * N, bank.num_real
+    # H: the flagship bank in int8; D over giant's 1536-wide bank
+    qbank = mp.quantize_bank(torch.randn(nb, D, generator=gen, device=dev))
+    gbank = mp.prepare_bank(torch.randn(nb, GD, generator=gen, device=dev), dtype=dtype)
+    gfeats = torch.randn(B, GD, generator=gen, device=dev)
+    # G at giant's shapes
+    xg = randn(B, N, GD)
+    swiglu_args = (xg, 1 + randn(GD, scale=0.1), randn(GD, scale=0.1),
+                   randn(GD, 2 * GH, scale=GD ** -0.5), randn(2 * GH, scale=0.1),
+                   randn(GH, GD, scale=GH ** -0.5), randn(GD, scale=0.1),
+                   1 + randn(GD, scale=0.1))
+    # I: the flagship MLP's weights quantized per column
+    w8_args = (x, g, bg, *mlp.quantize_mlp_weights(w1.float(), b1.float(), w2.float(),
+                                                   b2.float()), ls)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -227,6 +259,26 @@ def _kernel_cases(dtype, gen):
          lambda: attention.flash_attention(q, k, v, scale=scale),
          lambda: attention.attention_plain(q, k, v, scale=scale), sdpa,
          attn_flops, _nbytes(q, k, v, q)),
+        ("ln_swiglu", "patchioner_tpu_torch/csrc/ln_swiglu.cu",
+         "patchioner_tpu/ops/mlp.py:515",
+         lambda: mlp.fused_ln_swiglu(*swiglu_args, eps=eps),
+         lambda: mlp.ln_swiglu_plain(*swiglu_args, eps=eps), None,
+         6 * rows * GD * GH, _nbytes(*swiglu_args, xg)),
+        ("memory_project_int8", "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:380",
+         lambda: mp.memory_project_int8(feats, qbank, normalize=True),
+         lambda: mp.memory_project_int8_plain(feats, qbank, normalize=True), None,
+         4 * B * nb * D, _nbytes(feats, *qbank[:-1], feats)),
+        ("ln_mlp_w8", "patchioner_tpu_torch/csrc/ln_mlp_w8.cu",
+         "patchioner_tpu/ops/mlp.py:381",
+         lambda: mlp.fused_ln_mlp_w8(*w8_args, eps=eps),
+         lambda: mlp.ln_mlp_w8_plain(*w8_args, eps=eps), None,
+         4 * rows * D * 4 * D, _nbytes(*w8_args, x)),
+        ("memory_project_giant", "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:521",
+         lambda: mp.memory_project_streamed(gfeats, gbank, normalize=True),
+         lambda: mp.memory_project_plain(gfeats, gbank, normalize=True), None,
+         4 * B * nb * GD, _nbytes(gfeats, gbank.rows, gbank.inv_norm, gfeats)),
     ]
 
 
@@ -238,6 +290,8 @@ def phase_kernels(seed: int) -> dict:
         for (name, source, replaces, kern, plain, library, flops,
              nbytes) in _kernel_cases(dtype, gen):
             tol = TOLERANCE[torch.float32 if name in F32_ONLY else dtype]
+            if name == "ln_mlp_w8" and dtype == torch.float32:
+                tol = W8_F32_TOLERANCE
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -246,7 +300,8 @@ def phase_kernels(seed: int) -> dict:
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            peak = PEAK_FLOPS[torch.float32 if name in F32_ONLY else dtype]
+            peak = PEAK_FLOPS[torch.int8 if name == "ln_mlp_w8" else
+                              torch.float32 if name in F32_ONLY else dtype]
             op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(op_ms, byte_ms)
             library_ms = None
@@ -259,7 +314,7 @@ def phase_kernels(seed: int) -> dict:
             log(f"[kernels] {name} {str(dtype)[6:]}: max|d|={err:.3e} "
                 f"rel={rel:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                f"({flops / 1e9:.1f} G operations, {nbytes / 1e6:.1f} MB)")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: rel error {rel:.3e} > {tol:.0e}")
             if dtype == torch.bfloat16 and name in _wrappers():  # the main path's type
@@ -275,7 +330,7 @@ def phase_kernels(seed: int) -> dict:
 
 
 def _wrappers() -> dict:
-    """Every kernel wrapper, in the order of the kernel table (A-F, J, K)."""
+    """Every kernel wrapper, in the order of the kernel table (A-K)."""
     from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
     return {"ln_dense": mlp.fused_ln_dense,
@@ -284,24 +339,29 @@ def _wrappers() -> dict:
             "memory_project": mp.memory_project_streamed,
             "dense_residual": mlp.fused_dense_residual,
             "qkv_attention_proj": attention.fused_qkv_attention_proj,
+            "ln_swiglu": mlp.fused_ln_swiglu,
+            "memory_project_int8": mp.memory_project_int8,
+            "ln_mlp_w8": mlp.fused_ln_mlp_w8,
             "flash_attention_1pass": attention.flash_attention_1pass,
             "flash_attention": attention.flash_attention}
 
 
-def expected_launches(opts: dict, depth: int, batches: int) -> dict:
+def expected_launches(config: dict, depth: int, batches: int) -> dict:
     """Launches of every kernel for `batches` batches of a configuration:
-    A and C each layer, the attention kernel `attn_impl` selects each layer,
-    D once a batch, every other kernel never."""
-    impl = opts.get("attn_impl", "xla")
-    layer = {"ln_dense", "ln_mlp"}
+    A each layer, C (G for ViT-g's SwiGLU FFN) each layer, the attention
+    kernel `attn_impl` selects each layer, D (H over an int8 bank) once a
+    batch, every other kernel never."""
+    impl = config.get("attn_impl", "xla")
+    layer = {"ln_dense", "ln_swiglu" if "vitg" in config["dino_model"] else "ln_mlp"}
     if impl in ("xla", "fusedqkv"):
         layer.add("qkv_attention")
-        if opts.get("proj_fused"):
+        if config.get("proj_fused"):
             layer.add("dense_residual")
     layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
               "flash1p": {"flash_attention_1pass"}}.get(impl, set())
     counts = {name: depth * batches if name in layer else 0 for name in _wrappers()}
-    counts["memory_project"] = batches
+    counts["memory_project_int8" if config.get("memory_bank_int8")
+           else "memory_project"] = batches
     return counts
 
 
@@ -325,25 +385,28 @@ def _padded(traces):
 
 
 def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
-                    n_requests: int = 2 * B) -> tuple[dict, list]:
-    """Serve `n_requests` requests through the flagship config plus `opts`;
-    returns the launch counts of the served run and the captions."""
+                    n_requests: int = 2 * B,
+                    base: dict = FLAGSHIP_CONFIG) -> tuple[dict, list]:
+    """Serve `n_requests` requests through the `base` config (the flagship's
+    by default) plus `opts`; returns the launch counts of the served run and
+    the captions."""
     from patchioner_tpu_torch import entry
     from patchioner_tpu_torch.models.patchioner import Patchioner
     from patchioner_tpu_torch.serve import CaptionServer
 
-    opts = dict(opts or {})
+    config = dict(base, **(opts or {}))
     tag = f"[{label}]"
     t0 = time.perf_counter()
-    model = Patchioner.from_config(dict(FLAGSHIP_CONFIG, **opts), rng_seed=seed,
-                                   allow_missing_weights=True,
+    model = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"{tag} {opts or 'flagship config'}: model built in "
+    log(f"{tag} {config['dino_model']} {opts or ''}: model built in "
         f"{time.perf_counter() - t0:.1f} s: "
-        f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} at "
+        f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} "
+        f"({model.vit_cfg.ffn} FFN {model.vit_cfg.ffn_hidden}) at "
         f"{model.crop_dim} px ({model.vit_cfg.num_tokens} tokens), bank "
-        f"{model.bank.num_real} x {model.bank.rows.shape[1]} bf16, decoder "
+        f"{model.bank.num_real} x {model.bank.rows.shape[1]} "
+        f"{str(model.bank.rows.dtype)[6:]}, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
 
@@ -366,7 +429,7 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
     counts = {name: fn.launches for name, fn in wrappers.items()}
     if not all(isinstance(c, str) for c in captions):
         raise AssertionError("a request did not resolve to a caption string")
-    expected = expected_launches(opts, model.vit_cfg.depth, batches)
+    expected = expected_launches(config, model.vit_cfg.depth, batches)
     log(f"{tag} {len(captions)} requests answered in {batches} batches; "
         f"launches {counts}, expected {expected}")
     if counts != expected:
@@ -381,7 +444,8 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
     norm_err = (prefix.norm(dim=-1) - 1).abs().max().item()
     log(f"{tag} prefix {tuple(prefix.shape)}, finite "
         f"{bool(torch.isfinite(prefix).all())}, max |norm - 1| {norm_err:.2e}")
-    if prefix.shape != (B, D) or not torch.isfinite(prefix).all() or norm_err > 1e-3:
+    width = int(config["prefix_size"])
+    if prefix.shape != (B, width) or not torch.isfinite(prefix).all() or norm_err > 1e-3:
         raise AssertionError("the main path's projected prefix is malformed")
 
     # steady-state batch time, outside the server (host clock; the caption
@@ -401,13 +465,15 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
     return counts, captions
 
 
-def phase_f32_crosscheck(seed: int) -> None:
+def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str = "f32",
+                         configs: dict = None) -> None:
+    """The f32 prefix of `config` on the card against the CPU; then, for each
+    of `configs`, against the `fusedqkv` prefix on the card."""
     from patchioner_tpu_torch import entry
     from patchioner_tpu_torch.models import decap
     from patchioner_tpu_torch.models.patchioner import Patchioner
 
-    gpu = Patchioner.from_config(FLAGSHIP_CONFIG, rng_seed=seed,
-                                 allow_missing_weights=True,
+    gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
                                  dtype=torch.float32, device="cuda")
     # the random init's layerscale of 1e-5 would leave the residual stream
     # almost untouched by the kernels; draw it per channel near 1 instead
@@ -427,14 +493,14 @@ def phase_f32_crosscheck(seed: int) -> None:
         out = step(m.state(), m.pixels_to_device(imgs),
                    torch.from_numpy(pts).to(m.device),
                    torch.from_numpy(valid).to(m.device))
-        log(f"[f32] prefix on {m.device}, attn_impl={vit_cfg.attn_impl!r}, "
+        log(f"[{label}] prefix on {m.device}, attn_impl={vit_cfg.attn_impl!r}, "
             f"proj_fused={vit_cfg.proj_fused}: {time.perf_counter() - t0:.1f} s")
         return out
 
     def gate(got, ref, what):
         err = (got - ref).abs().max().item()
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        log(f"[f32] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
+        log(f"[{label}] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"f32 prefix {what} differs: {err:.3e} > {tol:.3e}")
 
@@ -444,14 +510,17 @@ def phase_f32_crosscheck(seed: int) -> None:
     tok_gpu, _ = decap.greedy_decode(gpu.decoder, on_card, gpu.gpt2_cfg)
     tok_cpu, _ = decap.greedy_decode(cpu.decoder, ref, cpu.gpt2_cfg)
     agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
-    log(f"[f32] caption-token agreement card vs CPU (reported, not asserted): "
+    log(f"[{label}] caption-token agreement card vs CPU (reported, not asserted): "
         f"{agree:.4f}")
+    del cpu, ref, tok_cpu
     # phase 5b: each further attention configuration against fusedqkv's
     fusedqkv = dataclasses.replace(gpu.vit_cfg, attn_impl="fusedqkv")
-    base = prefix(gpu, fusedqkv)
-    for label, opts in CONFIGS.items():
+    base = prefix(gpu, fusedqkv) if configs else None
+    for name, opts in (configs or {}).items():
         gate(prefix(gpu, dataclasses.replace(fusedqkv, **opts)), base,
-             f"{label} vs fusedqkv on the card")
+             f"{name} vs fusedqkv on the card")
+    del gpu
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -462,10 +531,16 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    from patchioner_tpu_torch.ops import mlp
+
+    mlp.fused_ln_mlp_w8.launches = 0
     summary = phase_kernels(args.seed)
+    # (count, the run it was read from) for every kernel
+    launches = {"ln_mlp_w8": (mlp.fused_ln_mlp_w8.launches,
+                              "kernels (no model path reaches I)")}
     counts, captions = phase_main_path(args.seed, smi)
-    launches = {k: counts[k] for k in ("ln_dense", "qkv_attention", "ln_mlp",
-                                       "memory_project")}
+    launches.update({k: (counts[k], "main") for k in (
+        "ln_dense", "qkv_attention", "ln_mlp", "memory_project")})
     # phase 4b: the kernel each further configuration adds is read from its
     # own served run
     added = {"proj_fused": "dense_residual", "fusedqkv_proj": "qkv_attention_proj",
@@ -473,23 +548,35 @@ def main() -> None:
     for label, opts in CONFIGS.items():
         counts, caps = phase_main_path(args.seed, smi, label, opts, n_requests=B)
         if label in added:
-            launches[added[label]] = counts[added[label]]
+            launches[added[label]] = (counts[added[label]], label)
         same = sum(a == b for a, b in zip(caps, captions))
         log(f"[{label}] bf16 captions equal to fusedqkv's (reported, not "
             f"asserted): {same}/{len(caps)}")
-    phase_f32_crosscheck(args.seed)
+    # phase 4c, 4d: the paths of G and H, each read from its own served run
+    counts, _ = phase_main_path(args.seed, smi, "giant", n_requests=B, base=GIANT_CONFIG)
+    launches["ln_swiglu"] = (counts["ln_swiglu"], "giant")
+    counts, _ = phase_main_path(args.seed, smi, "int8_bank", {"memory_bank_int8": True},
+                                n_requests=B)
+    launches["memory_project_int8"] = (counts["memory_project_int8"], "int8_bank")
+    phase_f32_crosscheck(args.seed, configs=CONFIGS)
+    phase_f32_crosscheck(args.seed, dict(FLAGSHIP_CONFIG, memory_bank_int8=True),
+                         "f32 int8_bank")
+    phase_f32_crosscheck(args.seed, dict(GIANT_CONFIG, dino_geometry={"depth": 4}),
+                         "f32 giant")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:
         raise AssertionError(f"JAX or the JAX package was imported: {reference}")
     log("[imports] neither jax nor patchioner_tpu loaded")
     for key, row in summary.items():
-        row["launches"] = launches[key]
+        row["launches"], row["launched_in"] = launches[key]
         if not row["launches"]:
             raise AssertionError(f"{key} was never launched on its path")
+    if len(summary) != len(_wrappers()):
+        raise AssertionError(f"kernel rows {sorted(summary)} != {sorted(_wrappers())}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s for the whole run")
     log(smi)
-    log(json.dumps({"kernels": list(summary.values())}))
+    log(json.dumps({"kernels": [summary[k] for k in _wrappers()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

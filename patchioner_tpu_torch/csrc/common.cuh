@@ -13,7 +13,7 @@
 
 namespace pt {
 
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -59,6 +59,41 @@ __device__ __forceinline__ void row_stats(const T* row, int d, float eps,
     *mean_out = mu;
     *rstd_out = rsqrtf(var + eps);
   }
+}
+
+// LN(x) of rows m0 .. m0 + rows - 1 into Ys [rows][DP] as Y (T to round to
+// the element type, float to keep f32); zero rows past M. One warp per row,
+// the block's warps taking turns.
+template <typename T, typename Y>
+__device__ void ln_rows_to_smem(const T* x, const T* g, const T* bg, Y* Ys,
+                                float* mean_s, float* rstd_s, int m0, int rows,
+                                int M, int D, int DP, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += blockDim.x >> 5) {
+    const int m = m0 + r;
+    if (m < M) row_stats(x + (size_t)m * D, D, eps, &mean_s[r], &rstd_s[r]);
+    __syncwarp();
+    for (int k = lane; k < D; k += 32) {
+      float v = 0.f;
+      if (m < M) {
+        const float t = (to_f(x[(size_t)m * D + k]) - mean_s[r]) * rstd_s[r];
+        v = t * to_f(g[k]) + to_f(bg[k]);
+      }
+      Ys[r * DP + k] = from_f<Y>(v);
+    }
+  }
+}
+
+// Exact erf GELU, or with `approx` the tanh form of
+// jax.nn.gelu(approximate=True): 0.5 h (1 + tanh(sqrt(2/pi) (h + 0.044715 h^3))),
+// each written in the order of torch's own CUDA GELU, so that the plain
+// versions on the card round as the kernels do.
+__device__ __forceinline__ float gelu(float h, bool approx) {
+  if (approx) {
+    const float cube = h * h * h;
+    return h * 0.5f * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * cube)));
+  }
+  return h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
 }
 
 // Element strides of a (batch, head, token) row of 64 values: how the

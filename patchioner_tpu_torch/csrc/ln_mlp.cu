@@ -37,36 +37,6 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int THREADS = 256, BM = 32, HC = 32, MAX_COLS = 24;
 
-// Exact erf GELU, or with `approx` the tanh form of
-// jax.nn.gelu(approximate=True): 0.5 h (1 + tanh(sqrt(2/pi) (h + 0.044715 h^3))).
-__device__ __forceinline__ float gelu(float h, bool approx) {
-  if (approx)
-    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-}
-
-// LN(x) of rows m0 .. m0 + BM - 1 into Ys [BM][DP], rounded to T; zero rows
-// past M. One warp per row.
-template <typename T>
-__device__ void ln_rows_to_smem(const T* x, const T* g, const T* bg, T* Ys,
-                                float* mean_s, float* rstd_s, int m0, int M,
-                                int D, int DP, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = m0 + r;
-    if (m < M) pt::row_stats(x + (size_t)m * D, D, eps, &mean_s[r], &rstd_s[r]);
-    __syncwarp();
-    for (int k = lane; k < D; k += 32) {
-      float v = 0.f;
-      if (m < M) {
-        const float t = (pt::to_f(x[(size_t)m * D + k]) - mean_s[r]) * rstd_s[r];
-        v = t * pt::to_f(g[k]) + pt::to_f(bg[k]);
-      }
-      Ys[r * DP + k] = pt::from_f<T>(v);
-    }
-  }
-}
-
 // ---- f32: SIMT. Needs D % 32 == 0, D <= 768, H % 32 == 0.
 // Shared memory: Ys [32][D+8], W2s [32][D], W1s [32][32], Hs [32][32].
 __global__ void __launch_bounds__(THREADS)
@@ -85,7 +55,7 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   __shared__ float mean_s[BM], rstd_s[BM];
   const int m0 = blockIdx.x * BM;
   const int tid = threadIdx.x, lane = tid & 31;
-  ln_rows_to_smem(x, g, bg, Ys, mean_s, rstd_s, m0, M, D, DP, eps);
+  pt::ln_rows_to_smem(x, g, bg, Ys, mean_s, rstd_s, m0, BM, M, D, DP, eps);
 
   // fc1: row r1, hidden columns c1 .. c1 + 3 of the chunk
   const int r1 = tid / 8, c1 = (tid % 8) * 4;
@@ -112,7 +82,7 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Hs[r1 * HC + c1 + j] = gelu(hacc[j] + b1[h0 + c1 + j], approx);
+    for (int j = 0; j < 4; ++j) Hs[r1 * HC + c1 + j] = pt::gelu(hacc[j] + b1[h0 + c1 + j], approx);
     for (int e = tid; e < HC * D; e += THREADS) W2s[e] = w2[(size_t)(h0 + e / D) * D + e % D];
     __syncthreads();
 #pragma unroll 4
@@ -170,7 +140,7 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   __shared__ float mean_s[BM], rstd_s[BM];
   const int m0 = blockIdx.x * BM;
   const int tid = threadIdx.x, warp = tid >> 5;
-  ln_rows_to_smem(x, g, bg, Ys, mean_s, rstd_s, m0, M, D, DP, eps);
+  pt::ln_rows_to_smem(x, g, bg, Ys, mean_s, rstd_s, m0, BM, M, D, DP, eps);
 
   // fc1: warp = (K half, row group, 16-column group)
   const int half = warp >> 2, hrg = (warp >> 1) & 1, hcg = warp & 1;
@@ -213,7 +183,7 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       const int r = e / HC, c = e % HC;
       const float sum = Hp[r * PLD + c] + Hp[BM * PLD + r * PLD + c];
       const float h = pt::round_t<bf16>(pt::round_t<bf16>(sum) + pt::to_f(b1[h0 + c]));
-      Hb[r * HLD + c] = pt::from_f<bf16>(gelu(h, approx));
+      Hb[r * HLD + c] = pt::from_f<bf16>(pt::gelu(h, approx));
     }
     __syncthreads();
 #pragma unroll

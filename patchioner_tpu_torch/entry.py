@@ -1,10 +1,12 @@
 """The flagship trace-caption step, in PyTorch.
 
 Twins of `__graft_entry__.make_prefix_step`, `make_caption_step`,
-`make_state` and `example_inputs`: pixels -> ViT encoder (kernels A and C,
-and the attention kernels its `attn_impl` selects) -> CLS->patch attention
-extraction -> trace pooling -> support-memory projection (kernel D) ->
-[Talk2DINO inversion] -> 30-step greedy DeCap decode. The device of the
+`make_state` and `example_inputs`: pixels -> ViT encoder (kernel A, the
+attention kernels its `attn_impl` selects, and C or, for ViT-g, G) ->
+CLS->patch attention extraction -> trace pooling -> support-memory
+projection (kernel D, or H over an int8 bank, as the reference's fused
+step, patchioner.py:1418,1466-1474) -> [Talk2DINO inversion] -> 30-step
+greedy DeCap decode. The device of the
 state and inputs decides where it runs: on CUDA tensors every kernel
 launches, on CPU tensors their plain versions run.
 `Patchioner` builds its fused trace step from these same functions.
@@ -20,7 +22,7 @@ from patchioner_tpu_torch.ops import memory_projection as memproj
 from patchioner_tpu_torch.ops import region_pooling as rp
 
 __all__ = ["make_prefix_step", "make_caption_step", "make_state", "example_inputs",
-           "resolve_device"]
+           "resolve_device", "project"]
 
 
 def resolve_device(device) -> torch.device:
@@ -34,6 +36,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def project(state: dict, feats: torch.Tensor, bank_num_real: int, *,
+            normalize: bool) -> torch.Tensor:
+    """The support-memory projection of the state's bank: kernel H when the
+    state holds an int8 bank (`bank_scale`), kernel D otherwise."""
+    if "bank_scale" in state:
+        bank = memproj.QuantizedBank(state["bank_rows"], state["bank_scale"],
+                                     state["bank_inv"], bank_num_real)
+        return memproj.memory_project_int8(feats, bank, normalize=normalize)
+    bank = memproj.PreparedBank(state["bank_rows"], state["bank_inv"], bank_num_real)
+    return memproj.memory_project_streamed(feats, bank, normalize=normalize)
+
+
 def make_prefix_step(vit_cfg: vit.ViTConfig, bank_num_real: int, *,
                      use_attention: bool = True, normalize: bool = True):
     """The caption step up to the projected prefix. With `use_attention`
@@ -42,8 +56,6 @@ def make_prefix_step(vit_cfg: vit.ViTConfig, bank_num_real: int, *,
 
     @torch.no_grad()
     def prefix_step(state, pixels, trace_pts, trace_valid):
-        bank = memproj.PreparedBank(state["bank_rows"], state["bank_inv"],
-                                    bank_num_real)
         outs = vit.vit_forward(state["vit"], pixels, vit_cfg)
         attn = None
         if use_attention:
@@ -54,7 +66,7 @@ def make_prefix_step(vit_cfg: vit.ViTConfig, bank_num_real: int, *,
             )
         grid = rp.traces_to_grid(trace_pts, trace_valid, vit_cfg.grid_size)
         feats = rp.trace_pool(outs["x_norm_patchtokens"], grid, attn)
-        prefix = memproj.memory_project_streamed(feats, bank, normalize=normalize)
+        prefix = project(state, feats, bank_num_real, normalize=normalize)
         if "inversion" in state:
             prefix = talk2dino.revert_transformation(prefix, state["inversion"])
         return prefix
@@ -73,10 +85,13 @@ def make_caption_step(vit_cfg: vit.ViTConfig, gcfg, bank_num_real: int, *,
     return caption_step
 
 
-def make_state(vit_params: dict, decoder: decap.DecapParams,
-               bank: memproj.PreparedBank, inversion=None) -> dict:
+def make_state(vit_params: dict, decoder: decap.DecapParams, bank,
+               inversion=None) -> dict:
+    """The step's state; a `QuantizedBank` adds its per-row `bank_scale`."""
     state = {"vit": vit_params, "decoder": decoder,
              "bank_rows": bank.rows, "bank_inv": bank.inv_norm}
+    if isinstance(bank, memproj.QuantizedBank):
+        state["bank_scale"] = bank.scale
     if inversion is not None:
         state["inversion"] = inversion
     return state

@@ -15,7 +15,7 @@ from patchioner_tpu_torch.models import decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 
 __all__ = ["to_torch", "vit_from_jax", "decap_from_jax", "bank_from_jax",
-           "inversion_from_jax"]
+           "inversion_from_jax", "mlp_w8_from_jax"]
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -35,11 +35,16 @@ def to_torch(tree, device="cpu"):
 
 
 def vit_from_jax(tree: dict, cfg, device="cpu") -> dict:
-    """An `init_vit` / ported-checkpoint tree -> the port's ViT params."""
+    """An `init_vit` / ported-checkpoint tree -> the port's ViT params: fc1 /
+    fc2 for the MLP FFN, w12 / w3 for SwiGLU (`cfg.ffn`)."""
     if len(tree["blocks"]) != cfg.depth:
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg.depth={cfg.depth}")
-    if "w" not in tree["blocks"][0]["qkv"]:
+    blk = tree["blocks"][0]
+    if "w" not in blk["qkv"]:
         raise NotImplementedError("int8 (W8A8) encoder weights are not ported yet")
+    ffn = ("w12", "w3") if cfg.ffn == "swiglu" else ("fc1", "fc2")
+    if not all(k in blk for k in ffn):
+        raise ValueError(f"ffn={cfg.ffn!r} needs {ffn} in each block, got {sorted(blk)}")
     return to_torch(tree, device)
 
 
@@ -48,11 +53,19 @@ def decap_from_jax(params, device="cpu") -> decap.DecapParams:
                              clip_project=to_torch(params.clip_project, device))
 
 
-def bank_from_jax(bank, device="cpu") -> memproj.PreparedBank:
-    if type(bank).__name__ != "PreparedBank":
-        raise NotImplementedError(f"{type(bank).__name__} is not ported yet")
-    return memproj.PreparedBank(_leaf(bank.rows, device),
-                                _leaf(bank.inv_norm, device), int(bank.num_real))
+def bank_from_jax(bank, device="cpu"):
+    """A JAX `PreparedBank` or `QuantizedBank` as the port's own; its padded
+    tail comes along and stays masked by `num_real`."""
+    kind = type(bank).__name__
+    if kind not in ("PreparedBank", "QuantizedBank"):
+        raise NotImplementedError(f"{kind} is not ported yet")
+    fields = [_leaf(t, device) for t in bank[:-1]]
+    return getattr(memproj, kind)(*fields, int(bank.num_real))
+
+
+def mlp_w8_from_jax(quantized, device="cpu") -> tuple:
+    """`quantize_mlp_weights`' (w1q, w1s, b1, w2q, w2s, b2) as tensors."""
+    return tuple(_leaf(t, device) for t in quantized)
 
 
 def inversion_from_jax(inv: dict, device="cpu") -> dict:

@@ -21,14 +21,16 @@ SIGNATURES = {
     "pt_ln_dense": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
     "pt_dense_residual": [_P] * 6 + [_I, _I, _I, _I, _P],
     "pt_ln_mlp": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
+    "pt_ln_swiglu": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    "pt_ln_mlp_w8": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_qkv_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pt_qkv_attention_proj": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
     "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_flash_attention_1pass": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
-    "pt_memory_project": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "pt_memory_project": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P],
 }
 
-DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -54,14 +56,14 @@ def lib() -> ctypes.CDLL:
 def dtype_code(t) -> int:
     name = str(t.dtype).replace("torch.", "")
     if name not in DTYPE_CODES:
-        raise TypeError(f"the kernels take float32 or bfloat16, got {t.dtype}")
+        raise TypeError(f"the kernels take float32, bfloat16 or int8, got {t.dtype}")
     return DTYPE_CODES[name]
 
 
-def check_operands(name: str, *tensors) -> None:
+def check_operands(name: str, *tensors, device=None) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
-    tensor of the first one's device and type."""
-    dev, dtype = tensors[0].device, tensors[0].dtype
+    tensor of the first one's type, on `device` (default: the first one's)."""
+    dev, dtype = device or tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     for t in tensors:

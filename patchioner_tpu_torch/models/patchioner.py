@@ -8,13 +8,19 @@ drives. The step itself is `entry.make_caption_step`.
 
 `from_config` takes the reference YAML schema (a path or a dict), with
 the encoder keys `attn_impl`, `proj_fused` and `gelu_approx` of the
-reference's `from_config` (patchioner.py:487-505). Any key that leaves
-this subset raises NotImplementedError: other backbones (ViT-L and ViT-g
-among them), ViECap / MeaCap / ClipCap, argmax-text, int8 banks or
-encoders, the compute-dtype softmax (`softmax_f32: false`), a non-qkv
-attention_type, and checkpoint or bank files, which are not ported yet.
-With `allow_missing_weights=True` the weights and the bank are seeded
-random tensors drawn with `torch.Generator`.
+reference's `from_config` (patchioner.py:487-505) and its
+`memory_bank_int8` opt-in (the bank quantized per row to int8 from the f32
+bank, whatever the model's type, and projected by kernel H). The DINOv2
+backbones it takes are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and
+ViT-g, `dinov2_vitg14(_reg)` (SwiGLU FFN, kernel G: D <= 1536), whose
+prefix and bank are 1536-wide as the config gives them. Any key that
+leaves this subset raises NotImplementedError: other backbones (ViT-L
+among them, until C takes D = 1024), `attn_impl: fusedqkv_proj` above
+D = 768 (kernel F), ViECap / MeaCap / ClipCap, argmax-text, int8
+(W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`), a
+non-qkv attention_type, and checkpoint or bank files, which are not
+ported yet. With `allow_missing_weights=True` the weights and the bank
+are seeded random tensors drawn with `torch.Generator`.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu";
 without a card, asking for "cuda" raises.
@@ -42,7 +48,7 @@ _KEYS = {
     "dino_model", "crop_dim", "resize_dim", "image_mean", "image_std",
     "dino_geometry", "attention_type", "prefix_size", "decap_arch",
     "normalize", "support_memory_size", "decap_weights", "dino_weights",
-    "talk2dino_weights",
+    "talk2dino_weights", "memory_bank_int8",
 }
 # keys that only name the bank file to load; the subset draws a random bank
 # and reads no bank file, so they change nothing it computes
@@ -57,13 +63,16 @@ _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
 _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {
-    "calculate_argmax_text", "viecap", "clipcap", "memory_bank_int8",
+    "calculate_argmax_text", "viecap", "clipcap",
     "encoder_w8a8", "regionclip_config",
     "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
     "use_open_clip", "invite_config", "memory_bank_path",
 }
-# kernel C holds a 32-row block's LN(x) and f32 output in shared memory
-_MAX_EMBED_DIM = 768
+# the widest encoder each FFN kernel takes: C holds a 32-row block's LN(x)
+# and f32 output on an SM, G a 16-row block's
+_MAX_EMBED_DIM = {"mlp": 768, "swiglu": 1536}
+# kernel F holds a 64-row bf16 tile of the head outputs in shared memory
+_MAX_FUSEDQKV_PROJ_DIM = 768
 
 
 def _check_config(config: dict) -> None:
@@ -111,7 +120,7 @@ def _as_nhwc(imgs) -> torch.Tensor:
 class Patchioner:
     def __init__(self, *, vit_cfg: vit.ViTConfig, vit_params: dict,
                  gpt2_cfg: gpt2.GPT2Config, decoder: decap.DecapParams,
-                 bank: memproj.PreparedBank, normalize: bool = True,
+                 bank, normalize: bool = True,
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
                  device="cuda", tokenizer=None,
                  entry_length: int = decap.ENTRY_LENGTH):
@@ -121,9 +130,9 @@ class Patchioner:
         self.vit_params = vit.cast_params(vit_params, vit_cfg.dtype, self.device)
         self.decoder = decap.DecapParams(
             *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
-        self.bank = memproj.PreparedBank(bank.rows.to(self.device).contiguous(),
-                                         bank.inv_norm.to(self.device).contiguous(),
-                                         int(bank.num_real))
+        # a PreparedBank, or a QuantizedBank (int8 rows, per-row scales)
+        self.bank = type(bank)(*(t.to(self.device).contiguous() for t in bank[:-1]),
+                               int(bank.num_real))
         self.normalize = normalize
         self.inversion = (None if inversion is None else
                           {k: v.to(self.device) for k, v in inversion.items()})
@@ -172,15 +181,23 @@ class Patchioner:
             config["dino_model"], img_size=int(config.get("crop_dim", 518)),
             dtype=dtype, **_encoder_options(config),
             **dict(config.get("dino_geometry") or {}))
-        if vit_cfg.ffn != "mlp":
-            raise NotImplementedError(f"{config['dino_model']} (SwiGLU FFN) is not ported yet")
-        if vit_cfg.embed_dim > _MAX_EMBED_DIM:
+        widest = _MAX_EMBED_DIM[vit_cfg.ffn]
+        if vit_cfg.embed_dim > widest:
             raise NotImplementedError(
                 f"{config['dino_model']} (D = {vit_cfg.embed_dim}) is not ported yet: "
-                f"kernel C takes D <= {_MAX_EMBED_DIM}")
+                f"kernel {'G' if vit_cfg.ffn == 'swiglu' else 'C'} takes D <= {widest}")
+        if (vit_cfg.attn_impl == "fusedqkv_proj"
+                and vit_cfg.embed_dim > _MAX_FUSEDQKV_PROJ_DIM):
+            raise NotImplementedError(
+                f"attn_impl='fusedqkv_proj' at D = {vit_cfg.embed_dim} is not ported "
+                f"yet: kernel F takes D <= {_MAX_FUSEDQKV_PROJ_DIM}")
+        prefix_size = int(config["prefix_size"])
+        if prefix_size > memproj.MAX_D:
+            raise NotImplementedError(
+                f"prefix_size={prefix_size} is not ported yet: the projection "
+                f"kernels take D <= {memproj.MAX_D}")
         vit_params = vit.init_vit(vit_cfg, gen(0), device)
 
-        prefix_size = int(config["prefix_size"])
         da = dict(config.get("decap_arch") or {})
         gpt2_cfg = gpt2.GPT2Config(
             n_layer=int(da.get("n_layer", 4)), n_head=int(da.get("n_head", 4)),
@@ -191,8 +208,11 @@ class Patchioner:
 
         size = random_bank_size or int(config["support_memory_size"])
         emb = torch.randn(size, prefix_size, generator=gen(2), device=device)
-        bank = memproj.prepare_bank(
-            emb, dtype=None if dtype == torch.float32 else dtype)
+        if config.get("memory_bank_int8"):
+            bank = memproj.quantize_bank(emb)
+        else:
+            bank = memproj.prepare_bank(
+                emb, dtype=None if dtype == torch.float32 else dtype)
         del emb
         return cls(vit_cfg=vit_cfg, vit_params=vit_params, gpt2_cfg=gpt2_cfg,
                    decoder=decoder, bank=bank,

@@ -9,7 +9,9 @@ a JAX tree.
 
 Each block runs LN + qkv (kernel A), then the attention half that
 `attn_impl` selects, as the reference's `_block` / `_attention` do
-(vit.py:376-471, 543-622), then LN + MLP (kernel C):
+(vit.py:376-471, 543-672), then the FFN half: LN + MLP (kernel C), or for
+`ffn="swiglu"` (ViT-g) LN + SwiGLU (kernel G), the reference's `mlp_fused`
+path:
 
 - 'xla', 'fusedqkv': attention on the fused qkv (kernel B), then the
   out-projection, layerscale and residual as a plain matmul (plain XLA in
@@ -36,7 +38,8 @@ import torch.nn.functional as F
 
 from patchioner_tpu_torch.ops import attention
 from patchioner_tpu_torch.ops.mlp import (dense_residual_plain, fused_dense_residual,
-                                          fused_ln_dense, fused_ln_mlp, ln_rows)
+                                          fused_ln_dense, fused_ln_mlp, fused_ln_swiglu,
+                                          ln_rows)
 
 __all__ = ["ViTConfig", "VARIANTS", "config_for", "init_vit", "cast_params",
            "interpolate_pos_embed", "vit_forward", "process_self_attention"]
@@ -50,7 +53,7 @@ class ViTConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
-    ffn: str = "mlp"  # 'swiglu' (giant) is not ported yet
+    ffn: str = "mlp"  # or 'swiglu' (giant)
     num_registers: int = 4
     layerscale: bool = True
     ln_eps: float = 1e-6
@@ -98,7 +101,13 @@ class ViTConfig:
 
     @property
     def ffn_hidden(self) -> int:
-        return int(self.embed_dim * self.mlp_ratio)
+        """Hidden width of the FFN; SwiGLU shrinks the nominal 4x by 2/3,
+        rounded up to a multiple of 8 (1536 * 4 -> 4096 for giant), as the
+        reference's ViTConfig.ffn_hidden does."""
+        h = int(self.embed_dim * self.mlp_ratio)
+        if self.ffn == "swiglu":
+            h = (int(h * 2 / 3) + 7) // 8 * 8
+        return h
 
 
 VARIANTS = {
@@ -153,7 +162,11 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator,
         params["register_tokens"] = randn(1, cfg.num_registers, d) * 0.02
     for _ in range(cfg.depth):
         blk = {"norm1": ln(), "qkv": dense(d, 3 * d), "proj": dense(d, d),
-               "norm2": ln(), "fc1": dense(d, h), "fc2": dense(h, d)}
+               "norm2": ln()}
+        if cfg.ffn == "swiglu":
+            blk.update(w12=dense(d, 2 * h), w3=dense(h, d))
+        else:
+            blk.update(fc1=dense(d, h), fc2=dense(h, d))
         if cfg.layerscale:
             blk["ls1"] = torch.full((d,), 1e-5, device=device)
             blk["ls2"] = torch.full((d,), 1e-5, device=device)
@@ -235,11 +248,16 @@ def _block(x: torch.Tensor, blk: dict, cfg: ViTConfig):
                     f"{cfg.attn_impl!r} (needs 'fusedqkv')); falling back to the "
                     "plain out-projection", stacklevel=3)
             x = dense_residual_plain(merged, x, *proj)
-    ls2 = blk["ls2"] if cfg.layerscale else torch.ones_like(blk["fc2"]["b"])
-    x = fused_ln_mlp(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
-                     blk["fc1"]["w"], blk["fc1"]["b"], blk["fc2"]["w"],
-                     blk["fc2"]["b"], ls2, eps=cfg.ln_eps,
-                     gelu_approx=cfg.gelu_approx)
+    ls2 = blk["ls2"] if cfg.layerscale else torch.ones_like(blk["norm2"]["bias"])
+    if cfg.ffn == "swiglu":
+        x = fused_ln_swiglu(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
+                            blk["w12"]["w"], blk["w12"]["b"], blk["w3"]["w"],
+                            blk["w3"]["b"], ls2, eps=cfg.ln_eps)
+    else:
+        x = fused_ln_mlp(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
+                         blk["fc1"]["w"], blk["fc1"]["b"], blk["fc2"]["w"],
+                         blk["fc2"]["b"], ls2, eps=cfg.ln_eps,
+                         gelu_approx=cfg.gelu_approx)
     return x, qkv
 
 
@@ -247,8 +265,6 @@ def vit_forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> dict:
     """(B, H, W, 3) normalised NHWC pixels -> dict of x_norm_clstoken (B, D),
     x_norm_regtokens (B, R, D), x_norm_patchtokens (B, G*G, D), x_prenorm
     (B, T, D) and qkv_last (B, T, 3D), the last block's fused qkv."""
-    if cfg.ffn != "mlp":
-        raise NotImplementedError("the SwiGLU FFN (ViT-g) is not ported yet")
     params = cast_params(params, cfg.dtype)
     b, hh, _, _ = pixels.shape
     p = cfg.patch_size

@@ -1,4 +1,4 @@
-"""Support-memory projection (kernel D) — the DeCap Im2Txt step.
+"""Support-memory projection (kernels D and H) — the DeCap Im2Txt step.
 
 Twin of `patchioner_tpu/ops/memory_projection.py`:
 
@@ -7,12 +7,16 @@ Twin of `patchioner_tpu/ops/memory_projection.py`:
     out    = weight @ rows ; optionally L2-normalised
 
 `prepare_bank` stores the reciprocal norms of the f32 rows once, as the
-reference does; it does not pad (a padded bank carried over from the JAX
-package keeps its tail, which `num_real` masks).
-`memory_project_streamed` runs the hand-written CUDA kernel
-(`csrc/memory_projection.cu`, whose note gives the bound and design) on
-CUDA tensors and `memory_project_plain` on CPU tensors;
-`memory_project_streamed.launches` counts kernel launches.
+reference does; `quantize_bank` stores int8 rows with a per-row scale
+(row = q * scale) beside the ORIGINAL f32 rows' reciprocal norms. Neither
+pads (a padded bank carried over from the JAX package keeps its tail,
+which `num_real` masks).
+`memory_project_streamed` (D, a `PreparedBank`) and `memory_project_int8`
+(H, a `QuantizedBank`) run the hand-written CUDA kernel
+(`csrc/memory_projection.cu`, one body for both, whose note gives the
+bound and design) on CUDA tensors and `memory_project_plain` /
+`memory_project_int8_plain` on CPU tensors; `launches` on each counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -22,18 +26,24 @@ from typing import NamedTuple, Optional
 import torch
 
 from patchioner_tpu_torch import kernels
+from patchioner_tpu_torch.ops.mlp import quantize_symmetric_int8
 
 __all__ = [
     "DEFAULT_TEMPERATURE",
     "PreparedBank",
+    "QuantizedBank",
     "prepare_bank",
+    "quantize_bank",
     "memory_project_plain",
+    "memory_project_int8_plain",
     "memory_project_streamed",
+    "memory_project_int8",
 ]
 
 DEFAULT_TEMPERATURE = 0.01
 # bank rows per block of the kernel's first pass; ~290 blocks at 591,753 rows
 CHUNK_ROWS = 2048
+MAX_D = 1536
 
 
 class PreparedBank(NamedTuple):
@@ -46,10 +56,34 @@ class PreparedBank(NamedTuple):
     num_real: int
 
 
+class QuantizedBank(NamedTuple):
+    """rows: (M, D) int8 with rows * scale the f32 rows; scale: (M, 1) f32;
+    inv_norm: (M, 1) f32 reciprocal norms of the ORIGINAL f32 rows. Rows
+    from `num_real` on are never read."""
+
+    rows: torch.Tensor
+    scale: torch.Tensor
+    inv_norm: torch.Tensor
+    num_real: int
+
+
 def prepare_bank(bank: torch.Tensor, *,
                  dtype: Optional[torch.dtype] = None) -> PreparedBank:
     inv = 1.0 / torch.linalg.vector_norm(bank.float(), dim=-1, keepdim=True)
     return PreparedBank(bank.to(dtype or bank.dtype).contiguous(), inv, bank.shape[0])
+
+
+def quantize_bank(bank: torch.Tensor, *, chunk_rows: int = 262_144) -> QuantizedBank:
+    """Per-row symmetric int8 quantization of an (M, D) bank, once at load
+    (the reference's `quantize_bank` without its padding). Chunked, so the
+    f32 temporaries are one chunk's, not the bank's."""
+    parts = []
+    for lo in range(0, bank.shape[0], chunk_rows):
+        bf = bank[lo:lo + chunk_rows].float()
+        inv = 1.0 / torch.linalg.vector_norm(bf, dim=-1, keepdim=True)
+        parts.append((*quantize_symmetric_int8(bf, dim=-1), inv))
+    rows, scale, inv = (torch.cat(p) for p in zip(*parts))
+    return QuantizedBank(rows, scale, inv, bank.shape[0])
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +102,55 @@ def memory_project_plain(features: torch.Tensor, bank: PreparedBank, *,
     return _l2_normalize(out) if normalize else out
 
 
+def memory_project_int8_plain(features: torch.Tensor, bank: QuantizedBank, *,
+                              temperature: float = DEFAULT_TEMPERATURE,
+                              normalize: bool = False) -> torch.Tensor:
+    """Kernel H's function (_mem_proj_kernel_q): the rows dequantized as
+    q * scale, scored with the original rows' inverse norms. The JAX
+    package's CPU path renormalises the dequantized rows instead
+    (memory_project -> memory_project_xla), which differs from its TPU
+    kernel within quantization noise; this follows the kernel."""
+    n = bank.num_real
+    rows = bank.rows[:n].float() * bank.scale[:n]
+    return memory_project_plain(features, PreparedBank(rows, bank.inv_norm[:n], n),
+                                temperature=temperature, normalize=normalize)
+
+
+def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
+             temperature: float, normalize: bool) -> torch.Tensor:
+    """Launch the projection kernel: D when `scale` is None, else H."""
+    if features.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {features.device}")
+    b, d = features.shape
+    bank = (rows, inv) if scale is None else (rows, scale, inv)
+    if any(t.device != features.device for t in bank):
+        raise ValueError(f"{name}: bank and features on different devices")
+    if (d > MAX_D or rows.shape[1] != d or inv.dtype != torch.float32
+            or (scale is not None and (scale.dtype != torch.float32
+                                       or rows.dtype != torch.int8))):
+        raise ValueError(
+            f"{name}: needs D <= {MAX_D} and f32 inv_norm (and scale); got "
+            f"features {tuple(features.shape)}, rows {tuple(rows.shape)} {rows.dtype}"
+        )
+    if not all(t.is_contiguous() for t in bank):
+        raise ValueError(f"{name}: bank must be contiguous")
+    code = kernels.dtype_code(rows)
+    f = _l2_normalize(features.float()).contiguous()
+    nchunks = -(-num_real // CHUNK_ROWS)
+    m_part = torch.empty(nchunks * b, device=f.device, dtype=torch.float32)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty(nchunks * b, d, device=f.device, dtype=torch.float32)
+    out = torch.empty(b, d, device=f.device, dtype=torch.float32)
+    kernels.launch(
+        "pt_memory_project", f.data_ptr(), rows.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        *(t.data_ptr() for t in (inv, m_part, l_part, acc_part, out)),
+        b, d, int(num_real), CHUNK_ROWS, float(1.0 / temperature),
+        int(bool(normalize)), code,
+    )
+    return out
+
+
 def memory_project_streamed(features: torch.Tensor, bank: PreparedBank, *,
                             temperature: float = DEFAULT_TEMPERATURE,
                             normalize: bool = False) -> torch.Tensor:
@@ -75,35 +158,27 @@ def memory_project_streamed(features: torch.Tensor, bank: PreparedBank, *,
     if features.device.type == "cpu":
         return memory_project_plain(features, bank, temperature=temperature,
                                     normalize=normalize)
-    if features.device.type != "cuda":
-        raise ValueError(f"memory_project_streamed: no kernel for {features.device}")
-    rows, inv = bank.rows, bank.inv_norm
-    b, d = features.shape
-    if rows.device != features.device or inv.device != features.device:
-        raise ValueError("memory_project_streamed: bank and features on different devices")
-    if d > 768 or rows.shape[1] != d or inv.dtype != torch.float32:
-        raise ValueError(
-            f"memory_project_streamed: needs D <= 768 and an f32 inv_norm; got "
-            f"features {tuple(features.shape)}, rows {tuple(rows.shape)}"
-        )
-    if not (rows.is_contiguous() and inv.is_contiguous()):
-        raise ValueError("memory_project_streamed: bank must be contiguous")
-    code = kernels.dtype_code(rows)
-    f = _l2_normalize(features.float()).contiguous()
-    nchunks = -(-bank.num_real // CHUNK_ROWS)
-    m_part = torch.empty(nchunks * b, device=f.device, dtype=torch.float32)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty(nchunks * b, d, device=f.device, dtype=torch.float32)
-    out = torch.empty(b, d, device=f.device, dtype=torch.float32)
-    kernels.launch(
-        "pt_memory_project", *(t.data_ptr() for t in (f, rows, inv, m_part,
-                                                      l_part, acc_part, out)),
-        b, d, int(bank.num_real), CHUNK_ROWS, float(1.0 / temperature),
-        int(bool(normalize)), code,
-    )
+    out = _project("memory_project_streamed", features, bank.rows, None,
+                   bank.inv_norm, bank.num_real, temperature, normalize)
     memory_project_streamed.launches += 1
     return out
 
 
 memory_project_streamed.launches = 0
+
+
+def memory_project_int8(features: torch.Tensor, bank: QuantizedBank, *,
+                        temperature: float = DEFAULT_TEMPERATURE,
+                        normalize: bool = False) -> torch.Tensor:
+    """Kernel H on CUDA tensors, `memory_project_int8_plain` on CPU tensors."""
+    if features.device.type == "cpu":
+        return memory_project_int8_plain(features, bank, temperature=temperature,
+                                         normalize=normalize)
+    out = _project("memory_project_int8", features, bank.rows, bank.scale,
+                   bank.inv_norm, bank.num_real, temperature, normalize)
+    memory_project_int8.launches += 1
+    return out
+
+
+memory_project_int8.launches = 0
 

@@ -6,7 +6,10 @@
 Builds the flagship model of `chip_smoke.py` (ViT-B/14-reg at 518 px, the
 591,753-row bank, 30-step DeCap decode, seeded random bf16 weights), once
 for each attention configuration of its encoder (`fusedqkv` and the ones
-of `chip_smoke.CONFIGS`), and captions one batch of 8 trace requests:
+of `chip_smoke.CONFIGS`), then `int8_bank` (the flagship with
+`memory_bank_int8: true`) and `giant` (`chip_smoke.GIANT_CONFIG`, ViT-g/14
+at full width with the 1536-wide bank), and captions one batch of 8 trace
+requests:
 
 - the stage split (encoder, trace pooling + memory projection, decode)
   with CUDA events, over 5 batches;
@@ -30,9 +33,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.models import decap, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
-from patchioner_tpu_torch.ops import memory_projection as mp
 from patchioner_tpu_torch.ops import region_pooling as rp
 
 
@@ -45,7 +48,7 @@ def stage_ms(model, imgs, pts, valid) -> list:
         ev[1].record()
         grid = rp.traces_to_grid(pts, valid, model.vit_cfg.grid_size)
         feats = rp.trace_pool(outs["x_norm_patchtokens"], grid)
-        prefix = mp.memory_project_streamed(feats, model.bank, normalize=model.normalize)
+        prefix = entry.project(state, feats, model.bank.num_real, normalize=model.normalize)
         ev[2].record()
         decap.greedy_decode(model.decoder, prefix, model.gpt2_cfg)
         ev[3].record()
@@ -53,9 +56,8 @@ def stage_ms(model, imgs, pts, valid) -> list:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def profile_config(label: str, opts: dict, smi: str) -> None:
-    model = Patchioner.from_config(dict(chip_smoke.FLAGSHIP_CONFIG, **opts),
-                                   allow_missing_weights=True,
+def profile_config(label: str, config: dict, smi: str) -> None:
+    model = Patchioner.from_config(config, allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     imgs, traces = chip_smoke._requests(chip_smoke.B, 0)
     pts, valid = chip_smoke._padded(traces)
@@ -71,7 +73,7 @@ def profile_config(label: str, opts: dict, smi: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    print(f"== {label} {opts}")
+    print(f"== {label} {config}")
     print(events.table(sort_by="self_cuda_time_total", row_limit=8))
     # only the device's own events: an operator's row repeats the time of
     # the kernels it launched
@@ -88,7 +90,11 @@ def profile_config(label: str, opts: dict, smi: str) -> None:
 
 
 def main() -> None:
-    configs = {"fusedqkv": {"attn_impl": "fusedqkv"}, **chip_smoke.CONFIGS}
+    flagship = chip_smoke.FLAGSHIP_CONFIG
+    configs = {name: dict(flagship, **opts) for name, opts in (
+        ("fusedqkv", {"attn_impl": "fusedqkv"}), *chip_smoke.CONFIGS.items(),
+        ("int8_bank", {"memory_bank_int8": True}))}
+    configs["giant"] = chip_smoke.GIANT_CONFIG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("configs", nargs="*",
                     help=f"any of {', '.join(configs)}; every one when none is named")

@@ -9,7 +9,10 @@ without the repo's conftest:
 Tolerance: max |kernel - plain| over max |plain| (as chip_smoke.py): 1e-4
 at float32, where only the order of f32 sums differs, and 2e-2 at
 bfloat16, where that order can move a value across bf16 rounding
-boundaries (2^-8 relative each).
+boundaries (2^-8 relative each). The W8A8 MLP (I) takes 1e-3 at float32:
+an f32 difference of one ulp in LN(x) or GELU can move an activation
+across a rounding boundary of its int8 quantization, which moves an
+output by about amax / 127 * |w|.
 """
 
 import numpy as np
@@ -39,12 +42,12 @@ def _randn(gen, *shape, dtype, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _check(got, ref, dtype):
+def _check(got, ref, dtype, tol=None):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert torch.isfinite(got).all()
     err = (got.float() - ref.float()).abs().max().item()
-    assert err <= TOLERANCE[dtype] * ref.float().abs().max().item()
+    assert err <= (tol or TOLERANCE[dtype]) * ref.float().abs().max().item()
 
 
 def _counted(wrapper, call):
@@ -171,6 +174,71 @@ def test_memory_project_kernel(cuda, dtype, normalize):
            torch.float32)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,h", [(256, 512), (1536, 4096), (96, 128)])
+def test_ln_swiglu_kernel(cuda, dtype, d, h):
+    # 154 rows: ten 16-row blocks, the last one ragged
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, 2 * h, dtype=dtype, scale=d ** -0.5),
+            _randn(gen, 2 * h, dtype=dtype, scale=0.1),
+            _randn(gen, h, d, dtype=dtype, scale=h ** -0.5),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            1 + _randn(gen, d, dtype=dtype, scale=0.1))
+    if dtype == torch.bfloat16 and d % 128:  # eight warps of 16-column fragments
+        with pytest.raises(ValueError, match="D % 128"):
+            mlp.fused_ln_swiglu(*args, eps=1e-6)
+        return
+    got = _counted(mlp.fused_ln_swiglu, lambda: mlp.fused_ln_swiglu(*args, eps=1e-6))
+    _check(got, mlp.ln_swiglu_plain(*args, eps=1e-6), dtype)
+
+
+@pytest.mark.parametrize("gelu_approx", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,h", [(768, 3072), (128, 512)])
+def test_ln_mlp_w8_kernel(cuda, dtype, d, h, gelu_approx):
+    # 154 rows: twenty 8-row blocks, the last one ragged
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    f32 = torch.float32
+    w1, b1 = _randn(gen, d, h, dtype=f32, scale=d ** -0.5), _randn(gen, h, dtype=f32, scale=0.1)
+    w2, b2 = _randn(gen, h, d, dtype=f32, scale=h ** -0.5), _randn(gen, d, dtype=f32, scale=0.1)
+    args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, dtype=dtype, scale=0.1), *mlp.quantize_mlp_weights(w1, b1, w2, b2),
+            1 + _randn(gen, d, dtype=dtype, scale=0.1))
+    kw = dict(eps=1e-6, gelu_approx=gelu_approx)
+    got = _counted(mlp.fused_ln_mlp_w8, lambda: mlp.fused_ln_mlp_w8(*args, **kw))
+    _check(got, mlp.ln_mlp_w8_plain(*args, **kw), dtype,
+           tol=1e-3 if dtype == torch.float32 else None)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("d", [128, 1536])
+def test_memory_project_int8_kernel(cuda, d, normalize):
+    # kernel H: int8 rows with a zero tail masked by num_real, against its
+    # plain version at the f32 bound (both dequantize the same rows in f32)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    real = mp.quantize_bank(torch.randn(5000, d, generator=gen, device="cuda"))
+    bank = mp.QuantizedBank(*(torch.cat([t, t.new_zeros(120, t.shape[1])])
+                              for t in real[:-1]), 5000)
+    feats = torch.randn(11, d, generator=gen, device="cuda")
+    got = _counted(mp.memory_project_int8,
+                   lambda: mp.memory_project_int8(feats, bank, normalize=normalize))
+    _check(got, mp.memory_project_int8_plain(feats, bank, normalize=normalize),
+           torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_memory_project_kernel_at_giant_width(cuda, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bank = mp.prepare_bank(torch.randn(5000, 1536, generator=gen, device="cuda"),
+                           dtype=dtype)
+    feats = torch.randn(8, 1536, generator=gen, device="cuda")
+    got = _counted(mp.memory_project_streamed,
+                   lambda: mp.memory_project_streamed(feats, bank, normalize=True))
+    _check(got, mp.memory_project_plain(feats, bank, normalize=True), torch.float32)
+
+
 @pytest.mark.parametrize("opts", [
     {}, {"attn_impl": "fusedqkv", "proj_fused": True, "gelu_approx": True},
     {"attn_impl": "fusedqkv_proj"}, {"attn_impl": "flash"},
@@ -197,4 +265,37 @@ def test_slice_on_the_card_matches_the_cpu(cuda, opts):
     got = step(gpu_state, *(t.cuda() for t in inputs)).cpu()
     assert (mlp.fused_ln_dense.launches, mp.memory_project_streamed.launches) == (
         counts[0] + cfg.depth, counts[1] + 1)
+    assert np.max(np.abs((got - ref).numpy())) <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "int8_bank"])
+def test_giant_and_int8_bank_slices_on_the_card_match_the_cpu(cuda, kind):
+    # ViT-g's FFN (kernel G) at D = 384 (SwiGLU hidden 1024), and the int8
+    # bank (kernel H)
+    swiglu = kind == "swiglu"
+    d = 384 if swiglu else 128
+    cfg = vit.ViTConfig(img_size=56, embed_dim=d, depth=2, num_heads=d // 64,
+                        num_registers=4, extract_heads=4, pos_grid=4,
+                        ffn="swiglu" if swiglu else "mlp")
+    gcfg = gpt2.GPT2Config(vocab_size=1000, n_positions=64, n_embd=128,
+                           n_layer=2, n_head=4)
+    gen = torch.Generator().manual_seed(5)
+    params = vit.init_vit(cfg, gen)
+    for blk in params["blocks"]:
+        blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, d, generator=gen)
+    decoder = decap.init_decap(gcfg, d, gen)
+    rows = torch.randn(300, d, generator=gen)
+    bank = mp.prepare_bank(rows) if swiglu else mp.quantize_bank(rows)
+    state = entry.make_state(params, decoder, bank)
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=6, device="cpu")
+    step = entry.make_prefix_step(cfg, bank.num_real)
+    ref = step(state, *inputs)
+    gpu_state = {k: v.cuda() for k, v in state.items() if k not in ("vit", "decoder")}
+    gpu_state["vit"] = vit.cast_params(params, torch.float32, "cuda")
+    wrappers = (mlp.fused_ln_swiglu, mlp.fused_ln_mlp, mp.memory_project_int8,
+                mp.memory_project_streamed)
+    counts = [w.launches for w in wrappers]
+    got = step(gpu_state, *(t.cuda() for t in inputs)).cpu()
+    added = [w.launches - c for w, c in zip(wrappers, counts)]
+    assert added == ([2, 0, 0, 1] if swiglu else [0, 2, 1, 0])
     assert np.max(np.abs((got - ref).numpy())) <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -62,3 +62,37 @@ def test_padded_rows_are_masked_not_scored_zero():
                            torch.cat([real.inv_norm, torch.zeros(6, 1)]), 10)
     out = mp.memory_project_streamed(torch.from_numpy(feats), bank, normalize=True)
     np.testing.assert_allclose(out.numpy(), rows[:1], atol=1e-6)
+
+
+# ------------------------------------------------- kernel H (int8 bank)
+
+
+def test_quantize_bank_matches_jax():
+    # the JAX bank is padded to block_m; the port's is its first num_real rows
+    _, rows = _data(2, m=300)
+    jq = jmp.quantize_bank(jnp.asarray(rows))
+    q = mp.quantize_bank(torch.from_numpy(rows), chunk_rows=128)  # three chunks
+    assert q.num_real == jq.num_real == q.rows.shape[0] == 300 and q.rows.dtype == torch.int8
+    np.testing.assert_array_equal(q.rows.numpy(), np.asarray(jq.rows)[:300])
+    np.testing.assert_allclose(q.scale.numpy(), np.asarray(jq.scale)[:300], rtol=1e-6)
+    np.testing.assert_allclose(q.inv_norm.numpy(), np.asarray(jq.inv_norm)[:300], rtol=1e-6)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_int8_plain_matches_the_pallas_int8_kernel(normalize):
+    # H scores with the ORIGINAL rows' inverse norms; so does the port. The
+    # JAX package's CPU dispatcher renormalises the dequantized rows instead
+    # (ROADMAP section 3), so the oracle is the kernel in interpret mode.
+    feats, rows = _data(3, m=300)
+    jq = jmp.quantize_bank(jnp.asarray(rows))
+    want = np.asarray(jmp.memory_project_int8(jnp.asarray(feats), jq, normalize=normalize,
+                                              interpret=True))
+    bridged = bridge.bank_from_jax(jq)
+    assert isinstance(bridged, mp.QuantizedBank) and bridged.rows.shape[0] == 1024
+    before = mp.memory_project_int8.launches
+    got = mp.memory_project_int8(torch.from_numpy(feats), bridged, normalize=normalize)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    own = mp.memory_project_int8(torch.from_numpy(feats), mp.quantize_bank(
+        torch.from_numpy(rows)), normalize=normalize)
+    np.testing.assert_allclose(own.numpy(), want, rtol=2e-4, atol=2e-5)
+    assert mp.memory_project_int8.launches == before  # the CPU takes the plain version

@@ -1,5 +1,6 @@
-"""Port's LN+dense (kernel A) and LN+MLP (kernel C) plain versions against
-the JAX package's Pallas kernels (interpret mode) and plain references.
+"""Port's LN+dense (A), LN+MLP (C), LN+SwiGLU (G) and W8A8 LN+MLP (I)
+plain versions against the JAX package's Pallas kernels (interpret mode)
+and plain references.
 
 On the CPU the wrappers run their plain versions; inputs are seeded numpy
 arrays handed to both packages at f32.
@@ -13,6 +14,7 @@ import torch
 
 from patchioner_tpu.models import vit as jvit
 from patchioner_tpu.ops import mlp as jmlp
+from patchioner_tpu_torch.io import bridge
 from patchioner_tpu_torch.ops import mlp
 
 # f32 on both sides; the sums differ only in order (~1e-6 relative). The
@@ -118,3 +120,96 @@ def test_dense_residual_plain_matches_pallas_kernel(dtype):
         np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     else:
         assert np.max(np.abs(got - want)) <= 2e-2 * np.max(np.abs(want))
+
+
+# ------------------------------------------------------------ kernel G
+
+
+def _swiglu_inputs(rng, b=2, n=256, d=128, h=256):
+    return (_arr(rng, b, n, d), 1 + _arr(rng, d, scale=0.1), _arr(rng, d, scale=0.1),
+            _arr(rng, d, 2 * h, scale=d ** -0.5), _arr(rng, 2 * h, scale=0.1),
+            _arr(rng, h, d, scale=h ** -0.5), _arr(rng, d, scale=0.1),
+            rng.uniform(0.5, 1.5, d).astype(np.float32))  # per-channel layerscale
+
+
+@pytest.mark.parametrize("block_q,block_h", [(128, 128), (256, 256)])
+def test_ln_swiglu_plain_matches_pallas_kernel(block_q, block_h):
+    # f32 both sides: the plain version follows the kernel's rounding points,
+    # which at f32 leave only the summation order (JAX's own gate, 2e-5)
+    args = _swiglu_inputs(np.random.default_rng(8))
+    got = mlp.fused_ln_swiglu(*_t(*args), eps=1e-6).numpy()
+    want = jmlp.fused_ln_swiglu(*map(jnp.asarray, args), eps=1e-6, block_q=block_q,
+                                block_h=block_h, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_ln_swiglu_plain_rounds_the_gate_product_to_bf16_before_w3():
+    # bf16: g = silu(h1) * h2 is rounded before the w3 product, h1 and h2 are
+    # not rounded before their bias (_ln_swiglu_kernel), so the plain
+    # version agrees with the interpret-mode kernel to a few bf16 roundings
+    args = _swiglu_inputs(np.random.default_rng(9), n=128)
+    got = mlp.fused_ln_swiglu(*(torch.from_numpy(a).to(torch.bfloat16) for a in args),
+                              eps=1e-6).float().numpy()
+    want = np.asarray(jmlp.fused_ln_swiglu(
+        *(jnp.asarray(a, jnp.bfloat16) for a in args), eps=1e-6, block_q=128,
+        block_h=128, interpret=True).astype(jnp.float32))
+    assert np.max(np.abs(got - want)) <= 2e-2 * np.max(np.abs(want))
+
+
+# ------------------------------------------------------------ kernel I
+
+
+def _w8_inputs(rng, b=2, n=256, d=128, h=512):
+    x, g, bg, w1, b1, w2, b2, _ = _mlp_inputs(rng, b, n, d, h)
+    return x, g, bg, w1, b1, w2, b2, rng.uniform(0.5, 1.5, d).astype(np.float32)
+
+
+def test_quantize_mlp_weights_matches_jax_bit_for_bit():
+    _, _, _, w1, b1, w2, b2, _ = _w8_inputs(np.random.default_rng(10))
+    want = jmlp.quantize_mlp_weights(*map(jnp.asarray, (w1, b1, w2, b2)))
+    got = mlp.quantize_mlp_weights(*_t(w1, b1, w2, b2))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and str(g.dtype).endswith(str(w.dtype))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("gelu_approx", [False, True])
+def test_ln_mlp_w8_plain_matches_pallas_kernel(gelu_approx):
+    # tests/test_mlp.py:83's shapes. Both sides quantize the same f32
+    # activations; an LN or erf difference of ~1e-7 can still move a value
+    # across a rounding boundary of round(a / s), which moves an output by
+    # about amax / 127 * |w| ~ 1e-3 of max|ref|, hence that bound.
+    x, g, bg, w1, b1, w2, b2, ls = _w8_inputs(np.random.default_rng(11))
+    jq = jmlp.quantize_mlp_weights(*map(jnp.asarray, (w1, b1, w2, b2)))
+    want = np.asarray(jmlp.fused_ln_mlp_w8(
+        *map(jnp.asarray, (x, g, bg)), *jq, jnp.asarray(ls), eps=1e-6,
+        gelu_approx=gelu_approx, block_q=128, interpret=True))
+    q = bridge.mlp_w8_from_jax(jq)
+    x_, g_, bg_, ls_ = _t(x, g, bg, ls)
+    got = mlp.fused_ln_mlp_w8(x_, g_, bg_, *q, ls_, eps=1e-6,
+                              gelu_approx=gelu_approx).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-3 * np.max(np.abs(want))
+
+
+def test_cpu_tensors_take_the_plain_swiglu_and_w8_versions_without_a_launch():
+    rng = np.random.default_rng(12)
+    before = (mlp.fused_ln_swiglu.launches, mlp.fused_ln_mlp_w8.launches)
+    sw = _t(*_swiglu_inputs(rng, n=16))
+    torch.testing.assert_close(mlp.fused_ln_swiglu(*sw, eps=1e-6),
+                               mlp.ln_swiglu_plain(*sw, eps=1e-6), rtol=0, atol=0)
+    x, g, bg, w1, b1, w2, b2, ls = _t(*_w8_inputs(rng, n=16))
+    w8 = (x, g, bg, *mlp.quantize_mlp_weights(w1, b1, w2, b2), ls)
+    torch.testing.assert_close(mlp.fused_ln_mlp_w8(*w8, eps=1e-6),
+                               mlp.ln_mlp_w8_plain(*w8, eps=1e-6), rtol=0, atol=0)
+    assert (mlp.fused_ln_swiglu.launches, mlp.fused_ln_mlp_w8.launches) == before
+
+
+def test_swiglu_and_w8_wrappers_raise_on_a_device_without_a_kernel():
+    rng = np.random.default_rng(13)
+    sw = [t.to("meta") for t in _t(*_swiglu_inputs(rng, n=8))]
+    with pytest.raises(ValueError, match="no kernel"):
+        mlp.fused_ln_swiglu(*sw, eps=1e-6)
+    x, g, bg, w1, b1, w2, b2, ls = _t(*_w8_inputs(rng, n=8))
+    w8 = [t.to("meta") for t in (x, g, bg, *mlp.quantize_mlp_weights(w1, b1, w2, b2), ls)]
+    with pytest.raises(ValueError, match="no kernel"):
+        mlp.fused_ln_mlp_w8(*w8, eps=1e-6)

@@ -26,6 +26,7 @@ from patchioner_tpu_torch import serve
 from patchioner_tpu_torch.io import bridge
 from patchioner_tpu_torch.models import gpt2, talk2dino, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
+from patchioner_tpu_torch.ops import memory_projection as mp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT_GEOM = dict(img_size=56, patch_size=14, embed_dim=128, depth=2, num_heads=2,
@@ -144,9 +145,10 @@ def test_shipped_flagship_configs_build(path):
 
 @pytest.mark.parametrize("extra", [
     {"viecap": {"project_length": 10}}, {"clipcap": {}},
-    {"attention_type": "kkv"}, {"dino_model": "dinov2_vitg14_reg"},
+    {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
     {"dino_model": "vit_base_patch16_clip_224.openai"},
-    {"memory_bank_int8": True}, {"calculate_argmax_text": True},
+    {"dino_model": "dinov2_vitg14_reg", "prefix_size": 1536,
+     "attn_impl": "fusedqkv_proj"}, {"calculate_argmax_text": True},
     {"encoder_w8a8": True}, {"softmax_f32": False},
     {"memory_bank_path": "bank.h5"}, {"an_unknown_key": 1},
 ])
@@ -272,6 +274,15 @@ def jax_weights():
     return ge, vparams, dec, jmp.prepare_bank(jnp.asarray(rows), block_m=128)
 
 
+def _serves(model):
+    rng = np.random.default_rng(12)
+    imgs = rng.integers(0, 256, (3, 56, 56, 3), dtype=np.uint8)
+    traces = [rng.uniform(0, 1, (5, 2)).tolist() for _ in range(3)]
+    with serve.CaptionServer(model, max_batch=4, max_delay_ms=50.0) as server:
+        caps = server.caption(imgs, traces, timeout=120)
+    assert len(caps) == 3 and all(isinstance(c, str) for c in caps)
+
+
 @pytest.mark.parametrize("opts", SLICE_CONFIGS, ids=lambda o: "-".join(
     f"{k}={v}" for k, v in o.items()))
 def test_each_attention_config_is_token_exact_and_serves(opts, jax_weights):
@@ -298,10 +309,102 @@ def test_each_attention_config_is_token_exact_and_serves(opts, jax_weights):
     tokens, _ = step(model.state(), *entry.example_inputs(batch=3, img=56, n_pts=16,
                                                           seed=11, device="cpu"))
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+    _serves(model)
 
-    rng = np.random.default_rng(12)
-    imgs = rng.integers(0, 256, (3, 56, 56, 3), dtype=np.uint8)
-    traces = [rng.uniform(0, 1, (5, 2)).tolist() for _ in range(3)]
-    with serve.CaptionServer(model, max_batch=4, max_delay_ms=50.0) as server:
-        caps = server.caption(imgs, traces, timeout=120)
-    assert len(caps) == 3 and all(isinstance(c, str) for c in caps)
+
+# ViT-g (kernel G) and the int8 support memory (kernel H) through
+# from_config, at a geometry shrunk from the giant's: D = 384 in six heads of
+# 64 (JAX's fused-qkv kernel takes head pairs), SwiGLU hidden 1024, two
+# layers; f32 on both sides
+GIANT_GEOM = dict(img_size=56, embed_dim=384, depth=2, num_heads=6, num_registers=4,
+                  extract_heads=6, pos_grid=4, ffn="swiglu")
+TINY_GIANT_CONFIG = {
+    "dino_model": "dinov2_vitg14_reg", "crop_dim": 56, "prefix_size": 384,
+    "support_memory_size": 200, "normalize": True, "attn_impl": "fusedqkv",
+    "mlp_fused": True,
+    "dino_geometry": {k: GIANT_GEOM[k] for k in ("embed_dim", "depth", "num_heads",
+                                                 "extract_heads", "pos_grid")},
+}
+
+
+def test_giant_from_config_is_token_exact_and_serves():
+    from jax.experimental.pallas import tpu as pltpu
+
+    sys.path.insert(0, REPO)
+    import __graft_entry__ as ge
+
+    jcfg = jvit.ViTConfig(**GIANT_GEOM, attn_impl="fusedqkv", mlp_fused=True)
+    assert jcfg.ffn_hidden == 1024
+    vparams = jvit.init_vit(jax.random.PRNGKey(13), jcfg)
+    ls = np.random.default_rng(14).uniform(0.5, 1.5, (2, 2, 384)).astype(np.float32)
+    vparams["blocks"] = [dict(b, ls1=jnp.asarray(ls[i, 0]), ls2=jnp.asarray(ls[i, 1]))
+                         for i, b in enumerate(vparams["blocks"])]
+    jg = jgpt2.GPT2Config(**GPT_GEOM)
+    dec = jdecap.init_decap(jax.random.PRNGKey(15), jg, prefix_size=384)
+    rows = np.random.default_rng(16).standard_normal((200, 384)).astype(np.float32)
+    bank = jmp.prepare_bank(jnp.asarray(rows), block_m=128)
+    inputs = ge.example_inputs(batch=3, img=56, n_pts=16, seed=17)
+    with pltpu.force_tpu_interpret_mode():  # the encoder's Pallas G
+        want, _ = ge.make_caption_step(jcfg, jg, False, bank.num_real)(
+            ge.make_state(vparams, dec, bank), *inputs)
+
+    built = Patchioner.from_config(TINY_GIANT_CONFIG, allow_missing_weights=True,
+                                   random_bank_size=8, device="cpu")
+    cfg = built.vit_cfg
+    assert (cfg.ffn, cfg.embed_dim, cfg.ffn_hidden) == ("swiglu", 384, 1024)
+    assert built.bank.rows.shape == (8, 384)
+    gcfg = gpt2.GPT2Config(**GPT_GEOM)
+    model = Patchioner(vit_cfg=cfg, vit_params=bridge.vit_from_jax(vparams, cfg),
+                       gpt2_cfg=gcfg, decoder=bridge.decap_from_jax(dec),
+                       bank=bridge.bank_from_jax(bank), config=built.config,
+                       device="cpu")
+    tokens, _ = entry.make_caption_step(cfg, gcfg, bank.num_real)(
+        model.state(), *entry.example_inputs(batch=3, img=56, n_pts=16, seed=17,
+                                             device="cpu"))
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+    _serves(model)
+
+
+def test_int8_bank_from_config_is_token_exact_and_serves(jax_weights):
+    from patchioner_tpu.ops import region_pooling as jrp
+
+    ge, vparams, dec, _ = jax_weights
+    jcfg, jg = jvit.ViTConfig(**VIT_GEOM), jgpt2.GPT2Config(**GPT_GEOM)
+    rows = np.random.default_rng(18).standard_normal((200, 128)).astype(np.float32)
+    qbank = jmp.quantize_bank(jnp.asarray(rows))
+    pixels, pts, valid = ge.example_inputs(batch=3, img=56, n_pts=16, seed=19)
+    # the JAX trace step with the int8 kernel in interpret mode in place of
+    # its CPU fallback, which renormalises the dequantized rows (ROADMAP
+    # section 3); the kernel is what the reference runs on the TPU
+    outs = jvit.vit_forward(vparams, pixels, jcfg)
+    attn, _ = jvit.process_self_attention(
+        outs["qkv_last"], num_heads=jcfg.extract_heads,
+        num_global_tokens=jcfg.num_global_tokens, scale=jcfg.extract_scale)
+    feats = jrp.trace_pool(outs["x_norm_patchtokens"],
+                           jrp.traces_to_grid(pts, valid, jcfg.grid_size), attn)
+    prefix = jmp.memory_project_int8(feats, qbank, normalize=True, interpret=True)
+    want, _ = jdecap.greedy_decode(dec, prefix, jg)
+
+    built = Patchioner.from_config(dict(TINY_CONFIG, memory_bank_int8=True),
+                                   allow_missing_weights=True, random_bank_size=8,
+                                   device="cpu")
+    assert isinstance(built.bank, mp.QuantizedBank) and built.bank.rows.dtype == torch.int8
+    assert "bank_scale" in built.state()
+    cfg, gcfg = built.vit_cfg, gpt2.GPT2Config(**GPT_GEOM)
+    model = Patchioner(vit_cfg=cfg, vit_params=bridge.vit_from_jax(vparams, cfg),
+                       gpt2_cfg=gcfg, decoder=bridge.decap_from_jax(dec),
+                       bank=bridge.bank_from_jax(qbank), config=built.config,
+                       device="cpu")
+    before = (mp.memory_project_int8.launches, mp.memory_project_streamed.launches)
+    tokens, _ = entry.make_caption_step(cfg, gcfg, qbank.num_real)(
+        model.state(), *entry.example_inputs(batch=3, img=56, n_pts=16, seed=19,
+                                             device="cpu"))
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+    assert (mp.memory_project_int8.launches, mp.memory_project_streamed.launches) == before
+    _serves(model)
+
+
+def test_chip_smoke_giant_config_is_the_flagship_with_vitg():
+    mod = _chip_smoke_module()
+    assert mod.GIANT_CONFIG == dict(mod.FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg",
+                                    prefix_size=1536)

@@ -147,3 +147,43 @@ def test_proj_fused_outside_fusedqkv_warns_and_runs_the_plain_projection():
 def test_an_unknown_attn_impl_is_refused():
     with pytest.raises(ValueError, match="attn_impl"):
         vit.ViTConfig(attn_impl="flash2")
+
+
+@pytest.mark.parametrize("geom", [dict(embed_dim=384), dict(embed_dim=192),
+                                  dict(embed_dim=100), dict(embed_dim=384, mlp_ratio=3.0)],
+                         ids=str)
+def test_ffn_hidden_follows_the_reference_for_swiglu_and_mlp(geom):
+    for ffn in ("swiglu", "mlp"):
+        assert vit.ViTConfig(ffn=ffn, **geom).ffn_hidden == \
+            jvit.ViTConfig(ffn=ffn, **geom).ffn_hidden
+    # giant: 1536 * 4 * 2/3 rounded up to a multiple of 8
+    assert vit.config_for("dinov2_vitg14_reg").ffn_hidden == 4096
+    assert vit.config_for("dinov2_vitb14_reg").ffn_hidden == 3072
+
+
+def test_swiglu_vit_forward_matches_jax_mlp_fused():
+    # tests/test_mlp.py:292's giant geometry scaled down (D = 384, six heads
+    # of 64, hidden 1024, two layers): the port's kernel G path against the
+    # JAX encoder's fusedqkv + mlp_fused (its Pallas G) in interpret mode
+    from jax.experimental.pallas import tpu as pltpu
+
+    geom = dict(img_size=56, embed_dim=384, depth=2, num_heads=6, num_registers=4,
+                extract_heads=6, pos_grid=4, ffn="swiglu", attn_impl="fusedqkv")
+    jcfg = jvit.ViTConfig(**geom, mlp_fused=True)
+    params = jvit.init_vit(jax.random.PRNGKey(5), jcfg)
+    assert params["blocks"][0]["w12"]["w"].shape == (384, 2048)
+    ls = np.random.default_rng(6).uniform(0.5, 1.5, (2, 2, 384)).astype(np.float32)
+    params["blocks"] = [dict(b, ls1=jnp.asarray(ls[i, 0]), ls2=jnp.asarray(ls[i, 1]))
+                        for i, b in enumerate(params["blocks"])]
+    pixels = np.random.default_rng(7).standard_normal((2, 56, 56, 3)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jvit.vit_forward(params, jnp.asarray(pixels), jcfg)
+    cfg = vit.ViTConfig(**geom)
+    mine = vit.init_vit(cfg, torch.Generator().manual_seed(0))["blocks"][0]
+    assert {k: tuple(mine[k]["w"].shape) for k in ("w12", "w3")} == {
+        "w12": (384, 2048), "w3": (1024, 384)}
+    got = vit.vit_forward(bridge.vit_from_jax(params, cfg), torch.from_numpy(pixels), cfg)
+    for key in ("x_norm_patchtokens", "x_norm_clstoken", "qkv_last"):
+        assert got[key].shape == want[key].shape, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=5e-4, atol=5e-5, err_msg=key)
