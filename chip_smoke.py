@@ -9,7 +9,10 @@ then exits non-zero without the final result line:
 1. device: a CUDA card is required (no CPU fallback); prints its name and
    power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from `patchioner_tpu_torch/csrc`, one
-   nvcc process per source, all started together;
+   nvcc process per source, all started together; prints ptxas' registers,
+   spills and wgmma remarks per kernel, and the HGMMA instructions that
+   cuobjdump finds in each kernel (B, K and C's bf16 kernels must have
+   them);
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
@@ -154,8 +157,15 @@ def phase_build() -> None:
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{kernels.build_seconds:.1f} s for {len(build.sources())} sources")
     for line in build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "Used", "spill", "wgmma")):
             log(f"[build] {line.strip()}")
+    # B, K and C's bf16 kernels must be Hopper warpgroup designs: HGMMA in SASS
+    hgmma = build.sass_counts("HGMMA")
+    for fn, n in sorted(hgmma.items()):
+        log(f"[build] {n} HGMMA in {fn}")
+    for kernel in ("attention_sm90_kernel", "gemm_bf16_kernel"):
+        if not any(kernel in fn for fn in hgmma):
+            raise AssertionError(f"no HGMMA instruction in {kernel}")
 
 
 def _nbytes(*tensors) -> int:

@@ -1,12 +1,7 @@
-// Online-softmax attention on the bf16 tensor cores, for head dim 64, over
-// q, k and v rows addressed by strides: kernels B and K run the kernel at
-// the end of this file, kernel F runs its warp step per head of a pair.
-//
-// The kernel, FlashAttention-2 style: a block of four warps owns 64 queries
-// of one (batch, head), each warp 16 of them, and streams 64-key tiles of
-// K and V through shared memory with 16-byte copies; q * scale is rounded
-// to bf16 first, as in the reference. Each warp divides by its row sums
-// once at the end.
+// The warp-level step of online-softmax attention on the bf16 WMMA tensor
+// cores, for head dim 64: kernel F runs it per head of a pair, and kernel J
+// loads its tiles with wa_load_tile. (Kernels B and K run the warpgroup
+// kernel of attention_sm90.cuh.)
 //
 // The warp step, for each 64-key tile: the warp's (16, 64) logits on WMMA
 // 16x16x16 tiles (bf16 in, f32 accumulators); keys at or beyond
@@ -141,62 +136,6 @@ __device__ __forceinline__ void wa_tile(WarpAttention& st, const bf16_t* Qw,
   for (int c = 0; c < 32; ++c)
     st.acc[c] = fmaf(st.acc[c], rescale, Sw[r * WA_LDS + c0 + c]);
   __syncwarp();  // Sw is free for the next tile
-}
-
-constexpr int WA_BQ = 64, WA_WARPS = 4, WA_THREADS = 32 * WA_WARPS;
-
-// grid (ceil(N / 64), heads, batch)
-__global__ void __launch_bounds__(WA_THREADS)
-attention_wmma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
-                      const bf16_t* __restrict__ v, bf16_t* __restrict__ out,
-                      RowLayout in, RowLayout ol, int N, int num_real_k,
-                      float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16_t* Qs = (bf16_t*)smem_raw;           // [BQ][LDB] q * scale, rounded
-  bf16_t* Ks = Qs + WA_BQ * WA_LDB;         // [64][LDB]
-  bf16_t* Vs = Ks + WA_BKEYS * WA_LDB;      // [64][LDB]
-  bf16_t* Ps = Vs + WA_BKEYS * WA_LDB;      // each warp's p
-  float* Ss = (float*)(Ps + WA_WARPS * WA_WARP_BF16);  // each warp's f32 scratch
-
-  const int q0 = blockIdx.x * WA_BQ;
-  const long long off = blockIdx.z * in.batch + blockIdx.y * in.head;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  wa_load_tile(Qs, q + off, in.row, q0, N, tid, WA_THREADS, round_t<bf16_t>(scale));
-
-  WarpAttention st;
-  wa_init(st);
-  for (int k0 = 0; k0 < N; k0 += WA_BKEYS) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    wa_load_tile(Ks, k + off, in.row, k0, N, tid, WA_THREADS);
-    wa_load_tile(Vs, v + off, in.row, k0, N, tid, WA_THREADS);
-    __syncthreads();
-    wa_tile(st, Qs + warp * 16 * WA_LDB, Ks, Vs, Ps + warp * WA_WARP_BF16,
-            Ss + warp * WA_WARP_F32, k0, num_real_k);
-  }
-
-  const int qi = q0 + warp * 16 + (lane >> 1);
-  if (qi < N) {
-    bf16_t* o = out + blockIdx.z * ol.batch + blockIdx.y * ol.head + qi * ol.row +
-                (lane & 1) * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) o[c] = from_f<bf16_t>(st.acc[c] / st.l);
-  }
-}
-
-// q, k, v and out rows 16-byte aligned (the wrappers check)
-int launch_attention_wmma(const bf16_t* q, const bf16_t* k, const bf16_t* v,
-                          bf16_t* out, RowLayout in, RowLayout ol, int batch,
-                          int heads, int N, int num_real_k, float scale,
-                          cudaStream_t s) {
-  const size_t smem = (size_t)(WA_BQ + 2 * WA_BKEYS) * WA_LDB * sizeof(bf16_t) +
-                      (size_t)WA_WARPS * (WA_WARP_BF16 * sizeof(bf16_t) +
-                                          WA_WARP_F32 * sizeof(float));
-  cudaError_t err = pt_allow_smem(attention_wmma_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + WA_BQ - 1) / WA_BQ, heads, batch);
-  attention_wmma_kernel<<<grid, WA_THREADS, smem, s>>>(q, k, v, out, in, ol, N,
-                                                       num_real_k, scale);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

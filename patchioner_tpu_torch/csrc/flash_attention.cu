@@ -10,12 +10,13 @@
 // bound by arithmetic (0.047 ms at the bf16 tensor-core peak); the 181 M
 // exp also cost the SFUs a time of that order.
 //
-// Design: bf16 runs the tensor-core kernel of attention_wmma.cuh (WMMA
-// QK^T and PV, the softmax step on the SIMT pipes, p rounded to bf16
-// before PV); float32 runs the SIMT kernel of attention_simt.cuh, so its
-// sums stay exact f32. Both read a (batch * head)'s rows at stride 64.
+// Design: bf16 runs kernel B's wgmma body (attention_sm90.cuh: m64n64k16
+// QK^T and PV with P in registers, the softmax on the accumulators, p
+// rounded to bf16 before PV); float32 runs the SIMT kernel of
+// attention_simt.cuh, so its sums stay exact f32. Both read a (batch *
+// head)'s rows at stride 64.
 #include "attention_simt.cuh"
-#include "attention_wmma.cuh"
+#include "attention_sm90.cuh"
 
 // (BH, N, 64) q, k, v and out, 16-byte aligned (the wrapper checks).
 extern "C" int pt_flash_attention(const void* q, const void* k, const void* v,
@@ -24,7 +25,7 @@ extern "C" int pt_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const pt::RowLayout layout{(long long)N * 64, 0, 64};
   if (dtype == pt::kBF16)
-    return pt::launch_attention_wmma(
+    return pt::launch_attention_sm90(
         (const pt::bf16_t*)q, (const pt::bf16_t*)k, (const pt::bf16_t*)v,
         (pt::bf16_t*)out, layout, layout, BH, 1, N, num_real_k, scale, s);
   return pt::launch_attention_simt(

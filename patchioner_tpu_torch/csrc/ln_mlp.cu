@@ -1,39 +1,46 @@
 // Kernel C: out = x + ls * fc2(GELU(fc1(LN(x)))), the MLP half of an
-// encoder block, with the (rows, 4D) hidden activation never written out.
+// encoder block.
 //
-// Replaces patchioner_tpu/ops/mlp.py:fused_ln_mlp.
+// Replaces patchioner_tpu/ops/mlp.py:fused_ln_mlp (body _kernel).
 //
 // Bound on the H100: at the flagship shape (8*1374 rows, D = 768,
-// H = 3072) the two products are 104 GFLOP against ~40 MB of weights and
-// activations, so the kernel is bound by arithmetic; the plain version
-// additionally writes and reads a 68 MB bf16 hidden tensor. bf16 runs the
-// products on the tensor cores through warp-level mma.sync tiles (WMMA
-// 16x16x16, f32 accumulators; wgmma/TMA is later work); f32 runs them on
-// the SIMT float pipes, so its sums stay exact f32.
+// H = 3072) the two products are 104 GFLOP against ~43 MB of weights and
+// activations: 0.105 ms at the bf16 tensor-core peak, so arithmetic bounds
+// it. Rounding points (ops/mlp.py:_kernel) are kept in both types: LN(x)
+// rounds to T, fc1's f32 sum rounds to T before + b1, GELU (exact erf, or
+// tanh with gelu_approx) runs in f32 and rounds to T, fc2's f32 sum over
+// the whole hidden rounds to T once before + b2, and x + o * ls rounds to
+// T after each operation.
 //
-// Design: neither the 3072-wide hidden of a row block nor the two 4.7 MB
-// weight matrices fit in an SM's shared memory, so one block owns 32 rows
-// and streams the hidden dimension in 32-wide chunks. The block first
-// writes LN(x) of its rows to shared memory (two-pass f32 statistics,
-// rounded to the element type T). For each hidden chunk it computes fc1 +
-// bias + GELU (exact erf, or tanh with gelu_approx) into shared memory,
-// then adds that chunk's fc2 contribution to an f32 output tile (f32: 4
-// rows x 24 columns of registers per thread; bf16: 12 16x16 accumulator
-// fragments per warp, with fc1's K split across two warp halves and the
-// halves summed in f32, and weights copied 16 bytes at a time). Because
-// the fc2 sum stays f32
-// across all chunks, the reference's rounding points (ops/mlp.py:_kernel)
-// are kept exactly: fc1's sum rounds to T before + b1, GELU runs in f32
-// and rounds to T, fc2's full sum rounds to T before + b2, and
-// x + o * ls rounds to T after each operation.
-#include <mma.h>
-
+// bf16 design. The TPU kernel keeps a row block's (rows, 4D) hidden in
+// VMEM; on this card the hidden's round trip through device memory (67.5 MB
+// written and read, ~40 us at 3.35 TB/s) costs less than a fused block's
+// weight traffic (each 64-row block would re-read 9.4 MB of W1 and W2, and
+// hold a 64 x 768 f32 output tile). So the wrapper runs three launches:
+// - LN(x) of every row, rounded to bf16, into the output buffer (17 MB
+//   written and read again, ~10 us);
+// - fc1: one wgmma GEMM over LN(x) and W1 whose epilogue adds b1, applies
+//   GELU and writes the bf16 hidden into a scratch tensor of the wrapper;
+// - fc2: the same GEMM template over the hidden and W2 whose epilogue adds
+//   b2, scales by ls and adds x into the output.
+// The GEMM: 128 x 128 output tiles, 256 threads, each warpgroup 64 rows;
+// per 64-deep stage 4 wgmma.m64n128k16 (f32 accumulators: 64 registers a
+// thread), A K-major and W MN-major (the transpose bit), both read from
+// 128-byte-swizzled shared memory; a ring of 3 stages (32 KB each) filled
+// by the block's own 16-byte cp.async copies runs two stages ahead of the
+// tensor cores; 97 KB of shared memory a block, two blocks an SM. Ragged
+// rows are zero-filled on load and never stored.
+//
+// f32 design (for the checks): SIMT, one block of 32 rows streams the
+// hidden in 32-wide chunks, LN(x) in shared memory, fc1 + bias + GELU of a
+// chunk into shared memory, its fc2 contribution added to a 4 x 24 f32
+// register tile a thread; the hidden is never written out.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int THREADS = 256, BM = 32, HC = 32, MAX_COLS = 24;
 
@@ -114,136 +121,172 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// ---- bf16: tensor cores. Needs D % 128 == 0, D <= 768, H % 32 == 0.
-// Shared memory: Ys [32][D+8] LN(x), W2s [32][D+8] fc2 rows of a chunk,
-// W1s [128][40] fc1 slices (64 rows for each K half; reused for the two
-// f32 fc1 partials Hp [2][32][36]), Hb [32][40] GELU output; 110 KB at
-// D = 768, so two blocks share an SM. The epilogue reuses Ys + W2s as the
-// f32 output tile [32][D].
-constexpr int CKS = 64, HLD = HC + 8, PLD = HC + 4;
+// ---- bf16: LN(x) into the output buffer, then two launches of one wgmma
+// GEMM template (fc1 with the bias + GELU epilogue into the hidden scratch,
+// fc2 with the bias + layerscale + residual epilogue into the output).
+// Needs D % 128 == 0 and H % 128 == 0.
+constexpr int GM = 128, GN = 128, GK = 64, GSTAGES = 3, GTHREADS = 256;
+constexpr int GTILE = 64 * 128;  // bytes of one swizzled 64 x 64 bf16 tile
+// a stage: A 128 x 64 (two tiles), B 64 x 128 (two 64-column tiles)
+constexpr size_t GSMEM = 1024 + GSTAGES * 4 * GTILE;
 
-__global__ void __launch_bounds__(THREADS)
-ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                   const bf16* __restrict__ bg, const bf16* __restrict__ w1,
-                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                   const bf16* __restrict__ b2, const bf16* __restrict__ ls,
-                   bf16* __restrict__ out, int M, int D, int H, float eps,
-                   bool approx) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DP = D + 8;
-  bf16* Ys = (bf16*)smem_raw;
-  bf16* W2s = Ys + BM * DP;
-  bf16* W1s = W2s + HC * DP;
-  float* Hp = (float*)W1s;
-  bf16* Hb = W1s + 2 * CKS * HLD;
-  float* Cs = (float*)smem_raw;
-  __shared__ float mean_s[BM], rstd_s[BM];
-  const int m0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  pt::ln_rows_to_smem(x, g, bg, Ys, mean_s, rstd_s, m0, BM, M, D, DP, eps);
+// y = LN(x) rounded to bf16: one warp a row, f32 two-pass statistics.
+__global__ void __launch_bounds__(256)
+ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                    const bf16* __restrict__ bg, bf16* __restrict__ y, int M, int D,
+                    float eps) {
+  __shared__ float mean_s[8], rstd_s[8];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, m = blockIdx.x * 8 + w;
+  if (m >= M) return;
+  const bf16* xr = x + (size_t)m * D;
+  pt::row_stats(xr, D, eps, &mean_s[w], &rstd_s[w]);
+  __syncwarp();
+  for (int k = lane; k < D; k += 32) {
+    const float t = (pt::to_f(xr[k]) - mean_s[w]) * rstd_s[w];
+    y[(size_t)m * D + k] = pt::from_f<bf16>(t * pt::to_f(g[k]) + pt::to_f(bg[k]));
+  }
+}
 
-  // fc1: warp = (K half, row group, 16-column group)
-  const int half = warp >> 2, hrg = (warp >> 1) & 1, hcg = warp & 1;
-  const int Dh = D / 2;
-  // fc2: warp = (row group, D/4-column group) owning nf fragments
-  const int frg = warp >> 2, fcg = warp & 3, nf = D / 64, cw = D / 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAX_COLS / 2];
+// h = GELU(round(round(acc) + b1)), rounded to bf16
+struct Fc1Epilogue {
+  const bf16* b1;
+  bf16* h;
+  int H;
+  bool approx;
+  __device__ __forceinline__ void operator()(int m, int n, float v0, float v1) const {
+    float v[2] = {v0, v1};
 #pragma unroll
-  for (int j = 0; j < MAX_COLS / 2; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int e = 0; e < 2; ++e)
+      v[e] = pt::gelu(pt::round_t<bf16>(pt::round_t<bf16>(v[e]) + pt::to_f(b1[n + e])),
+                      approx);
+    *(uint32_t*)(h + (size_t)m * H + n) = pt::sm90::pack_bf16(v[0], v[1]);
+  }
+};
 
-  for (int h0 = 0; h0 < H; h0 += HC) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-    wmma::fill_fragment(hacc, 0.f);
-    for (int s0 = 0; s0 < Dh; s0 += CKS) {
-      __syncthreads();
-      for (int e = tid; e < 2 * CKS * HC / 8; e += THREADS) {  // 16-byte copies
-        const int r = e / (HC / 8), c = (e % (HC / 8)) * 8;
-        const int k = (r / CKS) * Dh + s0 + r % CKS;
-        *(uint4*)(W1s + r * HLD + c) = *(const uint4*)(w1 + (size_t)k * H + h0 + c);
-      }
-      __syncthreads();
+// out = x + round(round(round(acc) + b2) * ls), rounded to bf16
+struct Fc2Epilogue {
+  const bf16 *x, *b2, *ls;
+  bf16* out;
+  int D;
+  __device__ __forceinline__ void operator()(int m, int n, float v0, float v1) const {
+    float v[2] = {v0, v1};
 #pragma unroll
-      for (int kk = 0; kk < CKS; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ys + hrg * 16 * DP + half * Dh + s0 + kk, DP);
-        wmma::load_matrix_sync(b, W1s + (half * CKS + kk) * HLD + hcg * 16, HLD);
-        wmma::mma_sync(hacc, a, b, hacc);
+    for (int e = 0; e < 2; ++e) {
+      const float o = pt::round_t<bf16>(pt::round_t<bf16>(v[e]) + pt::to_f(b2[n + e]));
+      const float os = pt::round_t<bf16>(o * pt::to_f(ls[n + e]));
+      v[e] = pt::to_f(x[(size_t)m * D + n + e]) + os;
+    }
+    *(uint32_t*)(out + (size_t)m * D + n) = pt::sm90::pack_bf16(v[0], v[1]);
+  }
+};
+
+// epi(acc) of A (M, K) @ W (K, N), both row-major bf16, K % 64 == 0 and
+// N % 128 == 0; grid (N / 128, ceil(M / 128)). Each warpgroup owns 64 rows
+// of the block's 128 x 128 tile: per 64-deep stage, 4 wgmma.m64n128k16
+// with A K-major and W MN-major, the f32 sum kept over the whole K.
+template <class Epilogue>
+__global__ void __launch_bounds__(GTHREADS, 2)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N,
+                 int K, Epilogue epi) {
+  namespace sm90 = pt::sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t sbase = raw + ((1024 - (raw & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, kt = K / GK;
+
+  auto load = [&](int t) {  // stage t % STAGES: A rows m0.., W rows t * 64..
+    if (t < kt) {
+      const uint32_t sa = sbase + (t % GSTAGES) * 4 * GTILE, sb = sa + 2 * GTILE;
+      const int k0 = t * GK;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = tid + i * GTHREADS;
+        const int r = e >> 3, c = e & 7, row = m0 + r;  // A: 128 rows x 8 chunks
+        sm90::cp_async16(sa + sm90::swizzle128(r, c),
+                         A + (size_t)(row < M ? row : 0) * K + k0 + c * 8, row < M);
+        const int kr = e >> 4, cc = e & 15;  // W: 64 rows x 16 chunks
+        sm90::cp_async16(sb + (cc >> 3) * GTILE + sm90::swizzle128(kr, cc & 7),
+                         W + (size_t)(k0 + kr) * N + n0 + cc * 8, true);
       }
     }
-    __syncthreads();  // W1s is about to hold the f32 partials
-    wmma::store_matrix_sync(Hp + half * BM * PLD + hrg * 16 * PLD + hcg * 16, hacc,
-                            PLD, wmma::mem_row_major);
-    for (int e = tid; e < HC * D / 8; e += THREADS) {
-      const int k = e / (D / 8), n = (e % (D / 8)) * 8;
-      *(uint4*)(W2s + k * DP + n) = *(const uint4*)(w2 + (size_t)(h0 + k) * D + n);
-    }
-    __syncthreads();
-    for (int e = tid; e < BM * HC; e += THREADS) {
-      const int r = e / HC, c = e % HC;
-      const float sum = Hp[r * PLD + c] + Hp[BM * PLD + r * PLD + c];
-      const float h = pt::round_t<bf16>(pt::round_t<bf16>(sum) + pt::to_f(b1[h0 + c]));
-      Hb[r * HLD + c] = pt::from_f<bf16>(pt::gelu(h, approx));
-    }
-    __syncthreads();
+    sm90::cp_async_commit();  // one group per stage, empty past the last
+  };
 #pragma unroll
-    for (int kk = 0; kk < HC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Hb + frg * 16 * HLD + kk, HLD);
+  for (int t = 0; t < GSTAGES - 1; ++t) load(t);
+
+  float acc[64];
 #pragma unroll
-      for (int j = 0; j < MAX_COLS / 2; ++j) {
-        if (j < nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, W2s + kk * DP + fcg * cw + j * 16, DP);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-    }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int t = 0; t < kt; ++t) {
+    sm90::cp_async_wait<GSTAGES - 2>();  // stage t has landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // every thread's copies, and stage t - 1 is free
+    load(t + GSTAGES - 1);
+    const uint32_t sa = sbase + (t % GSTAGES) * 4 * GTILE, sb = sa + 2 * GTILE;
+    // A: +32 bytes a k16 step; W: 16 rows (2048 bytes = 128 units) a k16
+    // step, its second 64-column tile LBO = GTILE bytes away
+    const uint64_t da = sm90::desc128(sa + wg * GTILE, 16, 1024);
+    const uint64_t db = sm90::desc128(sb, GTILE, 1024);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
   }
 
-  __syncthreads();  // Ys and W2s become the f32 output tile
+  const int r = m0 + wg * 64 + warp * 16 + (lane >> 2), c = n0 + (lane & 3) * 2;
 #pragma unroll
-  for (int j = 0; j < MAX_COLS / 2; ++j)
-    if (j < nf)
-      wmma::store_matrix_sync(Cs + frg * 16 * D + fcg * cw + j * 16, acc[j], D,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * D; e += THREADS) {
-    const int r = e / D, n = e % D, m = m0 + r;
-    if (m >= M) continue;
-    const float o = pt::round_t<bf16>(pt::round_t<bf16>(Cs[e]) + pt::to_f(b2[n]));
-    const float os = pt::round_t<bf16>(o * pt::to_f(ls[n]));
-    out[(size_t)m * D + n] = pt::from_f<bf16>(pt::to_f(x[(size_t)m * D + n]) + os);
+  for (int j = 0; j < 16; ++j) {
+    if (r < M) epi(r, c + 8 * j, acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < M) epi(r + 8, c + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
   }
+}
+
+template <class Epilogue>
+cudaError_t launch_gemm(const bf16* A, const bf16* W, int M, int N, int K, Epilogue epi,
+                        cudaStream_t s) {
+  cudaError_t err = pt_allow_smem(gemm_bf16_kernel<Epilogue>, GSMEM);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_kernel<<<dim3(N / GN, (M + GM - 1) / GM), GTHREADS, GSMEM, s>>>(A, W, M, N, K,
+                                                                          epi);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes as each kernel states; the wrapper checks them.
+// Shapes as each kernel states; the wrapper checks them. `hidden` is the
+// (M, H) bf16 scratch of the bf16 path (unused in f32).
 extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
                          const void* w1, const void* b1, const void* w2,
-                         const void* b2, const void* ls, void* out, int M,
-                         int D, int H, float eps, int gelu_approx, int dtype,
+                         const void* b2, const void* ls, void* out, void* hidden,
+                         int M, int D, int H, float eps, int gelu_approx, int dtype,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (M + BM - 1) / BM;
   cudaError_t err;
   if (dtype == pt::kBF16) {
-    const size_t smem = (size_t)(2 * BM * (D + 8) + 2 * CKS * HLD + BM * HLD) * sizeof(bf16);
-    err = pt_allow_smem(ln_mlp_bf16_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    ln_mlp_bf16_kernel<<<blocks, THREADS, smem, s>>>(
-        (const bf16*)x, (const bf16*)g, (const bf16*)bg, (const bf16*)w1,
-        (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (const bf16*)ls,
-        (bf16*)out, M, D, H, eps, gelu_approx != 0);
-  } else {
-    const size_t smem = (size_t)(BM * (D + 8) + HC * D + 32 * HC + BM * HC) * sizeof(float);
-    err = pt_allow_smem(ln_mlp_f32_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    ln_mlp_f32_kernel<<<blocks, THREADS, smem, s>>>(
-        (const float*)x, (const float*)g, (const float*)bg, (const float*)w1,
-        (const float*)b1, (const float*)w2, (const float*)b2, (const float*)ls,
-        (float*)out, M, D, H, eps, gelu_approx != 0);
+    const bf16 *xb = (const bf16*)x, *w1b = (const bf16*)w1, *w2b = (const bf16*)w2;
+    bf16 *ob = (bf16*)out, *hb = (bf16*)hidden;
+    ln_rows_bf16_kernel<<<(M + 7) / 8, 256, 0, s>>>(xb, (const bf16*)g, (const bf16*)bg,
+                                                    ob, M, D, eps);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)  // LN(x) sits in `out` until fc2 overwrites it
+      err = launch_gemm(ob, w1b, M, H, D,
+                        Fc1Epilogue{(const bf16*)b1, hb, H, gelu_approx != 0}, s);
+    if (err == cudaSuccess)
+      err = launch_gemm(hb, w2b, M, D, H,
+                        Fc2Epilogue{xb, (const bf16*)b2, (const bf16*)ls, ob, D}, s);
+    return (int)err;
   }
+  const int blocks = (M + BM - 1) / BM;
+  const size_t smem = (size_t)(BM * (D + 8) + HC * D + 32 * HC + BM * HC) * sizeof(float);
+  err = pt_allow_smem(ln_mlp_f32_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_f32_kernel<<<blocks, THREADS, smem, s>>>(
+      (const float*)x, (const float*)g, (const float*)bg, (const float*)w1,
+      (const float*)b1, (const float*)w2, (const float*)b2, (const float*)ls,
+      (float*)out, M, D, H, eps, gelu_approx != 0);
   return (int)cudaGetLastError();
 }

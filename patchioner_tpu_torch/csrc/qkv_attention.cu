@@ -11,13 +11,15 @@
 //
 // Design: the TPU kernel keeps a head's whole key range resident; K plus V
 // for one head at N = 1374 is 352 KB in bf16, over an SM's shared memory.
-// So it runs the streamed online softmax that kernel K runs, on the tensor
-// cores in bf16 (attention_wmma.cuh) and on the SIMT pipes in float32
-// (attention_simt.cuh), with q, k and v of head h read at columns h*hd,
-// D + h*hd and 2D + h*hd of a token's row and the output written at column
-// h*hd of the merged row.
+// So it runs the streamed online softmax that kernel K runs: in bf16 the
+// wgmma kernel of attention_sm90.cuh (128 queries a block, m64n64k16 QK^T
+// and PV, a 4-stage cp.async ring of 64-key tiles, 81 KB of shared memory;
+// its note gives the design), in float32 the SIMT kernel of
+// attention_simt.cuh, with q, k and v of head h read at columns h*hd,
+// D + h*hd and 2D + h*hd of a token's row (row stride 3D) and the output
+// written at column h*hd of the merged row.
 #include "attention_simt.cuh"
-#include "attention_wmma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -39,7 +41,7 @@ extern "C" int pt_qkv_attention(const void* qkv, void* out, int B, int N,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == pt::kBF16)
-    return launch<pt::bf16_t>(pt::launch_attention_wmma, qkv, out, B, N, H,
+    return launch<pt::bf16_t>(pt::launch_attention_sm90, qkv, out, B, N, H,
                               num_real_k, scale, s);
   return launch<float>(pt::launch_attention_simt, qkv, out, B, N, H,
                        num_real_k, scale, s);

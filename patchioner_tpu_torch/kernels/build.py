@@ -97,6 +97,23 @@ def build() -> tuple[str, float]:
     return lib, seconds
 
 
+def sass_counts(opcode: str) -> dict:
+    """{kernel function: number of SASS instructions of `opcode`} in the
+    built library, from cuobjdump (beside nvcc); functions without any are
+    left out."""
+    lib = os.path.join(BUILD_ROOT, source_hash(), LIB_NAME)
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn and f" {opcode}" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def build_log() -> str:
     """The compiler's output of the current build (registers, spills)."""
     path = os.path.join(BUILD_ROOT, source_hash(), "build.log")

@@ -8,7 +8,8 @@ helpers `quantize_symmetric_int8` and `quantize_mlp_weights`. Each wrapper
 runs its hand-written CUDA kernel (`csrc/ln_dense.cu` for A and E,
 `csrc/ln_mlp.cu`, `csrc/ln_swiglu.cu`, `csrc/ln_mlp_w8.cu`, whose notes
 give the bound and design) on CUDA tensors and its plain PyTorch version
-on CPU tensors. `launches` on each wrapper counts kernel launches.
+on CPU tensors. `launches` on each wrapper counts the calls that ran its
+kernel (C's bf16 call is three CUDA launches: LN, fc1, fc2).
 
 Rounding points follow the reference kernels (ops/mlp.py:_kernel,
 _ln_dense_kernel, _dense_res_kernel): f32 two-pass LN statistics, LN
@@ -192,18 +193,24 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
     kernels.check_operands("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
     d = x.shape[-1]
     h = w1.shape[1]
-    align = 128 if x.dtype == torch.bfloat16 else 32
-    if d % align or d > 768 or h % 32 or tuple(w2.shape) != (h, d):
+    bf16 = x.dtype == torch.bfloat16
+    # bf16: 128-wide wgmma tiles of D and H; f32: the SIMT kernel's tiles
+    if tuple(w2.shape) != (h, d) or (d % 128 or h % 128 if bf16 else
+                                     d % 32 or d > 768 or h % 32):
         raise ValueError(
-            f"fused_ln_mlp: needs D % {align} == 0, D <= 768, H % 32 == 0; "
-            f"got D={d}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}"
+            f"fused_ln_mlp: needs w2 (H, D) and D % 128 == 0, H % 128 == 0 in "
+            f"bfloat16, or D % 32 == 0, D <= 768, H % 32 == 0 in float32; got "
+            f"{x.dtype}, D={d}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}"
         )
+    rows = x.numel() // d
     out = torch.empty_like(x)
+    # bf16 runs fc1 and fc2 as two launches with the hidden in between
+    hidden = torch.empty(rows, h, device=x.device, dtype=x.dtype) if bf16 else None
     kernels.launch(
         "pt_ln_mlp", *(t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1,
                                                w2, b2, ls, out)),
-        x.numel() // d, d, h, float(eps), int(bool(gelu_approx)),
-        kernels.dtype_code(x),
+        hidden.data_ptr() if bf16 else None, rows, d, h, float(eps),
+        int(bool(gelu_approx)), kernels.dtype_code(x),
     )
     fused_ln_mlp.launches += 1
     return out

@@ -74,7 +74,7 @@ def profile_config(label: str, config: dict, smi: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     print(f"== {label} {config}")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=8))
+    print(events.table(sort_by="self_cuda_time_total", row_limit=12))
     # only the device's own events: an operator's row repeats the time of
     # the kernels it launched
     device_ms = sum(e.self_device_time_total for e in events

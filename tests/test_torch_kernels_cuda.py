@@ -76,8 +76,10 @@ def test_ln_dense_kernel(cuda, dtype, o):
 
 @pytest.mark.parametrize("gelu_approx", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [256, 96])
+@pytest.mark.parametrize("d", [256, 96, 768])
 def test_ln_mlp_kernel(cuda, dtype, d, gelu_approx):
+    # 154 rows: one full 128-row GEMM tile and a ragged one; d = 768 is the
+    # flagship's width (H = 3072)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = 4 * d
     args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
@@ -87,7 +89,7 @@ def test_ln_mlp_kernel(cuda, dtype, d, gelu_approx):
             _randn(gen, h, d, dtype=dtype, scale=h ** -0.5),
             _randn(gen, d, dtype=dtype, scale=0.1),
             1 + _randn(gen, d, dtype=dtype, scale=0.1))  # per-channel layerscale
-    if dtype == torch.bfloat16 and d % 128:  # the tensor-core kernel's split
+    if dtype == torch.bfloat16 and d % 128:  # the wgmma GEMM tiles are 128 wide
         with pytest.raises(ValueError, match="D % 128"):
             mlp.fused_ln_mlp(*args, eps=1e-6)
         return
@@ -96,12 +98,18 @@ def test_ln_mlp_kernel(cuda, dtype, d, gelu_approx):
     _check(got, mlp.ln_mlp_plain(*args, **kw), dtype)
 
 
+# N = 200 and 1374 are ragged against the 128-query and the 64-key tiles of
+# B and K; num_real_k < N masks keys inside the last tiles
+EDGES = [(200, 150), (1374, 1369)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,num_real_k", [(77, None), (128, 100)])
-def test_qkv_attention_kernel(cuda, dtype, n, num_real_k):
+@pytest.mark.parametrize("n,num_real_k,heads", [(77, None, 2), (128, 100, 2)] +
+                         [(n, nrk, 12) for n, nrk in EDGES])
+def test_qkv_attention_kernel(cuda, dtype, n, num_real_k, heads):
     gen = torch.Generator(device="cuda").manual_seed(2)
-    qkv = _randn(gen, 2, n, 3 * 2 * 64, dtype=dtype)
-    kw = dict(num_heads=2, scale=0.125, num_real_k=num_real_k)
+    qkv = _randn(gen, 2, n, 3 * heads * 64, dtype=dtype)  # the fused layout
+    kw = dict(num_heads=heads, scale=0.125, num_real_k=num_real_k)
     got = _counted(attention.fused_qkv_attention,
                    lambda: attention.fused_qkv_attention(qkv, **kw))
     _check(got, attention.qkv_attention_plain(qkv, **kw), dtype)
@@ -144,7 +152,7 @@ def test_qkv_attention_proj_kernel(cuda, dtype, heads, n, num_real_k):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)])
+@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)] + EDGES)
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_1pass"])
 def test_flash_attention_kernels(cuda, dtype, n, num_real_k, name):
     gen = torch.Generator(device="cuda").manual_seed(8)
