@@ -11,8 +11,10 @@ then exits non-zero without the final result line:
 2. build: compiles the CUDA kernels from `patchioner_tpu_torch/csrc`, one
    nvcc process per source, all started together; prints ptxas' registers,
    spills and wgmma remarks per kernel, and the HGMMA instructions that
-   cuobjdump finds in each kernel (B, K and C's bf16 kernels must have
-   them);
+   cuobjdump finds in each kernel. Every wgmma instantiation must have
+   them, each found by its own mangled name (`WGMMA_KERNELS`): the online
+   attention of B and K, J's exact-max attention, and the fc1 and fc2 GEMMs
+   of C and of G;
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
@@ -149,6 +151,25 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
+# Every wgmma kernel instantiation, by the parts of its mangled name: the
+# kernel's name and its template argument (a bool, or an epilogue type),
+# each with the length prefix it has there. Each must have HGMMA in SASS.
+WGMMA_KERNELS = {
+    "B and K, online softmax": ("attention_sm90_kernel", False),
+    "J, exact-max softmax": ("attention_sm90_kernel", True),
+    "C fc1": ("gemm_bf16_kernel", "Fc1Epilogue"),
+    "C fc2": ("gemm_bf16_kernel", "Fc2Epilogue"),
+    "G fc1": ("gemm_bf16_kernel", "SwigluFc1Epilogue"),
+    "G fc2": ("gemm_bf16_kernel", "SwigluFc2Epilogue"),
+}
+
+
+def _is_instantiation(fn: str, kernel: str, arg) -> bool:
+    """Whether the mangled name `fn` is kernel<arg>."""
+    targ = f"Lb{int(arg)}E" if isinstance(arg, bool) else f"{len(arg)}{arg}"
+    return f"{len(kernel)}{kernel}I" in fn and targ in fn
+
+
 def phase_build() -> None:
     from patchioner_tpu_torch import kernels
     from patchioner_tpu_torch.kernels import build
@@ -157,15 +178,23 @@ def phase_build() -> None:
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{kernels.build_seconds:.1f} s for {len(build.sources())} sources")
     for line in build.build_log().splitlines():
-        if any(k in line for k in ("entry function", "Used", "spill", "wgmma")):
+        if "wgmma" in line:
             log(f"[build] {line.strip()}")
-    # B, K and C's bf16 kernels must be Hopper warpgroup designs: HGMMA in SASS
+    resources = build.kernel_resources()
+    for fn, (regs, stores, loads) in sorted(resources.items()):
+        log(f"[build] {fn}: {regs} registers, spills {stores} B stored, {loads} B loaded")
     hgmma = build.sass_counts("HGMMA")
     for fn, n in sorted(hgmma.items()):
         log(f"[build] {n} HGMMA in {fn}")
-    for kernel in ("attention_sm90_kernel", "gemm_bf16_kernel"):
-        if not any(kernel in fn for fn in hgmma):
-            raise AssertionError(f"no HGMMA instruction in {kernel}")
+    # each wgmma instantiation must be a Hopper warpgroup design: HGMMA in SASS
+    for label, (kernel, arg) in WGMMA_KERNELS.items():
+        found = [fn for fn in hgmma if _is_instantiation(fn, kernel, arg)]
+        if not found:
+            raise AssertionError(f"no HGMMA instruction in {label} ({kernel}<{arg}>)")
+        for fn in found:
+            regs, stores, loads = resources[fn]
+            log(f"[build] {label}: {hgmma[fn]} HGMMA, {regs} registers, spills "
+                f"{stores} B stored, {loads} B loaded")
 
 
 def _nbytes(*tensors) -> int:

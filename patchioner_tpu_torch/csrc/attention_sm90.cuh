@@ -1,10 +1,12 @@
-// Online-softmax attention in bf16 on Hopper's warpgroup tensor cores, for
-// head dim 64, over q, k and v rows addressed by strides: kernel B runs it
-// on the fused qkv activation, kernel K on (B, H, N, hd) tensors.
+// Attention in bf16 on Hopper's warpgroup tensor cores, for head dim 64,
+// over q, k and v rows addressed by strides, in two softmax forms: the
+// online one (kernel B on the fused qkv activation, kernel K on (B, H, N,
+// hd) tensors) and the exact-max one (kernel J on (B, H, N, hd) tensors).
 //
 // Replaces the bf16 path of patchioner_tpu/ops/attention.py:
-// fused_qkv_attention (body _fusedqkv_kernel, _softmax_attend) and
-// flash_attention (body _flash_kernel).
+// fused_qkv_attention (body _fusedqkv_kernel, _softmax_attend),
+// flash_attention (body _flash_kernel) and flash_attention_1pass (body
+// _flash1p_kernel, _softmax_attend).
 //
 // Bound on the H100: at the flagship shape QK^T and PV are 46.4 GFLOP
 // against 68 MB of q, k, v and output, 0.047 ms at the bf16 tensor-core
@@ -34,6 +36,15 @@
 //   memory;
 // - the output acc / l is rounded once to bf16 and written at the head's
 //   columns of the output row.
+// The exact-max form (ExactMax = true) keeps what defines kernel J: p =
+// exp(s - m) against the exact row max m over every real key, with no
+// online rescale. The TPU kernel holds a head's whole key range in VMEM;
+// here K and V of one head (352 KB at N = 1374) do not fit on an SM, so the
+// block sweeps the keys twice through the same ring: sweep 1 loads only K
+// tiles and runs QK^T for the masked row max (no exp, no PV, no V loads);
+// sweep 2 is the loop above with m fixed at that max, so the rescale factors
+// are 1 and drop out. Sweep 1's QK^T (half of the products again) is the
+// design's cost.
 // Shared memory: 16 KB of q, 4 x 16 KB of K and V, 1 KB for the 1024-byte
 // alignment of the swizzle atoms: 81 KB a block.
 #pragma once
@@ -52,6 +63,7 @@ constexpr size_t FA_SMEM = 1024 + 2 * FA_TILE + FA_STAGES * 2 * FA_TILE;
 constexpr float FA_LOG2E = 1.4426950408889634f;
 
 // grid (ceil(N / 128), heads, batch); rows of q, k, v and out 16-byte aligned
+template <bool ExactMax>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                       const bf16_t* __restrict__ v, bf16_t* __restrict__ out,
@@ -69,21 +81,26 @@ attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k
   const bf16_t* kb = k + off;
   const bf16_t* vb = v + off;
   const int ntiles = (N + FA_BK - 1) / FA_BK;
+  // step t < ntiles of the exact-max form is sweep 1 over key tile t;
+  // every other step is the softmax and PV of key tile t % ntiles
+  const int nsteps = ExactMax ? 2 * ntiles : ntiles;
 
-  auto load_kv = [&](int j) {  // K and V rows j * 64 .. + 63 into stage j % STAGES
-    if (j < ntiles) {
-      const uint32_t dk = sKV + (j % FA_STAGES) * 2 * FA_TILE, dv = dk + FA_TILE;
+  auto load_kv = [&](int t) {  // step t's key tile into stage t % STAGES
+    if (t < nsteps) {
+      const bool with_v = !ExactMax || t >= ntiles;
+      const int j = t < ntiles ? t : t - ntiles;
+      const uint32_t dk = sKV + (t % FA_STAGES) * 2 * FA_TILE, dv = dk + FA_TILE;
       for (int e = tid; e < 64 * 8; e += FA_THREADS) {
         const int r = e >> 3, c = e & 7, row = j * FA_BK + r;
         const long long src = (long long)(row < N ? row : 0) * in.row + c * 8;
         sm90::cp_async16(dk + sm90::swizzle128(r, c), kb + src, row < N);
-        sm90::cp_async16(dv + sm90::swizzle128(r, c), vb + src, row < N);
+        if (with_v) sm90::cp_async16(dv + sm90::swizzle128(r, c), vb + src, row < N);
       }
     }
-    sm90::cp_async_commit();  // one group per tile, empty past the last
+    sm90::cp_async_commit();  // one group per step, empty past the last
   };
 #pragma unroll
-  for (int j = 0; j < FA_STAGES - 1; ++j) load_kv(j);
+  for (int t = 0; t < FA_STAGES - 1; ++t) load_kv(t);
 
   const float scale_t = round_t<bf16_t>(scale);
   for (int e = tid; e < FA_BQ * 8; e += FA_THREADS) {
@@ -102,12 +119,14 @@ attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   const int kcol = (lane & 3) * 2;
 
-  for (int j = 0; j < ntiles; ++j) {
-    sm90::cp_async_wait<FA_STAGES - 2>();  // tile j has landed
+  for (int t = 0; t < nsteps; ++t) {
+    sm90::cp_async_wait<FA_STAGES - 2>();  // step t's tile has landed
     sm90::fence_proxy_async();
-    __syncthreads();  // every thread's copies of tile j, and tile j - 1 is free
-    load_kv(j + FA_STAGES - 1);
-    const uint32_t dk = sKV + (j % FA_STAGES) * 2 * FA_TILE, dv = dk + FA_TILE;
+    __syncthreads();  // every thread's copies of step t, and step t - 1's stage is free
+    load_kv(t + FA_STAGES - 1);
+    const bool max_only = ExactMax && t < ntiles;  // sweep 1
+    const int j = t < ntiles ? t : t - ntiles;
+    const uint32_t dk = sKV + (t % FA_STAGES) * 2 * FA_TILE, dv = dk + FA_TILE;
 
     float s[32];
 #pragma unroll
@@ -136,16 +155,25 @@ attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k
         mx1 = fmaxf(mx1, s[4 * c + 2 + e]);
       }
     }
+    // the online form's new max and rescale factors; the exact form's are
+    // its sweep-1 max and 1
+    float a0 = 1.f, a1 = 1.f;
+    if (!ExactMax || max_only) {
 #pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      if (!ExactMax) {
+        a0 = exp2f((m0 - n0) * FA_LOG2E);
+        a1 = exp2f((m1 - n1) * FA_LOG2E);
+      }
+      m0 = n0;
+      m1 = n1;
+      if (max_only) continue;
     }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float a0 = exp2f((m0 - n0) * FA_LOG2E), a1 = exp2f((m1 - n1) * FA_LOG2E);
-    m0 = n0;
-    m1 = n1;
-    const float ms0 = n0 * FA_LOG2E, ms1 = n1 * FA_LOG2E;
+    const float ms0 = m0 * FA_LOG2E, ms1 = m1 * FA_LOG2E;
     uint32_t p[16];
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
@@ -159,7 +187,7 @@ attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k
       p[2 * c] = sm90::pack_bf16(x0, x1);
       p[2 * c + 1] = sm90::pack_bf16(y0, y1);
     }
-    l0 = l0 * a0 + ps0;
+    l0 = l0 * a0 + ps0;  // a0 = a1 = 1 in the exact form
     l1 = l1 * a1 + ps1;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -201,15 +229,16 @@ attention_sm90_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k
   }
 }
 
+template <bool ExactMax>
 int launch_attention_sm90(const bf16_t* q, const bf16_t* k, const bf16_t* v,
                           bf16_t* out, RowLayout in, RowLayout ol, int batch,
                           int heads, int N, int num_real_k, float scale,
                           cudaStream_t s) {
-  cudaError_t err = pt_allow_smem(attention_sm90_kernel, FA_SMEM);
+  cudaError_t err = pt_allow_smem(attention_sm90_kernel<ExactMax>, FA_SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + FA_BQ - 1) / FA_BQ, heads, batch);
-  attention_sm90_kernel<<<grid, FA_THREADS, FA_SMEM, s>>>(q, k, v, out, in, ol, N,
-                                                          num_real_k, scale);
+  attention_sm90_kernel<ExactMax><<<grid, FA_THREADS, FA_SMEM, s>>>(
+      q, k, v, out, in, ol, N, num_real_k, scale);
   return (int)cudaGetLastError();
 }
 

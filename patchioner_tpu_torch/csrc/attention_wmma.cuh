@@ -1,7 +1,6 @@
 // The warp-level step of online-softmax attention on the bf16 WMMA tensor
-// cores, for head dim 64: kernel F runs it per head of a pair, and kernel J
-// loads its tiles with wa_load_tile. (Kernels B and K run the warpgroup
-// kernel of attention_sm90.cuh.)
+// cores, for head dim 64: kernel F runs it per head of a pair. (Kernels B,
+// J and K run the warpgroup kernel of attention_sm90.cuh.)
 //
 // The warp step, for each 64-key tile: the warp's (16, 64) logits on WMMA
 // 16x16x16 tiles (bf16 in, f32 accumulators); keys at or beyond

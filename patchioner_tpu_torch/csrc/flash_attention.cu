@@ -25,7 +25,7 @@ extern "C" int pt_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const pt::RowLayout layout{(long long)N * 64, 0, 64};
   if (dtype == pt::kBF16)
-    return pt::launch_attention_sm90(
+    return pt::launch_attention_sm90<false>(
         (const pt::bf16_t*)q, (const pt::bf16_t*)k, (const pt::bf16_t*)v,
         (pt::bf16_t*)out, layout, layout, BH, 1, N, num_real_k, scale, s);
   return pt::launch_attention_simt(

@@ -1,5 +1,7 @@
 // Kernel J: attention on (B, H, N, hd) q, k and v with a one-pass exact
-// softmax: the exact row max and sum over every key, no online rescale.
+// softmax: p = exp(s - m) against the exact row max m over every real key,
+// no online rescale, p rounded to T before PV, and the f32 sum of the
+// unrounded p dividing the PV sum once at the end.
 //
 // Replaces patchioner_tpu/ops/attention.py:flash_attention_1pass (body
 // _flash1p_kernel / _softmax_attend), reached by attn_impl: flash1p.
@@ -10,24 +12,15 @@
 // exp also cost the SFUs a time of that order.
 //
 // Design: the TPU kernel holds a head's whole key range in VMEM; K and V
-// of one head (352 KB in bf16 at N = 1374) do not fit on an SM. What
-// carries over is the one-pass exact softmax: a block owns 16 queries of
-// one (batch, head) and keeps their whole f32 logit rows in shared memory
-// (16 x 1408 x 4 B = 88 KB at the flagship). Pass 1 writes q.k into the
-// rows, one 64-key tile of K at a time. Each warp then takes whole rows:
-// the exact max over the keys below num_real_k (the rest count as -1e30),
-// p = exp(s - max) summed in f32, and p rounded to T. Pass 2 sums p V over
-// 64-key tiles of V in f32, which is divided by the row sum once at the
-// end. q * scale is rounded to T first, as in the reference.
-//
-// bf16 runs both products on the tensor cores (WMMA 16x16x16, f32
-// accumulators): each of the eight warps stages its own key tiles (tiles
-// w, w + 8, ...) in shared memory with 16-byte copies, so the passes need
-// no block-wide barrier; p is written as bf16 over the front half of its
-// own logit row, and the warps' partial PV sums meet in shared memory at
-// the end. float32 runs the same passes on the SIMT pipes, so its sums
-// stay exact f32, with block-wide K and V tiles.
-#include "attention_wmma.cuh"
+// of one head (352 KB in bf16 at N = 1374) do not fit on an SM. bf16 runs
+// the exact-max form of kernel B's wgmma body (attention_sm90.cuh): a first
+// sweep over the K tiles finds each row's exact max, a second runs B's
+// softmax and PV with that max fixed; any N. float32 runs the SIMT kernel
+// below, so its sums stay exact f32: a block owns 16 queries and keeps
+// their whole f32 logit rows in shared memory (16 x N x 4 B), which caps N
+// (the wrapper checks). q * scale is rounded to T first, as in the
+// reference.
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -35,119 +28,6 @@ constexpr int BQ = 16, BKEYS = 64, HD = 64, THREADS = 256, LD = HD + 1;
 
 __host__ __device__ inline int padded_keys(int n) {
   return (n + BKEYS - 1) / BKEYS * BKEYS;
-}
-
-using bf16 = __nv_bfloat16;
-constexpr int WARPS = THREADS / 32;
-constexpr size_t WARP_TILE = 64 * pt::WA_LDB * sizeof(bf16);  // per-warp K / V tile
-
-__global__ void __launch_bounds__(THREADS)
-flash1p_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int N,
-                    int num_real_k, float scale) {
-  namespace wmma = nvcuda::wmma;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int NP = padded_keys(N);
-  float* S = (float*)smem_raw;                          // [BQ][NP] logits
-  unsigned char* tiles = smem_raw + (size_t)BQ * NP * sizeof(float);
-  bf16* Qs = (bf16*)(tiles + WARPS * WARP_TILE);        // [BQ][LDB]
-  __shared__ float l_s[BQ];
-
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)blockIdx.y * N * HD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  bf16* Tw = (bf16*)(tiles + warp * WARP_TILE);         // this warp's tile
-  const float scale_t = pt::round_t<bf16>(scale);
-
-  for (int e = tid; e < BQ * HD / 8; e += THREADS) {
-    const int r = e / (HD / 8), d = (e % (HD / 8)) * 8, qi = q0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < N) raw = *(const uint4*)(q + base + (size_t)qi * HD + d);
-    bf16* vals = (bf16*)&raw;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) vals[t] = pt::from_f<bf16>(pt::to_f(vals[t]) * scale_t);
-    *(uint4*)(Qs + r * pt::WA_LDB + d) = raw;
-  }
-  __syncthreads();
-
-  // pass 1: S[:, key tile] = Q K^T, warp w on tiles w, w + 8, ...
-  for (int k0 = warp * BKEYS; k0 < N; k0 += WARPS * BKEYS) {
-    pt::wa_load_tile(Tw, k + base, HD, k0, N, lane, 32);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + kk, pt::WA_LDB);
-        wmma::load_matrix_sync(b, Tw + j * 16 * pt::WA_LDB + kk, pt::WA_LDB);
-        wmma::mma_sync(sf, a, b, sf);
-      }
-      wmma::store_matrix_sync(S + k0 + j * 16, sf, NP, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // exact softmax numerators, one warp per row; p (bf16) overwrites the
-  // front half of its own row: chunk c's p lands on logits before c
-  for (int r = warp; r < BQ; r += WARPS) {
-    float* row = S + r * NP;
-    bf16* prow = (bf16*)row;
-    float mx = -1e30f;
-    for (int c = lane; c < NP; c += 32)
-      if (c < num_real_k) mx = fmaxf(mx, row[c]);
-    mx = pt::warp_max(mx);
-    float sum = 0.f;
-    for (int c0 = 0; c0 < NP; c0 += 32) {
-      const int c = c0 + lane;
-      const float p = expf((c < num_real_k ? row[c] : -1e30f) - mx);
-      __syncwarp();
-      sum += p;
-      prow[c] = pt::from_f<bf16>(p);
-    }
-    sum = pt::warp_sum(sum);
-    if (lane == 0) l_s[r] = sum;
-  }
-  __syncthreads();
-
-  // pass 2: each warp's partial P V over its tiles of V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(of[j], 0.f);
-  const bf16* P = (const bf16*)S;  // row stride 2 * NP
-  for (int k0 = warp * BKEYS; k0 < N; k0 += WARPS * BKEYS) {
-    pt::wa_load_tile(Tw, v + base, HD, k0, N, lane, 32);
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < BKEYS; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, P + k0 + kk, 2 * NP);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Tw + kk * pt::WA_LDB + j * 16, pt::WA_LDB);
-        wmma::mma_sync(of[j], a, b, of[j]);
-      }
-    }
-    __syncwarp();
-  }
-  float* Rw = (float*)Tw;  // [16][WA_LDS] this warp's partial sums
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Rw + j * 16, of[j], pt::WA_LDS, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BQ * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD, qi = q0 + r;
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w)
-      acc += ((const float*)(tiles + w * WARP_TILE))[r * pt::WA_LDS + d];
-    if (qi < N) out[base + (size_t)qi * HD + d] = pt::from_f<bf16>(acc / l_s[r]);
-  }
 }
 
 // float32 on the SIMT pipes: thread (ty, tx) owns rows ty*4 .. ty*4+3 of
@@ -233,23 +113,18 @@ flash1p_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// (BH, N, 64) q, k, v and out, 16-byte aligned; N up to what the logit
-// rows allow in shared memory (the wrapper checks).
+// (BH, N, 64) q, k, v and out, 16-byte aligned; in float32, N up to what
+// the logit rows allow in shared memory (the wrapper checks).
 extern "C" int pt_flash_attention_1pass(const void* q, const void* k,
                                         const void* v, void* out, int BH, int N,
                                         int num_real_k, float scale, int dtype,
                                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == pt::kBF16) {
-    const size_t smem = (size_t)BQ * padded_keys(N) * sizeof(float) +
-                        WARPS * WARP_TILE + BQ * pt::WA_LDB * sizeof(bf16);
-    cudaError_t err = pt_allow_smem(flash1p_bf16_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + BQ - 1) / BQ, BH);
-    flash1p_bf16_kernel<<<grid, THREADS, smem, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, N, num_real_k,
-        scale);
-    return (int)cudaGetLastError();
+    const pt::RowLayout layout{(long long)N * HD, 0, HD};
+    return pt::launch_attention_sm90<true>(
+        (const pt::bf16_t*)q, (const pt::bf16_t*)k, (const pt::bf16_t*)v,
+        (pt::bf16_t*)out, layout, layout, BH, 1, N, num_real_k, scale, s);
   }
   const size_t smem = (size_t)(BQ * LD + BKEYS * LD + BQ * padded_keys(N)) * sizeof(float);
   cudaError_t err = pt_allow_smem(flash1p_f32_kernel, smem);

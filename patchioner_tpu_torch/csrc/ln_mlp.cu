@@ -35,8 +35,7 @@
 // hidden in 32-wide chunks, LN(x) in shared memory, fc1 + bias + GELU of a
 // chunk into shared memory, its fc2 contribution added to a 4 x 24 f32
 // register tile a thread; the hidden is never written out.
-#include "common.cuh"
-#include "sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -121,31 +120,10 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// ---- bf16: LN(x) into the output buffer, then two launches of one wgmma
-// GEMM template (fc1 with the bias + GELU epilogue into the hidden scratch,
-// fc2 with the bias + layerscale + residual epilogue into the output).
-// Needs D % 128 == 0 and H % 128 == 0.
-constexpr int GM = 128, GN = 128, GK = 64, GSTAGES = 3, GTHREADS = 256;
-constexpr int GTILE = 64 * 128;  // bytes of one swizzled 64 x 64 bf16 tile
-// a stage: A 128 x 64 (two tiles), B 64 x 128 (two 64-column tiles)
-constexpr size_t GSMEM = 1024 + GSTAGES * 4 * GTILE;
-
-// y = LN(x) rounded to bf16: one warp a row, f32 two-pass statistics.
-__global__ void __launch_bounds__(256)
-ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                    const bf16* __restrict__ bg, bf16* __restrict__ y, int M, int D,
-                    float eps) {
-  __shared__ float mean_s[8], rstd_s[8];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, m = blockIdx.x * 8 + w;
-  if (m >= M) return;
-  const bf16* xr = x + (size_t)m * D;
-  pt::row_stats(xr, D, eps, &mean_s[w], &rstd_s[w]);
-  __syncwarp();
-  for (int k = lane; k < D; k += 32) {
-    const float t = (pt::to_f(xr[k]) - mean_s[w]) * rstd_s[w];
-    y[(size_t)m * D + k] = pt::from_f<bf16>(t * pt::to_f(g[k]) + pt::to_f(bg[k]));
-  }
-}
+// ---- bf16: LN(x) into the output buffer, then two launches of the wgmma
+// GEMM template of gemm_sm90.cuh (fc1 with the bias + GELU epilogue into
+// the hidden scratch, fc2 with the bias + layerscale + residual epilogue
+// into the output). Needs D % 128 == 0 and H % 128 == 0.
 
 // h = GELU(round(round(acc) + b1)), rounded to bf16
 struct Fc1Epilogue {
@@ -180,81 +158,6 @@ struct Fc2Epilogue {
   }
 };
 
-// epi(acc) of A (M, K) @ W (K, N), both row-major bf16, K % 64 == 0 and
-// N % 128 == 0; grid (N / 128, ceil(M / 128)). Each warpgroup owns 64 rows
-// of the block's 128 x 128 tile: per 64-deep stage, 4 wgmma.m64n128k16
-// with A K-major and W MN-major, the f32 sum kept over the whole K.
-template <class Epilogue>
-__global__ void __launch_bounds__(GTHREADS, 2)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N,
-                 int K, Epilogue epi) {
-  namespace sm90 = pt::sm90;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = sm90::smem_addr(smem_raw);
-  const uint32_t sbase = raw + ((1024 - (raw & 1023)) & 1023);
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, kt = K / GK;
-
-  auto load = [&](int t) {  // stage t % STAGES: A rows m0.., W rows t * 64..
-    if (t < kt) {
-      const uint32_t sa = sbase + (t % GSTAGES) * 4 * GTILE, sb = sa + 2 * GTILE;
-      const int k0 = t * GK;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = tid + i * GTHREADS;
-        const int r = e >> 3, c = e & 7, row = m0 + r;  // A: 128 rows x 8 chunks
-        sm90::cp_async16(sa + sm90::swizzle128(r, c),
-                         A + (size_t)(row < M ? row : 0) * K + k0 + c * 8, row < M);
-        const int kr = e >> 4, cc = e & 15;  // W: 64 rows x 16 chunks
-        sm90::cp_async16(sb + (cc >> 3) * GTILE + sm90::swizzle128(kr, cc & 7),
-                         W + (size_t)(k0 + kr) * N + n0 + cc * 8, true);
-      }
-    }
-    sm90::cp_async_commit();  // one group per stage, empty past the last
-  };
-#pragma unroll
-  for (int t = 0; t < GSTAGES - 1; ++t) load(t);
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int t = 0; t < kt; ++t) {
-    sm90::cp_async_wait<GSTAGES - 2>();  // stage t has landed
-    sm90::fence_proxy_async();
-    __syncthreads();  // every thread's copies, and stage t - 1 is free
-    load(t + GSTAGES - 1);
-    const uint32_t sa = sbase + (t % GSTAGES) * 4 * GTILE, sb = sa + 2 * GTILE;
-    // A: +32 bytes a k16 step; W: 16 rows (2048 bytes = 128 units) a k16
-    // step, its second 64-column tile LBO = GTILE bytes away
-    const uint64_t da = sm90::desc128(sa + wg * GTILE, 16, 1024);
-    const uint64_t db = sm90::desc128(sb, GTILE, 1024);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, 1);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_operands(acc);
-  }
-
-  const int r = m0 + wg * 64 + warp * 16 + (lane >> 2), c = n0 + (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (r < M) epi(r, c + 8 * j, acc[4 * j], acc[4 * j + 1]);
-    if (r + 8 < M) epi(r + 8, c + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-template <class Epilogue>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, int M, int N, int K, Epilogue epi,
-                        cudaStream_t s) {
-  cudaError_t err = pt_allow_smem(gemm_bf16_kernel<Epilogue>, GSMEM);
-  if (err != cudaSuccess) return err;
-  gemm_bf16_kernel<<<dim3(N / GN, (M + GM - 1) / GM), GTHREADS, GSMEM, s>>>(A, W, M, N, K,
-                                                                          epi);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Shapes as each kernel states; the wrapper checks them. `hidden` is the
@@ -269,15 +172,15 @@ extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
   if (dtype == pt::kBF16) {
     const bf16 *xb = (const bf16*)x, *w1b = (const bf16*)w1, *w2b = (const bf16*)w2;
     bf16 *ob = (bf16*)out, *hb = (bf16*)hidden;
-    ln_rows_bf16_kernel<<<(M + 7) / 8, 256, 0, s>>>(xb, (const bf16*)g, (const bf16*)bg,
-                                                    ob, M, D, eps);
-    err = cudaGetLastError();
+    err = pt::launch_ln_rows(xb, (const bf16*)g, (const bf16*)bg, ob, M, D, eps, s);
     if (err == cudaSuccess)  // LN(x) sits in `out` until fc2 overwrites it
-      err = launch_gemm(ob, w1b, M, H, D,
-                        Fc1Epilogue{(const bf16*)b1, hb, H, gelu_approx != 0}, s);
+      err = pt::launch_gemm(ob, w1b, M, D, pt::dense_tiles(H),
+                            pt::DenseEpilogue<Fc1Epilogue>{
+                                {(const bf16*)b1, hb, H, gelu_approx != 0}}, s);
     if (err == cudaSuccess)
-      err = launch_gemm(hb, w2b, M, D, H,
-                        Fc2Epilogue{xb, (const bf16*)b2, (const bf16*)ls, ob, D}, s);
+      err = pt::launch_gemm(hb, w2b, M, H, pt::dense_tiles(D),
+                            pt::DenseEpilogue<Fc2Epilogue>{
+                                {xb, (const bf16*)b2, (const bf16*)ls, ob, D}}, s);
     return (int)err;
   }
   const int blocks = (M + BM - 1) / BM;

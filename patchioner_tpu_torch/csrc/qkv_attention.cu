@@ -41,7 +41,7 @@ extern "C" int pt_qkv_attention(const void* qkv, void* out, int B, int N,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == pt::kBF16)
-    return launch<pt::bf16_t>(pt::launch_attention_sm90, qkv, out, B, N, H,
+    return launch<pt::bf16_t>(pt::launch_attention_sm90<false>, qkv, out, B, N, H,
                               num_real_k, scale, s);
   return launch<float>(pt::launch_attention_simt, qkv, out, B, N, H,
                        num_real_k, scale, s);

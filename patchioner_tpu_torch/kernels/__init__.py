@@ -21,7 +21,7 @@ SIGNATURES = {
     "pt_ln_dense": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
     "pt_dense_residual": [_P] * 6 + [_I, _I, _I, _I, _P],
     "pt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
-    "pt_ln_swiglu": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    "pt_ln_swiglu": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     "pt_ln_mlp_w8": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_qkv_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pt_qkv_attention_proj": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],

@@ -14,6 +14,7 @@ from __future__ import annotations
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -121,3 +122,23 @@ def build_log() -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def kernel_resources() -> dict:
+    """{kernel function: (registers, spill store bytes, spill load bytes)} of
+    the current build, from ptxas' -v lines in `build.log`."""
+    usage, fn, spills = {}, None, (0, 0)
+    for line in build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), *spills)
+            fn = None
+    return usage

@@ -188,9 +188,11 @@ def flash_attention(q, k, v, *, scale: float, num_real_k: Optional[int] = None):
 
 flash_attention.launches = 0
 
-# J keeps a 16-query tile's whole f32 logit rows in shared memory beside
-# eight 64-key tiles: 16 x 2432 x 4 B + 74 KB fills the SM's 227 KB
-FLASH1P_MAX_N = 2432
+# J's float32 kernel keeps a 16-query tile's whole f32 logit rows (N padded
+# to 64 keys) in shared memory beside a 16-row q tile and a 64-key tile, 65
+# floats a row: 20.8 KB + 16 x 3264 x 4 B fits the SM's 227 KB. The bf16
+# kernel (two sweeps over the keys) takes any N.
+FLASH1P_F32_MAX_N = 3264
 
 
 def flash_attention_1pass(q, k, v, *, scale: float,
@@ -199,9 +201,10 @@ def flash_attention_1pass(q, k, v, *, scale: float,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, num_real_k=num_real_k)
     b, h, n, _ = _bhnd("flash_attention_1pass", q, k, v)
-    if n > FLASH1P_MAX_N:
-        raise ValueError(f"flash_attention_1pass: N={n} > {FLASH1P_MAX_N}: the "
-                         "logit rows do not fit in shared memory")
+    if q.dtype == torch.float32 and n > FLASH1P_F32_MAX_N:
+        raise ValueError(f"flash_attention_1pass: N={n} > {FLASH1P_F32_MAX_N} in "
+                         "float32: the logit rows do not fit in shared memory "
+                         "(bfloat16 takes any N)")
     nrk = _num_real_k(num_real_k, n, "flash_attention_1pass")
     out = torch.empty_like(q)
     kernels.launch("pt_flash_attention_1pass",

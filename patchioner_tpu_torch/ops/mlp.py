@@ -9,7 +9,8 @@ runs its hand-written CUDA kernel (`csrc/ln_dense.cu` for A and E,
 `csrc/ln_mlp.cu`, `csrc/ln_swiglu.cu`, `csrc/ln_mlp_w8.cu`, whose notes
 give the bound and design) on CUDA tensors and its plain PyTorch version
 on CPU tensors. `launches` on each wrapper counts the calls that ran its
-kernel (C's bf16 call is three CUDA launches: LN, fc1, fc2).
+kernel (C's and G's bf16 calls are three CUDA launches each: LN, fc1,
+fc2).
 
 Rounding points follow the reference kernels (ops/mlp.py:_kernel,
 _ln_dense_kernel, _dense_res_kernel): f32 two-pass LN statistics, LN
@@ -252,19 +253,26 @@ def fused_ln_swiglu(x, ln_scale, ln_bias, w12, b12, w3, b3, ls, *, eps: float):
         return ln_swiglu_plain(x, ln_scale, ln_bias, w12, b12, w3, b3, ls, eps=eps)
     kernels.check_operands("fused_ln_swiglu", x, ln_scale, ln_bias, w12, b12, w3, b3, ls)
     d, h = x.shape[-1], w3.shape[0]
-    da, ha = (128, 64) if x.dtype == torch.bfloat16 else (32, 32)
-    if (d % da or d > 1536 or h % ha or tuple(w12.shape) != (d, 2 * h)
-            or tuple(w3.shape) != (h, d)):
+    bf16 = x.dtype == torch.bfloat16
+    # bf16: fc1's paired 64-column tiles of H, fc2's 128-wide tiles of D;
+    # f32: the SIMT kernel's tiles
+    if (tuple(w12.shape) != (d, 2 * h) or tuple(w3.shape) != (h, d)
+            or (d % 128 or h % 64 if bf16 else d % 32 or d > 1536 or h % 32)):
         raise ValueError(
-            f"fused_ln_swiglu: needs w12 (D, 2H), w3 (H, D), D % {da} == 0, "
-            f"D <= 1536, H % {ha} == 0; got x {tuple(x.shape)}, w12 "
-            f"{tuple(w12.shape)}, w3 {tuple(w3.shape)}"
+            f"fused_ln_swiglu: needs w12 (D, 2H), w3 (H, D) and D % 128 == 0, "
+            f"H % 64 == 0 in bfloat16, or D % 32 == 0, D <= 1536, H % 32 == 0 in "
+            f"float32; got {x.dtype}, x {tuple(x.shape)}, w12 {tuple(w12.shape)}, "
+            f"w3 {tuple(w3.shape)}"
         )
+    rows = x.numel() // d
     out = torch.empty_like(x)
+    # bf16 runs fc1 and fc2 as two launches with the hidden in between
+    hidden = torch.empty(rows, h, device=x.device, dtype=x.dtype) if bf16 else None
     kernels.launch(
         "pt_ln_swiglu", *(t.data_ptr() for t in (x, ln_scale, ln_bias, w12, b12,
                                                   w3, b3, ls, out)),
-        x.numel() // d, d, h, float(eps), kernels.dtype_code(x),
+        hidden.data_ptr() if bf16 else None, rows, d, h, float(eps),
+        kernels.dtype_code(x),
     )
     fused_ln_swiglu.launches += 1
     return out

@@ -152,13 +152,22 @@ def test_qkv_attention_proj_kernel(cuda, dtype, heads, n, num_real_k):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)] + EDGES)
+@pytest.mark.parametrize("n,num_real_k,heads", [
+    (77, None, 3), (130, 100, 3)] + [(n, nrk, 3) for n, nrk in EDGES] + [
+    (1374, 1369, 12),  # the flagship's heads
+    (3000, 2990, 3),   # above J's old cap of 2432 keys
+    (3300, None, 3)])  # above J's float32 cap (FLASH1P_F32_MAX_N)
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_1pass"])
-def test_flash_attention_kernels(cuda, dtype, n, num_real_k, name):
+def test_flash_attention_kernels(cuda, dtype, n, num_real_k, heads, name):
     gen = torch.Generator(device="cuda").manual_seed(8)
-    q, k, v = (_randn(gen, 2, 3, n, 64, dtype=dtype) for _ in range(3))
+    q, k, v = (_randn(gen, 2, heads, n, 64, dtype=dtype) for _ in range(3))
     wrapper = getattr(attention, name)
     kw = dict(scale=0.125, num_real_k=num_real_k)
+    if (name == "flash_attention_1pass" and dtype == torch.float32
+            and n > attention.FLASH1P_F32_MAX_N):  # the f32 kernel's logit rows
+        with pytest.raises(ValueError, match="float32"):
+            wrapper(q, k, v, **kw)
+        return
     got = _counted(wrapper, lambda: wrapper(q, k, v, **kw))
     _check(got, attention.attention_plain(q, k, v, **kw), dtype)
 
@@ -183,18 +192,22 @@ def test_memory_project_kernel(cuda, dtype, normalize):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,h", [(256, 512), (1536, 4096), (96, 128)])
-def test_ln_swiglu_kernel(cuda, dtype, d, h):
-    # 154 rows: ten 16-row blocks, the last one ragged
+@pytest.mark.parametrize("d,h,rows", [
+    (256, 512, (2, 77)), (1536, 4096, (2, 77)), (96, 128, (2, 77)),
+    (128, 192, (2, 77)),    # three 64-wide hidden tiles: an odd count of fc1 blocks
+    (256, 512, (3, 300))])  # 900 rows: eight 128-row GEMM tiles, the last ragged
+def test_ln_swiglu_kernel(cuda, dtype, d, h, rows):
+    # (2, 77): 154 rows, ten 16-row blocks of the f32 kernel and two
+    # 128-row GEMM tiles, the last one ragged in each
     gen = torch.Generator(device="cuda").manual_seed(9)
-    args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+    args = (_randn(gen, *rows, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
             _randn(gen, d, dtype=dtype, scale=0.1),
             _randn(gen, d, 2 * h, dtype=dtype, scale=d ** -0.5),
             _randn(gen, 2 * h, dtype=dtype, scale=0.1),
             _randn(gen, h, d, dtype=dtype, scale=h ** -0.5),
             _randn(gen, d, dtype=dtype, scale=0.1),
             1 + _randn(gen, d, dtype=dtype, scale=0.1))
-    if dtype == torch.bfloat16 and d % 128:  # eight warps of 16-column fragments
+    if dtype == torch.bfloat16 and d % 128:  # fc2's 128-wide wgmma tiles of D
         with pytest.raises(ValueError, match="D % 128"):
             mlp.fused_ln_swiglu(*args, eps=1e-6)
         return
