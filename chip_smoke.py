@@ -13,14 +13,15 @@ then exits non-zero without the final result line:
    spills and wgmma remarks per kernel, and the HGMMA instructions that
    cuobjdump finds in each kernel. Every wgmma instantiation must have
    them, each found by its own mangled name (`WGMMA_KERNELS`): the online
-   attention of B and K, J's exact-max attention, and the fc1 and fc2 GEMMs
-   of C and of G;
+   attention of B, F and K, J's exact-max attention, A's qkv GEMM, F's
+   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G;
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
    heads of 64, the full 591,753-row bank, in int8 for H), ViT-g's for G
-   (D = 1536, SwiGLU hidden 4096) and for D over giant's 1536-wide bank,
-   and the flagship MLP's for I (int8 weights), with CUDA-event timings,
+   (D = 1536, SwiGLU hidden 4096), and for A, F and D a second time at
+   ViT-g's shapes (D = 1536, 24 heads, the 1536-wide bank), and the
+   flagship MLP's for I (int8 weights), with CUDA-event timings,
    the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
    kernels' library yardstick. No model path reaches I: its launches are
@@ -33,15 +34,18 @@ then exits non-zero without the final result line:
    one batch of 8 served, the launch counters of its kernels asserted;
 4c. giant: ViT-g/14-reg at full width (40 layers, D = 1536, 24 heads,
    SwiGLU FFN) with the 591,753 x 1536 bank, one batch of 8 served: A, B
-   and G 40 launches a batch, D one;
+   and G 40 launches a batch, D one; then the same with
+   `attn_impl: fusedqkv_proj`: A, F and G 40 launches a batch, D one;
 4d. int8 bank: the flagship with `memory_bank_int8: true`, one batch of 8
    served: H one launch a batch, D none;
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
    drawn near 1 so that the kernels move the residual stream, for the
-   flagship, the int8-bank flagship and giant cut to 4 layers (full width);
+   flagship, the int8-bank flagship, and giant cut to 4 layers (full width)
+   under `fusedqkv` and under `fusedqkv_proj`;
 5b. the same gate between each further attention configuration's prefix
-   and the `fusedqkv` one's, both on the card.
+   and the `fusedqkv` one's, both on the card: the flagship's, and giant's
+   `fusedqkv_proj`.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -94,7 +98,7 @@ W8_F32_TOLERANCE = 1e-3
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
 HD = D // HEADS
-GD, GH = 1536, 4096  # ViT-g's width and SwiGLU hidden
+GD, GH, GHEADS = 1536, 4096, 24  # ViT-g's width, SwiGLU hidden and heads
 
 # The least time the card could take: the larger of the operations over the
 # peak rate for their type (dense tensor cores in bf16 and int8, the SIMT
@@ -155,8 +159,10 @@ def phase_device() -> tuple[str, str]:
 # kernel's name and its template argument (a bool, or an epilogue type),
 # each with the length prefix it has there. Each must have HGMMA in SASS.
 WGMMA_KERNELS = {
-    "B and K, online softmax": ("attention_sm90_kernel", False),
+    "B, F and K, online softmax": ("attention_sm90_kernel", False),
     "J, exact-max softmax": ("attention_sm90_kernel", True),
+    "A qkv": ("gemm_bf16_kernel", "QkvEpilogue"),
+    "F out-projection": ("gemm_bf16_kernel", "AttnProjEpilogue"),
     "C fc1": ("gemm_bf16_kernel", "Fc1Epilogue"),
     "C fc2": ("gemm_bf16_kernel", "Fc2Epilogue"),
     "G fc1": ("gemm_bf16_kernel", "SwigluFc1Epilogue"),
@@ -234,12 +240,15 @@ def _kernel_cases(dtype, gen):
     qbank = mp.quantize_bank(torch.randn(nb, D, generator=gen, device=dev))
     gbank = mp.prepare_bank(torch.randn(nb, GD, generator=gen, device=dev), dtype=dtype)
     gfeats = torch.randn(B, GD, generator=gen, device=dev)
-    # G at giant's shapes
+    # G, A and F at giant's shapes
     xg = randn(B, N, GD)
-    swiglu_args = (xg, 1 + randn(GD, scale=0.1), randn(GD, scale=0.1),
-                   randn(GD, 2 * GH, scale=GD ** -0.5), randn(2 * GH, scale=0.1),
-                   randn(GH, GD, scale=GH ** -0.5), randn(GD, scale=0.1),
-                   1 + randn(GD, scale=0.1))
+    gg, bgg, lsg = 1 + randn(GD, scale=0.1), randn(GD, scale=0.1), 1 + randn(GD, scale=0.1)
+    swiglu_args = (xg, gg, bgg, randn(GD, 2 * GH, scale=GD ** -0.5),
+                   randn(2 * GH, scale=0.1), randn(GH, GD, scale=GH ** -0.5),
+                   randn(GD, scale=0.1), lsg)
+    ln_dense_g = (xg, gg, bgg, randn(GD, 3 * GD, scale=GD ** -0.5), randn(3 * GD, scale=0.1))
+    qkvg = randn(B, N, 3 * GD)
+    qkv_proj_g = (qkvg, xg, randn(GD, GD, scale=GD ** -0.5), randn(GD, scale=0.1), lsg)
     # I: the flagship MLP's weights quantized per column
     w8_args = (x, g, bg, *mlp.quantize_mlp_weights(w1.float(), b1.float(), w2.float(),
                                                    b2.float()), ls)
@@ -248,6 +257,7 @@ def _kernel_cases(dtype, gen):
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
 
     attn_flops = 4 * B * HEADS * N * N * HD  # QK^T and PV
+    gattn_flops = 4 * B * GHEADS * N * N * HD
     mlp_args = (x, g, bg, w1, b1, w2, b2, ls)
     qkv_proj_args = (qkv, x, wproj, bproj, ls)
     return [
@@ -318,6 +328,18 @@ def _kernel_cases(dtype, gen):
          lambda: mp.memory_project_streamed(gfeats, gbank, normalize=True),
          lambda: mp.memory_project_plain(gfeats, gbank, normalize=True), None,
          4 * B * nb * GD, _nbytes(gfeats, gbank.rows, gbank.inv_norm, gfeats)),
+        ("ln_dense_giant", "patchioner_tpu_torch/csrc/ln_dense.cu",
+         "patchioner_tpu/ops/mlp.py:188",
+         lambda: mlp.fused_ln_dense(*ln_dense_g, eps=eps),
+         lambda: mlp.ln_dense_plain(*ln_dense_g, eps=eps), None,
+         2 * rows * GD * 3 * GD, _nbytes(*ln_dense_g, qkvg)),
+        ("qkv_attention_proj_giant", "patchioner_tpu_torch/csrc/qkv_attention_proj.cu",
+         "patchioner_tpu/ops/attention.py:342",
+         lambda: attention.fused_qkv_attention_proj(*qkv_proj_g, num_heads=GHEADS,
+                                                    scale=scale),
+         lambda: attention.qkv_attention_proj_plain(*qkv_proj_g, num_heads=GHEADS,
+                                                    scale=scale), None,
+         gattn_flops + 2 * rows * GD * GD, _nbytes(*qkv_proj_g, xg)),
     ]
 
 
@@ -591,17 +613,23 @@ def main() -> None:
         same = sum(a == b for a, b in zip(caps, captions))
         log(f"[{label}] bf16 captions equal to fusedqkv's (reported, not "
             f"asserted): {same}/{len(caps)}")
-    # phase 4c, 4d: the paths of G and H, each read from its own served run
+    # phase 4c, 4d: the paths of G and H, each read from its own served run,
+    # and giant under fusedqkv_proj
     counts, _ = phase_main_path(args.seed, smi, "giant", n_requests=B, base=GIANT_CONFIG)
     launches["ln_swiglu"] = (counts["ln_swiglu"], "giant")
+    phase_main_path(args.seed, smi, "giant_fusedqkv_proj", CONFIGS["fusedqkv_proj"],
+                    n_requests=B, base=GIANT_CONFIG)
     counts, _ = phase_main_path(args.seed, smi, "int8_bank", {"memory_bank_int8": True},
                                 n_requests=B)
     launches["memory_project_int8"] = (counts["memory_project_int8"], "int8_bank")
     phase_f32_crosscheck(args.seed, configs=CONFIGS)
     phase_f32_crosscheck(args.seed, dict(FLAGSHIP_CONFIG, memory_bank_int8=True),
                          "f32 int8_bank")
-    phase_f32_crosscheck(args.seed, dict(GIANT_CONFIG, dino_geometry={"depth": 4}),
-                         "f32 giant")
+    giant4 = dict(GIANT_CONFIG, dino_geometry={"depth": 4})
+    phase_f32_crosscheck(args.seed, giant4, "f32 giant")
+    phase_f32_crosscheck(args.seed, dict(giant4, **CONFIGS["fusedqkv_proj"]),
+                         "f32 giant fusedqkv_proj",
+                         {"fusedqkv_proj": CONFIGS["fusedqkv_proj"]})
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

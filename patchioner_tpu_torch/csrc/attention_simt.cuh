@@ -1,6 +1,6 @@
 // Online-softmax attention in float32 on the SIMT pipes, for head dim 64,
-// over q, k and v rows addressed by strides: kernel B runs it on the fused
-// qkv activation, kernel K on (B, H, N, hd) tensors. bf16 runs the
+// over q, k and v rows addressed by strides: kernels B and F run it on the
+// fused qkv activation, kernel K on (B, H, N, hd) tensors. bf16 runs the
 // wgmma kernel of attention_sm90.cuh instead.
 //
 // One block owns 64 queries of one (batch, head) and streams 64-key tiles

@@ -1,10 +1,12 @@
 // Attention in bf16 on Hopper's warpgroup tensor cores, for head dim 64,
 // over q, k and v rows addressed by strides, in two softmax forms: the
-// online one (kernel B on the fused qkv activation, kernel K on (B, H, N,
-// hd) tensors) and the exact-max one (kernel J on (B, H, N, hd) tensors).
+// online one (kernels B and F on the fused qkv activation, kernel K on (B,
+// H, N, hd) tensors) and the exact-max one (kernel J on (B, H, N, hd)
+// tensors).
 //
 // Replaces the bf16 path of patchioner_tpu/ops/attention.py:
-// fused_qkv_attention (body _fusedqkv_kernel, _softmax_attend),
+// fused_qkv_attention (body _fusedqkv_kernel, _softmax_attend), the
+// attention half of fused_qkv_attention_proj (_fusedqkv_proj_kernel),
 // flash_attention (body _flash_kernel) and flash_attention_1pass (body
 // _flash1p_kernel, _softmax_attend).
 //

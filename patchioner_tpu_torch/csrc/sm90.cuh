@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks in inline PTX, for the bf16 kernels B, K
-// (attention_sm90.cuh) and C (ln_mlp.cu):
+// Hopper (sm_90a) building blocks in inline PTX, for the bf16 attention of
+// B, F, J and K (attention_sm90.cuh) and the GEMMs of A, C, F and G
+// (gemm_sm90.cuh):
 //
 // - 16-byte cp.async copies from device to shared memory, with commit and
 //   wait_group, that feed a ring of tiles;

@@ -18,13 +18,13 @@ _F = ctypes.c_float
 
 # C signature of each entry point; the stream is always the last argument
 SIGNATURES = {
-    "pt_ln_dense": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
+    "pt_ln_dense": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "pt_dense_residual": [_P] * 6 + [_I, _I, _I, _I, _P],
     "pt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_ln_swiglu": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     "pt_ln_mlp_w8": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_qkv_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "pt_qkv_attention_proj": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
+    "pt_qkv_attention_proj": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _P],
     "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_flash_attention_1pass": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_memory_project": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P],

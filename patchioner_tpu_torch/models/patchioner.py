@@ -13,13 +13,12 @@ reference's `from_config` (patchioner.py:487-505) and its
 bank, whatever the model's type, and projected by kernel H). The DINOv2
 backbones it takes are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and
 ViT-g, `dinov2_vitg14(_reg)` (SwiGLU FFN, kernel G: D <= 1536), whose
-prefix and bank are 1536-wide as the config gives them. Any key that
-leaves this subset raises NotImplementedError: other backbones (ViT-L
-among them, until C takes D = 1024), `attn_impl: fusedqkv_proj` above
-D = 768 (kernel F), ViECap / MeaCap / ClipCap, argmax-text, int8
-(W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`), a
-non-qkv attention_type, and checkpoint or bank files, which are not
-ported yet. With `allow_missing_weights=True` the weights and the bank
+prefix and bank are 1536-wide as the config gives them; every `attn_impl`
+runs on each. Any key that leaves this subset raises NotImplementedError:
+other backbones (ViT-L among them, until C's f32 kernel takes D = 1024),
+ViECap / MeaCap / ClipCap, argmax-text, int8 (W8A8) encoders, the
+compute-dtype softmax (`softmax_f32: false`), a non-qkv attention_type,
+and checkpoint or bank files, which are not ported yet. With `allow_missing_weights=True` the weights and the bank
 are seeded random tensors drawn with `torch.Generator`.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu";
@@ -68,11 +67,10 @@ _OFF_ONLY_KEYS = {
     "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
     "use_open_clip", "invite_config", "memory_bank_path",
 }
-# the widest encoder each FFN kernel takes: C holds a 32-row block's LN(x)
-# and f32 output on an SM, G a 16-row block's
+# the widest encoder each FFN kernel takes in both types: the f32 SIMT
+# kernels keep a block's output rows in registers, 24 columns a thread in C
+# (D <= 768) and 48 in G (D <= 1536); their bf16 GEMMs take any D % 128
 _MAX_EMBED_DIM = {"mlp": 768, "swiglu": 1536}
-# kernel F holds a 64-row bf16 tile of the head outputs in shared memory
-_MAX_FUSEDQKV_PROJ_DIM = 768
 
 
 def _check_config(config: dict) -> None:
@@ -186,11 +184,6 @@ class Patchioner:
             raise NotImplementedError(
                 f"{config['dino_model']} (D = {vit_cfg.embed_dim}) is not ported yet: "
                 f"kernel {'G' if vit_cfg.ffn == 'swiglu' else 'C'} takes D <= {widest}")
-        if (vit_cfg.attn_impl == "fusedqkv_proj"
-                and vit_cfg.embed_dim > _MAX_FUSEDQKV_PROJ_DIM):
-            raise NotImplementedError(
-                f"attn_impl='fusedqkv_proj' at D = {vit_cfg.embed_dim} is not ported "
-                f"yet: kernel F takes D <= {_MAX_FUSEDQKV_PROJ_DIM}")
         prefix_size = int(config["prefix_size"])
         if prefix_size > memproj.MAX_D:
             raise NotImplementedError(

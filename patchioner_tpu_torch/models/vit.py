@@ -17,7 +17,7 @@ path:
   out-projection, layerscale and residual as a plain matmul (plain XLA in
   the reference) or, with `proj_fused`, as kernel E;
 - 'fusedqkv_proj': attention, out-projection, layerscale and residual in
-  one kernel (F);
+  kernel F (B's attention, then one GEMM with the rest in its epilogue);
 - 'flash', 'flash1p', 'flash_builtin': q, k and v split into (B, H, N, hd)
   for kernel K, kernel J or torch's `scaled_dot_product_attention` (the
   port's counterpart of jax's bundled kernel), merged back, then the plain

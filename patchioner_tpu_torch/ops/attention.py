@@ -6,7 +6,9 @@ Twins of `patchioner_tpu/ops/attention.py`:
   from the fused (B, N, 3D) qkv activation, laid out (3, H, hd) on the last
   axis, written as the merged (B, N, D) output;
 - `fused_qkv_attention_proj` (kernel F, `csrc/qkv_attention_proj.cu`): B
-  with the out-projection, bias, layerscale and residual add folded in;
+  followed by the out-projection, with bias, layerscale and residual add in
+  the product's f32 epilogue (two CUDA launches a call: B's attention into
+  a merged scratch, then a GEMM);
 - `flash_attention` (kernel K, `csrc/flash_attention.cu`): online-softmax
   attention on (B, H, N, hd) q, k and v;
 - `flash_attention_1pass` (kernel J, `csrc/flash_attention_1pass.cu`):
@@ -14,8 +16,11 @@ Twins of `patchioner_tpu/ops/attention.py`:
 
 Each wrapper runs its hand-written CUDA kernel (whose note gives the bound
 and design) on CUDA tensors and its plain PyTorch version on CPU tensors;
-`launches` on each wrapper counts kernel launches. The kernels take head
-dim 64 and raise on any other.
+`launches` on each wrapper counts the calls that ran its kernel. In bf16, B,
+F, J and K run one wgmma attention body (`csrc/attention_sm90.cuh`), and F's
+out-projection the GEMM template of kernels A, C and G
+(`csrc/gemm_sm90.cuh`). The kernels take head dim 64 and raise on any
+other.
 
 Semantics (ops/attention.py:_softmax_attend, _flash_kernel): q * scale
 rounded to q's type T, f32 logits, keys at or beyond `num_real_k` masked
@@ -142,18 +147,21 @@ def fused_qkv_attention_proj(qkv, x_res, w_proj, b_proj, ls, *, num_heads: int,
     name = "fused_qkv_attention_proj"
     kernels.check_operands(name, qkv, x_res, w_proj, b_proj, ls)
     b, n, d = _qkv_heads(name, qkv, num_heads)
-    if (x_res.shape != (b, n, d) or w_proj.shape != (d, d) or d > 768
+    # bf16: the out-projection GEMM's 128-wide tiles of D, an even head count
+    if (x_res.shape != (b, n, d) or w_proj.shape != (d, d)
             or b_proj.shape != (d,) or ls.shape != (d,)
-            or (qkv.dtype == torch.bfloat16 and num_heads % 2)):
+            or (qkv.dtype == torch.bfloat16 and d % 128)):
         raise ValueError(
-            f"{name}: needs x_res (B, N, D), w_proj (D, D), b_proj and ls (D,) "
-            f"with D <= 768, and an even head count in bfloat16; got qkv "
-            f"{tuple(qkv.shape)} with {num_heads} heads, x_res "
-            f"{tuple(x_res.shape)}, w_proj {tuple(w_proj.shape)}")
+            f"{name}: needs x_res (B, N, D), w_proj (D, D), b_proj and ls (D,), "
+            f"with D % 128 == 0 in bfloat16; got qkv {tuple(qkv.shape)} with "
+            f"{num_heads} heads, x_res {tuple(x_res.shape)}, w_proj "
+            f"{tuple(w_proj.shape)}")
     nrk = _num_real_k(num_real_k, n, name)
     out = torch.empty_like(x_res)
+    # the merged attention output, between the attention and GEMM launches
+    merged = torch.empty_like(x_res)
     kernels.launch("pt_qkv_attention_proj",
-                   *(t.data_ptr() for t in (qkv, x_res, w_proj, b_proj, ls, out)),
+                   *(t.data_ptr() for t in (qkv, x_res, w_proj, b_proj, ls, out, merged)),
                    b, n, num_heads, nrk, float(scale), kernels.dtype_code(qkv))
     fused_qkv_attention_proj.launches += 1
     return out

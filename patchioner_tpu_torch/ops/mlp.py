@@ -9,8 +9,8 @@ runs its hand-written CUDA kernel (`csrc/ln_dense.cu` for A and E,
 `csrc/ln_mlp.cu`, `csrc/ln_swiglu.cu`, `csrc/ln_mlp_w8.cu`, whose notes
 give the bound and design) on CUDA tensors and its plain PyTorch version
 on CPU tensors. `launches` on each wrapper counts the calls that ran its
-kernel (C's and G's bf16 calls are three CUDA launches each: LN, fc1,
-fc2).
+kernel (A's bf16 call is two CUDA launches: LN, then the qkv GEMM; C's and
+G's are three each: LN, fc1, fc2).
 
 Rounding points follow the reference kernels (ops/mlp.py:_kernel,
 _ln_dense_kernel, _dense_res_kernel): f32 two-pass LN statistics, LN
@@ -172,11 +172,15 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
             f"and O % 128 == 0 in bfloat16; got x {tuple(x.shape)}, "
             f"w {tuple(w.shape)}"
         )
+    rows = x.numel() // d
     out = torch.empty(*x.shape[:-1], o, device=x.device, dtype=x.dtype)
+    # bf16 writes LN(x) into a scratch that the GEMM launch then reads
+    ln = (torch.empty(rows, d, device=x.device, dtype=x.dtype)
+          if x.dtype == torch.bfloat16 else None)
     kernels.launch(
-        "pt_ln_dense", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // d, d, o,
-        float(eps), kernels.dtype_code(x),
+        "pt_ln_dense", *(t.data_ptr() for t in (x, ln_scale, ln_bias, w, bias, out)),
+        ln.data_ptr() if ln is not None else None, rows, d, o, float(eps),
+        kernels.dtype_code(x),
     )
     fused_ln_dense.launches += 1
     return out

@@ -7,8 +7,9 @@ Builds the flagship model of `chip_smoke.py` (ViT-B/14-reg at 518 px, the
 591,753-row bank, 30-step DeCap decode, seeded random bf16 weights), once
 for each attention configuration of its encoder (`fusedqkv` and the ones
 of `chip_smoke.CONFIGS`), then `int8_bank` (the flagship with
-`memory_bank_int8: true`) and `giant` (`chip_smoke.GIANT_CONFIG`, ViT-g/14
-at full width with the 1536-wide bank), and captions one batch of 8 trace
+`memory_bank_int8: true`), `giant` (`chip_smoke.GIANT_CONFIG`, ViT-g/14
+at full width with the 1536-wide bank) and `giant_fusedqkv_proj` (giant
+with `attn_impl: fusedqkv_proj`), and captions one batch of 8 trace
 requests:
 
 - the stage split (encoder, trace pooling + memory projection, decode)
@@ -95,6 +96,8 @@ def main() -> None:
         ("fusedqkv", {"attn_impl": "fusedqkv"}), *chip_smoke.CONFIGS.items(),
         ("int8_bank", {"memory_bank_int8": True}))}
     configs["giant"] = chip_smoke.GIANT_CONFIG
+    configs["giant_fusedqkv_proj"] = dict(chip_smoke.GIANT_CONFIG,
+                                          **chip_smoke.CONFIGS["fusedqkv_proj"])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("configs", nargs="*",
                     help=f"any of {', '.join(configs)}; every one when none is named")

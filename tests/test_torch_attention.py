@@ -91,13 +91,14 @@ def test_flash_plain_matches_pallas_on_a_ragged_length(kernel, dtype):
     _close(got, want.astype(jnp.float32), dtype)
 
 
+@pytest.mark.parametrize("heads", [4, 6])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_qkv_attention_proj_plain_matches_pallas(dtype):
+def test_qkv_attention_proj_plain_matches_pallas(dtype, heads):
     # the Pallas kernel needs N % 128 == 0: it runs on 256 tokens whose last
     # 126 are garbage keys masked by num_real_k; the port runs on the 130
-    # real tokens alone, with no padding
+    # real tokens alone, with no padding. Six heads: three head pairs, D = 384
     rng = np.random.default_rng(12)
-    b, n, heads, hd = 2, 130, 4, 64
+    b, n, hd = 2, 130, 64
     d = heads * hd
     qkv = rng.standard_normal((b, 256, 3 * d)).astype(np.float32)
     x = rng.standard_normal((b, 256, d)).astype(np.float32)

@@ -58,13 +58,15 @@ def _counted(wrapper, call):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("o", [384, 320])
-def test_ln_dense_kernel(cuda, dtype, o):
+@pytest.mark.parametrize("d,o", [(128, 384), (128, 320),
+                                 (768, 2304), (1536, 4608)])  # flagship, giant
+def test_ln_dense_kernel(cuda, dtype, d, o):
+    # 154 rows: one full 128-row GEMM tile and a ragged one
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = _randn(gen, 2, 77, 128, dtype=dtype)
-    args = (x, 1 + _randn(gen, 128, dtype=dtype, scale=0.1),
-            _randn(gen, 128, dtype=dtype, scale=0.1),
-            _randn(gen, 128, o, dtype=dtype, scale=128 ** -0.5),
+    x = _randn(gen, 2, 77, d, dtype=dtype)
+    args = (x, 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, o, dtype=dtype, scale=d ** -0.5),
             _randn(gen, o, dtype=dtype, scale=0.1))
     if dtype == torch.bfloat16 and o % 128:  # the tensor-core tile's width
         with pytest.raises(ValueError, match="O % 128"):
@@ -132,8 +134,9 @@ def test_dense_residual_kernel(cuda, dtype, o):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("heads", [4, 3])
-@pytest.mark.parametrize("n,num_real_k", [(77, None), (130, 100)])
+@pytest.mark.parametrize("n,num_real_k,heads", [
+    (n, nrk, h) for h in (4, 3) for n, nrk in ((77, None), (130, 100))] + [
+    (1374, 1369, 12), (1374, 1369, 24), (200, 150, 24)])  # flagship, giant heads
 def test_qkv_attention_proj_kernel(cuda, dtype, heads, n, num_real_k):
     gen = torch.Generator(device="cuda").manual_seed(7)
     d = heads * 64
@@ -142,8 +145,8 @@ def test_qkv_attention_proj_kernel(cuda, dtype, heads, n, num_real_k):
             _randn(gen, d, dtype=dtype, scale=0.1),
             1 + _randn(gen, d, dtype=dtype, scale=0.1))
     kw = dict(num_heads=heads, scale=0.125, num_real_k=num_real_k)
-    if dtype == torch.bfloat16 and heads % 2:  # the tensor-core kernel's head pairs
-        with pytest.raises(ValueError, match="even head count"):
+    if dtype == torch.bfloat16 and heads % 2:  # the GEMM's 128-wide tiles of D
+        with pytest.raises(ValueError, match="D % 128"):
             attention.fused_qkv_attention_proj(*args, **kw)
         return
     got = _counted(attention.fused_qkv_attention_proj,

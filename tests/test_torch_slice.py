@@ -147,8 +147,7 @@ def test_shipped_flagship_configs_build(path):
     {"viecap": {"project_length": 10}}, {"clipcap": {}},
     {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
     {"dino_model": "vit_base_patch16_clip_224.openai"},
-    {"dino_model": "dinov2_vitg14_reg", "prefix_size": 1536,
-     "attn_impl": "fusedqkv_proj"}, {"calculate_argmax_text": True},
+    {"calculate_argmax_text": True},
     {"encoder_w8a8": True}, {"softmax_f32": False},
     {"memory_bank_path": "bank.h5"}, {"an_unknown_key": 1},
 ])
@@ -312,10 +311,10 @@ def test_each_attention_config_is_token_exact_and_serves(opts, jax_weights):
     _serves(model)
 
 
-# ViT-g (kernel G) and the int8 support memory (kernel H) through
-# from_config, at a geometry shrunk from the giant's: D = 384 in six heads of
-# 64 (JAX's fused-qkv kernel takes head pairs), SwiGLU hidden 1024, two
-# layers; f32 on both sides
+# ViT-g (kernel G, and F under fusedqkv_proj) and the int8 support memory
+# (kernel H) through from_config, at a geometry shrunk from the giant's:
+# D = 384 in six heads of 64 (JAX's fused-qkv kernels take head pairs),
+# SwiGLU hidden 1024, two layers; f32 on both sides
 GIANT_GEOM = dict(img_size=56, embed_dim=384, depth=2, num_heads=6, num_registers=4,
                   extract_heads=6, pos_grid=4, ffn="swiglu")
 TINY_GIANT_CONFIG = {
@@ -327,13 +326,14 @@ TINY_GIANT_CONFIG = {
 }
 
 
-def test_giant_from_config_is_token_exact_and_serves():
+@pytest.mark.parametrize("attn_impl", ["fusedqkv", "fusedqkv_proj"])
+def test_giant_from_config_is_token_exact_and_serves(attn_impl):
     from jax.experimental.pallas import tpu as pltpu
 
     sys.path.insert(0, REPO)
     import __graft_entry__ as ge
 
-    jcfg = jvit.ViTConfig(**GIANT_GEOM, attn_impl="fusedqkv", mlp_fused=True)
+    jcfg = jvit.ViTConfig(**GIANT_GEOM, attn_impl=attn_impl, mlp_fused=True)
     assert jcfg.ffn_hidden == 1024
     vparams = jvit.init_vit(jax.random.PRNGKey(13), jcfg)
     ls = np.random.default_rng(14).uniform(0.5, 1.5, (2, 2, 384)).astype(np.float32)
@@ -344,14 +344,16 @@ def test_giant_from_config_is_token_exact_and_serves():
     rows = np.random.default_rng(16).standard_normal((200, 384)).astype(np.float32)
     bank = jmp.prepare_bank(jnp.asarray(rows), block_m=128)
     inputs = ge.example_inputs(batch=3, img=56, n_pts=16, seed=17)
-    with pltpu.force_tpu_interpret_mode():  # the encoder's Pallas G
+    with pltpu.force_tpu_interpret_mode():  # the encoder's Pallas kernels
         want, _ = ge.make_caption_step(jcfg, jg, False, bank.num_real)(
             ge.make_state(vparams, dec, bank), *inputs)
 
-    built = Patchioner.from_config(TINY_GIANT_CONFIG, allow_missing_weights=True,
-                                   random_bank_size=8, device="cpu")
+    built = Patchioner.from_config(dict(TINY_GIANT_CONFIG, attn_impl=attn_impl),
+                                   allow_missing_weights=True, random_bank_size=8,
+                                   device="cpu")
     cfg = built.vit_cfg
-    assert (cfg.ffn, cfg.embed_dim, cfg.ffn_hidden) == ("swiglu", 384, 1024)
+    assert (cfg.ffn, cfg.embed_dim, cfg.ffn_hidden, cfg.attn_impl) == (
+        "swiglu", 384, 1024, attn_impl)
     assert built.bank.rows.shape == (8, 384)
     gcfg = gpt2.GPT2Config(**GPT_GEOM)
     model = Patchioner(vit_cfg=cfg, vit_params=bridge.vit_from_jax(vparams, cfg),
