@@ -14,7 +14,9 @@ then exits non-zero without the final result line:
    cuobjdump finds in each kernel. Every wgmma instantiation must have
    them, each found by its own mangled name (`WGMMA_KERNELS`): the online
    attention of B, F and K, J's exact-max attention, A's qkv GEMM, F's
-   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G;
+   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G; and D's
+   bf16 body must have mma.sync (HMMA) in both instantiations
+   (`MMA_KERNELS`);
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
@@ -24,8 +26,9 @@ then exits non-zero without the final result line:
    flagship MLP's for I (int8 weights), with CUDA-event timings,
    the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
-   kernels' library yardstick. No model path reaches I: its launches are
-   this phase's;
+   kernels' library yardstick; the projections (D, D at giant's width, H)
+   also print the rate they read their bank at and its share of 3.35 TB/s.
+   No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
    bfloat16; the kernels' launch counters prove the path ran through them;
@@ -93,7 +96,7 @@ GIANT_CONFIG = dict(FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg", prefix_size
 # boundary of round(a / s), which moves an output by about amax / 127 * |w|,
 # so it takes 1e-3 in float32.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-F32_ONLY = {"memory_project", "memory_project_int8", "memory_project_giant"}
+PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant"}
 W8_F32_TOLERANCE = 1e-3
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
@@ -168,11 +171,17 @@ WGMMA_KERNELS = {
     "G fc1": ("gemm_bf16_kernel", "SwigluFc1Epilogue"),
     "G fc2": ("gemm_bf16_kernel", "SwigluFc2Epilogue"),
 }
+# Every mma.sync kernel instantiation, the same way; each must have HMMA.
+MMA_KERNELS = {
+    "D bf16, D <= 768": ("mem_proj_bf16_kernel", 6),
+    "D bf16, D <= 1536": ("mem_proj_bf16_kernel", 12),
+}
 
 
 def _is_instantiation(fn: str, kernel: str, arg) -> bool:
     """Whether the mangled name `fn` is kernel<arg>."""
-    targ = f"Lb{int(arg)}E" if isinstance(arg, bool) else f"{len(arg)}{arg}"
+    targ = (f"Lb{int(arg)}E" if isinstance(arg, bool) else
+            f"Li{arg}E" if isinstance(arg, int) else f"{len(arg)}{arg}")
     return f"{len(kernel)}{kernel}I" in fn and targ in fn
 
 
@@ -189,18 +198,21 @@ def phase_build() -> None:
     resources = build.kernel_resources()
     for fn, (regs, stores, loads) in sorted(resources.items()):
         log(f"[build] {fn}: {regs} registers, spills {stores} B stored, {loads} B loaded")
-    hgmma = build.sass_counts("HGMMA")
+    hgmma, hmma = build.sass_counts("HGMMA"), build.sass_counts("HMMA")
     for fn, n in sorted(hgmma.items()):
         log(f"[build] {n} HGMMA in {fn}")
-    # each wgmma instantiation must be a Hopper warpgroup design: HGMMA in SASS
-    for label, (kernel, arg) in WGMMA_KERNELS.items():
-        found = [fn for fn in hgmma if _is_instantiation(fn, kernel, arg)]
-        if not found:
-            raise AssertionError(f"no HGMMA instruction in {label} ({kernel}<{arg}>)")
-        for fn in found:
-            regs, stores, loads = resources[fn]
-            log(f"[build] {label}: {hgmma[fn]} HGMMA, {regs} registers, spills "
-                f"{stores} B stored, {loads} B loaded")
+    # each wgmma instantiation must be a Hopper warpgroup design (HGMMA in
+    # SASS), and each mma.sync one must run on the tensor cores (HMMA)
+    for opcode, counts, table in (("HGMMA", hgmma, WGMMA_KERNELS),
+                                  ("HMMA", hmma, MMA_KERNELS)):
+        for label, (kernel, arg) in table.items():
+            found = [fn for fn in counts if _is_instantiation(fn, kernel, arg)]
+            if not found:
+                raise AssertionError(f"no {opcode} instruction in {label} ({kernel}<{arg}>)")
+            for fn in found:
+                regs, stores, loads = resources[fn]
+                log(f"[build] {label}: {counts[fn]} {opcode}, {regs} registers, spills "
+                    f"{stores} B stored, {loads} B loaded")
 
 
 def _nbytes(*tensors) -> int:
@@ -350,7 +362,7 @@ def phase_kernels(seed: int) -> dict:
         sdpa_ms = None
         for (name, source, replaces, kern, plain, library, flops,
              nbytes) in _kernel_cases(dtype, gen):
-            tol = TOLERANCE[torch.float32 if name in F32_ONLY else dtype]
+            tol = TOLERANCE[torch.float32 if name in PROJECTIONS else dtype]
             if name == "ln_mlp_w8" and dtype == torch.float32:
                 tol = W8_F32_TOLERANCE
             got, ref = kern(), plain()
@@ -362,7 +374,7 @@ def phase_kernels(seed: int) -> dict:
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
             peak = PEAK_FLOPS[torch.int8 if name == "ln_mlp_w8" else
-                              torch.float32 if name in F32_ONLY else dtype]
+                              torch.float32 if name in PROJECTIONS else dtype]
             op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(op_ms, byte_ms)
             library_ms = None
@@ -376,6 +388,10 @@ def phase_kernels(seed: int) -> dict:
                 f"rel={rel:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({flops / 1e9:.1f} G operations, {nbytes / 1e6:.1f} MB)")
+            if name in PROJECTIONS:
+                rate = nbytes / (ms * 1e-3)
+                log(f"[kernels] {name} {str(dtype)[6:]}: {rate / 1e9:.1f} GB/s, "
+                    f"{rate / PEAK_BYTES_PER_S:.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: rel error {rel:.3e} > {tol:.0e}")
             if dtype == torch.bfloat16 and name in _wrappers():  # the main path's type

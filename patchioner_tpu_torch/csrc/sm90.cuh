@@ -10,7 +10,10 @@
 //   generic proxy (thread stores, cp.async) and the async proxy that wgmma
 //   reads shared memory through;
 // - the wgmma shapes the kernels use: m64n64k16 and m64n128k16 with both
-//   operands in shared memory, m64n64k16 with A in registers.
+//   operands in shared memory, m64n64k16 with A in registers;
+// - for D's bf16 body (memory_projection.cu): ldmatrix (plain and
+//   transposed), mma.sync m16n8k16, and the split of an f32 pair into two
+//   bf16 pieces.
 //
 // The swizzled tile. A tile is rows of 128 bytes (64 bf16), laid out in
 // atoms of 8 rows (1024 bytes, 1024-byte aligned); the 16-byte chunk c of
@@ -39,12 +42,17 @@ __device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
+// cp.async of 16 bytes of which the first `bytes` (0 to 16) are read and
+// the rest filled with zeros.
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
 // cp.async of 16 bytes; `valid` false fills the 16 bytes with zeros and
 // reads nothing.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
+  cp_async16_n(dst, src, valid ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -90,6 +98,44 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// f32 x and y as hi + lo, two bf16 pairs: hi = bf16(v), lo = bf16(v - hi),
+// which carries v to about 2^-16 of itself through a bf16 product.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// Warp-level tensor-core pieces (mma.sync): four 8 x 8 bf16 matrices from
+// shared memory, lanes 8i .. 8i + 7 giving the row addresses of matrix i
+// (`trans`: each delivered transposed), and D (16 x 8, f32) += A (16 x 16,
+// row-major) * B (16 x 8, column-major). Fragments: with g = lane / 4 and
+// c = 2 (lane % 4), A's registers hold rows g, g + 8, g, g + 8 at columns
+// c, c, c + 8, c + 8 (two elements each, the lower column in the low half);
+// B's hold rows c and c + 8 of column g; D holds (g, c), (g, c + 1),
+// (g + 8, c), (g + 8, c + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The accumulator of m64nXk16: thread t of the warpgroup holds, for each

@@ -27,7 +27,8 @@ SIGNATURES = {
     "pt_qkv_attention_proj": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _P],
     "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_flash_attention_1pass": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
-    "pt_memory_project": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "pt_memory_project": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pt_memory_project_blocks": [_I, _P, _P],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}

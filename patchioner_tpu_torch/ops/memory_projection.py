@@ -12,15 +12,20 @@ reference does; `quantize_bank` stores int8 rows with a per-row scale
 pads (a padded bank carried over from the JAX package keeps its tail,
 which `num_real` masks).
 `memory_project_streamed` (D, a `PreparedBank`) and `memory_project_int8`
-(H, a `QuantizedBank`) run the hand-written CUDA kernel
-(`csrc/memory_projection.cu`, one body for both, whose note gives the
-bound and design) on CUDA tensors and `memory_project_plain` /
-`memory_project_int8_plain` on CPU tensors; `launches` on each counts
-kernel launches.
+(H, a `QuantizedBank`) run the hand-written CUDA kernels of
+`csrc/memory_projection.cu` (whose note gives the bound and design) on
+CUDA tensors and `memory_project_plain` / `memory_project_int8_plain` on
+CPU tensors; `launches` on each counts kernel launches. D has two bodies:
+a bf16 bank goes to the tensor-core body (D % 128 == 0, D <= 1536; one
+wave of blocks), an f32 bank to the SIMT body that H shares (D <= 1536;
+2048-row ranges). A bank the kernels do not take raises; nothing falls
+back.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -41,9 +46,13 @@ __all__ = [
 ]
 
 DEFAULT_TEMPERATURE = 0.01
-# bank rows per block of the kernel's first pass; ~290 blocks at 591,753 rows
+# bank rows per block of the SIMT body (f32, int8); ~290 blocks at 591,753 rows
 CHUNK_ROWS = 2048
 MAX_D = 1536
+# the bf16 body's row tile (its ranges are multiples of it) and the width
+# its 8 warps split into 16-column steps
+ROW_TILE = 16
+BF16_D_MULTIPLE = 128
 
 
 class PreparedBank(NamedTuple):
@@ -116,6 +125,16 @@ def memory_project_int8_plain(features: torch.Tensor, bank: QuantizedBank, *,
                                 temperature=temperature, normalize=normalize)
 
 
+@functools.cache
+def _bf16_blocks(d: int, device_index: int) -> int:
+    """Blocks of the bf16 body that fit on card `device_index` at once at
+    width d."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        kernels.launch("pt_memory_project_blocks", d, ctypes.addressof(out))
+    return out.value
+
+
 def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
              temperature: float, normalize: bool) -> torch.Tensor:
     """Launch the projection kernel: D when `scale` is None, else H."""
@@ -136,7 +155,19 @@ def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
         raise ValueError(f"{name}: bank must be contiguous")
     code = kernels.dtype_code(rows)
     f = _l2_normalize(features.float()).contiguous()
-    nchunks = -(-num_real // CHUNK_ROWS)
+    if rows.dtype == torch.bfloat16:
+        if d % BF16_D_MULTIPLE:
+            raise ValueError(f"{name}: the bf16 kernel needs D % {BF16_D_MULTIPLE} == 0 "
+                             f"and D <= {MAX_D}; got D = {d}")
+        if rows.data_ptr() % 16 or inv.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned rows "
+                             "and inv_norm")
+        # one wave: as many row ranges as blocks fit, each a whole number
+        # of tiles (the last ones empty when the bank is short)
+        nchunks = _bf16_blocks(d, f.device.index)
+        chunk_rows = -(-num_real // (nchunks * ROW_TILE)) * ROW_TILE
+    else:
+        nchunks, chunk_rows = -(-num_real // CHUNK_ROWS), CHUNK_ROWS
     m_part = torch.empty(nchunks * b, device=f.device, dtype=torch.float32)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty(nchunks * b, d, device=f.device, dtype=torch.float32)
@@ -145,7 +176,7 @@ def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
         "pt_memory_project", f.data_ptr(), rows.data_ptr(),
         None if scale is None else scale.data_ptr(),
         *(t.data_ptr() for t in (inv, m_part, l_part, acc_part, out)),
-        b, d, int(num_real), CHUNK_ROWS, float(1.0 / temperature),
+        b, d, int(num_real), chunk_rows, nchunks, float(1.0 / temperature),
         int(bool(normalize)), code,
     )
     return out

@@ -178,9 +178,11 @@ def test_flash_attention_kernels(cuda, dtype, n, num_real_k, heads, name):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("normalize", [True, False])
 def test_memory_project_kernel(cuda, dtype, normalize):
-    # 5000 rows: three chunks combined; 11 features: two batch tiles; a
-    # zero tail as a bank padded by the JAX package has, masked by num_real.
-    # Both sides read the same rows and compute in f32: the f32 bound holds.
+    # 5000 rows: three 2048-row ranges combined in f32, one wave of 16-row
+    # ranges in bf16; 11 features: two batch tiles; a zero tail as a bank
+    # padded by the JAX package has, masked by num_real. Both sides read the
+    # same rows and compute in f32 (bf16 with f and P split in two bf16
+    # pieces): the f32 bound holds.
     gen = torch.Generator(device="cuda").manual_seed(3)
     real = mp.prepare_bank(torch.randn(5000, 128, generator=gen, device="cuda"),
                            dtype=dtype)
@@ -192,6 +194,38 @@ def test_memory_project_kernel(cuda, dtype, normalize):
                    lambda: mp.memory_project_streamed(feats, bank, normalize=normalize))
     _check(got, mp.memory_project_plain(feats, bank, normalize=normalize),
            torch.float32)
+
+
+@pytest.mark.parametrize("bank_rows", ["ragged", "short"])
+@pytest.mark.parametrize("b", [1, 8, 11])
+@pytest.mark.parametrize("d", [128, 768, 1536])
+def test_memory_project_bf16_kernel(cuda, d, b, bank_rows):
+    # D's tensor-core body. "ragged": 5003 real rows (a multiple of neither
+    # the 16-row tile nor a block's range) and a zero tail of 125 rows
+    # masked by num_real; "short": 37 rows, fewer than the grid's blocks, so
+    # most ranges are empty. 11 features: a second batch tile of 3.
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n = 5003 if bank_rows == "ragged" else 37
+    real = mp.prepare_bank(torch.randn(n, d, generator=gen, device="cuda"),
+                           dtype=torch.bfloat16)
+    bank = mp.PreparedBank(torch.cat([real.rows, real.rows.new_zeros(125, d)]),
+                           torch.cat([real.inv_norm, real.inv_norm.new_zeros(125, 1)]), n)
+    feats = torch.randn(b, d, generator=gen, device="cuda")
+    for normalize in (True, False):
+        got = _counted(mp.memory_project_streamed,
+                       lambda: mp.memory_project_streamed(feats, bank, normalize=normalize))
+        _check(got, mp.memory_project_plain(feats, bank, normalize=normalize),
+               torch.float32)
+
+
+@pytest.mark.parametrize("d", [96, 1664])
+def test_memory_project_bf16_kernel_refuses_its_limits(cuda, d):
+    # D % 128 != 0, or D > 1536: a ValueError, never another body
+    bank = mp.prepare_bank(torch.randn(64, d, device="cuda"), dtype=torch.bfloat16)
+    before = mp.memory_project_streamed.launches
+    with pytest.raises(ValueError, match="D"):
+        mp.memory_project_streamed(torch.randn(2, d, device="cuda"), bank)
+    assert mp.memory_project_streamed.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

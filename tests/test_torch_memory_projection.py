@@ -96,3 +96,72 @@ def test_int8_plain_matches_the_pallas_int8_kernel(normalize):
         torch.from_numpy(rows)), normalize=normalize)
     np.testing.assert_allclose(own.numpy(), want, rtol=2e-4, atol=2e-5)
     assert mp.memory_project_int8.launches == before  # the CPU takes the plain version
+
+
+# ------------------------------------- kernel D's bf16 tensor-core arithmetic
+
+
+def _bf16_pieces(x: torch.Tensor, split: bool):
+    """x as the bf16 operand pieces the kernel feeds the tensor cores: hi =
+    bf16(x) and lo = bf16(x - hi) with `split`, else hi alone."""
+    hi = x.to(torch.bfloat16).float()
+    return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _emulate_bf16_kernel(feats, bank, *, temperature, normalize, blocks, split_f=True,
+                         tile=mp.ROW_TILE):
+    """The bf16 kernel's arithmetic (csrc/memory_projection.cu) in plain
+    torch: `blocks` ranges of whole 16-row tiles (the last ones empty),
+    each an online softmax in f32 whose two products take f and P as two
+    bf16 pieces (exact bf16 products summed in f32, as the tensor cores do);
+    then the combine of the partial (max, denom, acc)."""
+    n = bank.num_real
+    rows, inv = bank.rows.float(), bank.inv_norm.float()
+    f = feats.float() / torch.linalg.vector_norm(feats.float(), dim=-1, keepdim=True)
+    f_pieces = _bf16_pieces(f, split_f)
+    chunk = -(-n // (blocks * tile)) * tile
+    parts = []
+    for c0 in range(0, blocks * chunk, chunk):
+        c1 = min(c0 + chunk, n)
+        m = torch.full((f.shape[0], 1), -1e30)
+        l = torch.zeros(f.shape[0], 1)
+        acc = torch.zeros_like(f)
+        for r0 in range(c0, c1, tile):
+            r = rows[r0:r0 + tile]
+            dot = sum(piece @ r.T for piece in f_pieces)
+            live = torch.arange(r0, r0 + r.shape[0]) < c1
+            s = torch.where(live, dot * inv[r0:r0 + tile].T / temperature,
+                            torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+            sc, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l = l * sc + p.sum(dim=1, keepdim=True)
+            acc = acc * sc + sum(piece @ r for piece in _bf16_pieces(p, True))
+            m = m_new
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+    denom = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    out = sum(acc * torch.exp(m - mx) for m, _, acc in parts) / denom
+    return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True) if normalize else out
+
+
+@pytest.mark.parametrize("split_f", [True, False])
+def test_bf16_kernel_arithmetic_matches_the_pallas_kernel(split_f):
+    # a bf16 bank of 203 rows padded to 256 by the JAX package; 40 ranges of
+    # 16 rows, so 13 hold rows (the last one 11) and 27 are empty. Both sides
+    # read the same bf16 rows. With f and P each split in two bf16 pieces
+    # the kernel's arithmetic stays within the 1e-4 gate of the f32
+    # reference; one bf16 rounding of f (logits are cosines x 100) exceeds it.
+    feats, rows = _data(4, b=8, m=203, d=256)
+    jbank = jmp.prepare_bank(jnp.asarray(rows).astype(jnp.bfloat16), block_m=128)
+    want = np.asarray(jmp.memory_project_pallas(jnp.asarray(feats), jbank, normalize=True,
+                                                block_m=128, interpret=True))
+    bank = bridge.bank_from_jax(jbank)
+    assert bank.rows.dtype == torch.bfloat16 and bank.rows.shape[0] == 256
+    got = _emulate_bf16_kernel(torch.from_numpy(feats), bank, normalize=True,
+                               temperature=mp.DEFAULT_TEMPERATURE, blocks=40,
+                               split_f=split_f).numpy()
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    if split_f:
+        assert rel <= 1e-4, rel
+    else:
+        assert rel > 1e-4, rel
