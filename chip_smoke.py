@@ -14,20 +14,22 @@ then exits non-zero without the final result line:
    cuobjdump finds in each kernel. Every wgmma instantiation must have
    them, each found by its own mangled name (`WGMMA_KERNELS`): the online
    attention of B, F and K, J's exact-max attention, A's qkv GEMM, F's
-   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G; and D's
-   bf16 body must have mma.sync (HMMA) in both instantiations
+   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G; and the
+   projection's tensor-core kernels, D's over a bf16 bank and H's over an
+   int8 one, must have mma.sync (HMMA) in both instantiations of each
    (`MMA_KERNELS`);
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
    heads of 64, the full 591,753-row bank, in int8 for H), ViT-g's for G
-   (D = 1536, SwiGLU hidden 4096), and for A, F and D a second time at
+   (D = 1536, SwiGLU hidden 4096), and for A, F, D and H a second time at
    ViT-g's shapes (D = 1536, 24 heads, the 1536-wide bank), and the
    flagship MLP's for I (int8 weights), with CUDA-event timings,
    the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
-   kernels' library yardstick; the projections (D, D at giant's width, H)
-   also print the rate they read their bank at and its share of 3.35 TB/s.
+   kernels' library yardstick; the projections (D and H, each also at
+   giant's width) also print the rate they read their bank at and its
+   share of 3.35 TB/s.
    No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
@@ -96,7 +98,8 @@ GIANT_CONFIG = dict(FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg", prefix_size
 # boundary of round(a / s), which moves an output by about amax / 127 * |w|,
 # so it takes 1e-3 in float32.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant"}
+PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant",
+               "memory_project_int8_giant"}
 W8_F32_TOLERANCE = 1e-3
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
@@ -105,8 +108,9 @@ GD, GH, GHEADS = 1536, 4096, 24  # ViT-g's width, SwiGLU hidden and heads
 
 # The least time the card could take: the larger of the operations over the
 # peak rate for their type (dense tensor cores in bf16 and int8, the SIMT
-# pipes in f32) and the bytes over the memory rate, each input read once
-# and each output written once. NVIDIA H100 SXM.
+# pipes in f32; the projections' tensor-core bodies, D over a bf16 bank and
+# H, at the bf16 rate) and the bytes over the memory rate, each input read
+# once and each output written once. NVIDIA H100 SXM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -175,6 +179,8 @@ WGMMA_KERNELS = {
 MMA_KERNELS = {
     "D bf16, D <= 768": ("mem_proj_bf16_kernel", 6),
     "D bf16, D <= 1536": ("mem_proj_bf16_kernel", 12),
+    "H int8, D <= 768": ("mem_proj_int8_kernel", 6),
+    "H int8, D <= 1536": ("mem_proj_int8_kernel", 12),
 }
 
 
@@ -264,6 +270,8 @@ def _kernel_cases(dtype, gen):
     # I: the flagship MLP's weights quantized per column
     w8_args = (x, g, bg, *mlp.quantize_mlp_weights(w1.float(), b1.float(), w2.float(),
                                                    b2.float()), ls)
+    # H over giant's 1536-wide bank in int8
+    qgbank = mp.quantize_bank(torch.randn(nb, GD, generator=gen, device=dev))
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -352,6 +360,11 @@ def _kernel_cases(dtype, gen):
          lambda: attention.qkv_attention_proj_plain(*qkv_proj_g, num_heads=GHEADS,
                                                     scale=scale), None,
          gattn_flops + 2 * rows * GD * GD, _nbytes(*qkv_proj_g, xg)),
+        ("memory_project_int8_giant", "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:380",
+         lambda: mp.memory_project_int8(gfeats, qgbank, normalize=True),
+         lambda: mp.memory_project_int8_plain(gfeats, qgbank, normalize=True), None,
+         4 * B * nb * GD, _nbytes(gfeats, *qgbank[:-1], gfeats)),
     ]
 
 
@@ -373,8 +386,12 @@ def phase_kernels(seed: int) -> dict:
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            peak = PEAK_FLOPS[torch.int8 if name == "ln_mlp_w8" else
-                              torch.float32 if name in PROJECTIONS else dtype]
+            peak_type = dtype
+            if name == "ln_mlp_w8":
+                peak_type = torch.int8
+            elif name.startswith("memory_project_int8"):  # H: always tensor cores
+                peak_type = torch.bfloat16
+            peak = PEAK_FLOPS[peak_type]
             op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(op_ms, byte_ms)
             library_ms = None

@@ -11,9 +11,9 @@
 //   reads shared memory through;
 // - the wgmma shapes the kernels use: m64n64k16 and m64n128k16 with both
 //   operands in shared memory, m64n64k16 with A in registers;
-// - for D's bf16 body (memory_projection.cu): ldmatrix (plain and
-//   transposed), mma.sync m16n8k16, and the split of an f32 pair into two
-//   bf16 pieces.
+// - for the projection's tensor-core body (memory_projection.cu): ldmatrix
+//   (plain and transposed), mma.sync m16n8k16 in bf16 and m16n8k32 in
+//   int8, and the split of an f32 pair into two bf16 pieces.
 //
 // The swizzled tile. A tile is rows of 128 bytes (64 bf16), laid out in
 // atoms of 8 rows (1024 bytes, 1024-byte aligned); the 16-byte chunk c of
@@ -135,6 +135,18 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, s32) += A (16 x 32, s8, row-major) * B (32 x 8, s8, column-major):
+// the same fragments with four int8 a register, A's at columns 4c' .. 4c' +
+// 3 and 16 + 4c' .. (c' = lane % 4), B's at rows 4c' .. and 16 + 4c' ..
+__device__ __forceinline__ void mma_s8_m16n8k32(int (&d)[4], const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

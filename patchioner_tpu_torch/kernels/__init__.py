@@ -28,7 +28,8 @@ SIGNATURES = {
     "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_flash_attention_1pass": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
     "pt_memory_project": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "pt_memory_project_blocks": [_I, _P, _P],
+    "pt_memory_project_blocks": [_I, _I, _P, _P],
+    "pt_memory_project_combine": [_P] * 4 + [_I, _I, _I, _I, _P],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}

@@ -15,11 +15,12 @@ which `num_real` masks).
 (H, a `QuantizedBank`) run the hand-written CUDA kernels of
 `csrc/memory_projection.cu` (whose note gives the bound and design) on
 CUDA tensors and `memory_project_plain` / `memory_project_int8_plain` on
-CPU tensors; `launches` on each counts kernel launches. D has two bodies:
-a bf16 bank goes to the tensor-core body (D % 128 == 0, D <= 1536; one
-wave of blocks), an f32 bank to the SIMT body that H shares (D <= 1536;
+CPU tensors; `launches` on each counts kernel launches. A bf16 bank (D)
+and every int8 bank (H) go to the tensor-core body (D % 128 == 0, D <=
+1536; one wave of blocks), an f32 bank to the SIMT body (D <= 1536;
 2048-row ranges). A bank the kernels do not take raises; nothing falls
-back.
+back. Both bodies end in the combine of their partials
+(`combine_partials`, `combine_partials_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -43,16 +44,18 @@ __all__ = [
     "memory_project_int8_plain",
     "memory_project_streamed",
     "memory_project_int8",
+    "combine_partials_plain",
+    "combine_partials",
 ]
 
 DEFAULT_TEMPERATURE = 0.01
-# bank rows per block of the SIMT body (f32, int8); ~290 blocks at 591,753 rows
+# bank rows per block of the SIMT body (f32); ~290 blocks at 591,753 rows
 CHUNK_ROWS = 2048
 MAX_D = 1536
-# the bf16 body's row tile (its ranges are multiples of it) and the width
-# its 8 warps split into 16-column steps
+# the tensor-core body's row tile (its ranges are multiples of it) and the
+# width its 8 warps split into 16-column steps
 ROW_TILE = 16
-BF16_D_MULTIPLE = 128
+TC_D_MULTIPLE = 128
 
 
 class PreparedBank(NamedTuple):
@@ -125,13 +128,45 @@ def memory_project_int8_plain(features: torch.Tensor, bank: QuantizedBank, *,
                                 temperature=temperature, normalize=normalize)
 
 
+def combine_partials_plain(m_part: torch.Tensor, l_part: torch.Tensor,
+                           acc_part: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
+    """Merge online-softmax partials, (C, B) maxima and denominators and
+    (C, B, D) accumulators, into the (B, D) projection (the reference's
+    `combine_partials`); a partial with max -1e30 and denominator 0 weighs 0."""
+    w = torch.exp(m_part - m_part.max(dim=0).values)
+    out = (acc_part * w[..., None]).sum(dim=0) / (l_part * w).sum(dim=0)[:, None]
+    return _l2_normalize(out) if normalize else out
+
+
+def combine_partials(m_part: torch.Tensor, l_part: torch.Tensor, acc_part: torch.Tensor, *,
+                     normalize: bool = False) -> torch.Tensor:
+    """The combine kernel D and H end in, on CUDA tensors (f32, contiguous);
+    `combine_partials_plain` on CPU tensors."""
+    if m_part.device.type == "cpu":
+        return combine_partials_plain(m_part, l_part, acc_part, normalize=normalize)
+    c, b, d = acc_part.shape
+    if (m_part.shape != (c, b) or l_part.shape != (c, b) or d > MAX_D
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != acc_part.device for t in (m_part, l_part, acc_part))):
+        raise ValueError("combine_partials: needs contiguous f32 (C, B), (C, B) and "
+                         f"(C, B, D <= {MAX_D}) partials on one device")
+    out = torch.empty(b, d, device=acc_part.device, dtype=torch.float32)
+    kernels.launch("pt_memory_project_combine", m_part.data_ptr(), l_part.data_ptr(),
+                   acc_part.data_ptr(), out.data_ptr(), b, d, c, int(bool(normalize)))
+    combine_partials.launches += 1
+    return out
+
+
+combine_partials.launches = 0
+
+
 @functools.cache
-def _bf16_blocks(d: int, device_index: int) -> int:
-    """Blocks of the bf16 body that fit on card `device_index` at once at
-    width d."""
+def _tc_blocks(d: int, code: int, device_index: int) -> int:
+    """Blocks of the tensor-core body for dtype `code` that fit on card
+    `device_index` at once at width d."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        kernels.launch("pt_memory_project_blocks", d, ctypes.addressof(out))
+        kernels.launch("pt_memory_project_blocks", d, code, ctypes.addressof(out))
     return out.value
 
 
@@ -155,16 +190,15 @@ def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
         raise ValueError(f"{name}: bank must be contiguous")
     code = kernels.dtype_code(rows)
     f = _l2_normalize(features.float()).contiguous()
-    if rows.dtype == torch.bfloat16:
-        if d % BF16_D_MULTIPLE:
-            raise ValueError(f"{name}: the bf16 kernel needs D % {BF16_D_MULTIPLE} == 0 "
+    if rows.dtype in (torch.bfloat16, torch.int8):
+        if d % TC_D_MULTIPLE:
+            raise ValueError(f"{name}: the tensor-core kernel needs D % {TC_D_MULTIPLE} == 0 "
                              f"and D <= {MAX_D}; got D = {d}")
-        if rows.data_ptr() % 16 or inv.data_ptr() % 16:
-            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned rows "
-                             "and inv_norm")
+        if any(t.data_ptr() % 16 for t in bank):
+            raise ValueError(f"{name}: the tensor-core kernel needs a 16-byte aligned bank")
         # one wave: as many row ranges as blocks fit, each a whole number
         # of tiles (the last ones empty when the bank is short)
-        nchunks = _bf16_blocks(d, f.device.index)
+        nchunks = _tc_blocks(d, code, f.device.index)
         chunk_rows = -(-num_real // (nchunks * ROW_TILE)) * ROW_TILE
     else:
         nchunks, chunk_rows = -(-num_real // CHUNK_ROWS), CHUNK_ROWS

@@ -1,6 +1,7 @@
 """Time some of the port's kernels on a card, at the shapes of `chip_smoke.py`.
 
     python3 -m scripts.time_torch_kernels memory_project memory_project_giant
+    python3 -m scripts.time_torch_kernels memory_project_int8 memory_project_int8_giant
     python3 -m scripts.time_torch_kernels --dtype float32 memory_project
 
 Runs the named cases of `chip_smoke._kernel_cases` (every case when none is

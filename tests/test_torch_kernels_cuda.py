@@ -286,6 +286,85 @@ def test_memory_project_int8_kernel(cuda, d, normalize):
            torch.float32)
 
 
+@pytest.mark.parametrize("bank_rows", ["ragged", "short"])
+@pytest.mark.parametrize("b", [1, 8, 11])
+@pytest.mark.parametrize("d", [128, 768, 1536])
+def test_memory_project_int8_tc_kernel(cuda, d, b, bank_rows):
+    # H's tensor-core body, as the bf16 test above: 5003 real int8 rows and
+    # a zero tail of 125 masked by num_real, or 37 rows (most ranges empty)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = 5003 if bank_rows == "ragged" else 37
+    real = mp.quantize_bank(torch.randn(n, d, generator=gen, device="cuda"))
+    bank = mp.QuantizedBank(*(torch.cat([t, t.new_zeros(125, t.shape[1])])
+                              for t in real[:-1]), n)
+    feats = torch.randn(b, d, generator=gen, device="cuda")
+    for normalize in (True, False):
+        got = _counted(mp.memory_project_int8,
+                       lambda: mp.memory_project_int8(feats, bank, normalize=normalize))
+        _check(got, mp.memory_project_int8_plain(feats, bank, normalize=normalize),
+               torch.float32)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_memory_project_int8_kernel_on_a_wide_scale_bank(cuda, normalize):
+    # the bank of tests/test_torch_memory_projection.py's H test: row norms
+    # (so scales) over 1e-3 to 1e3, and a row whose every element is +-127
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((8, 256)).astype(np.float32)
+    rows = rng.standard_normal((203, 256)).astype(np.float32)
+    rows *= np.logspace(-3, 3, 203, dtype=np.float32)[:, None]
+    rows[7] = np.where(np.arange(256) % 2, 3.0, -3.0)
+    bank = mp.quantize_bank(torch.from_numpy(rows).cuda())
+    assert bank.rows[7].abs().min().item() == 127
+    feats = torch.from_numpy(feats).cuda()
+    got = _counted(mp.memory_project_int8,
+                   lambda: mp.memory_project_int8(feats, bank, normalize=normalize))
+    _check(got, mp.memory_project_int8_plain(feats, bank, normalize=normalize),
+           torch.float32)
+
+
+def test_memory_project_int8_kernel_keeps_a_zero_feature_nan(cuda):
+    # f's int8 pieces cannot carry the NaN of a zero feature's
+    # normalisation; the kernel's batch row is NaN as the plain version's,
+    # and the other rows are unaffected
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bank = mp.quantize_bank(torch.randn(3000, 768, generator=gen, device="cuda"))
+    feats = torch.randn(11, 768, generator=gen, device="cuda")
+    feats[9] = 0.0
+    got = _counted(mp.memory_project_int8, lambda: mp.memory_project_int8(feats, bank))
+    ref = mp.memory_project_int8_plain(feats, bank)
+    assert torch.isnan(got[9]).all() and torch.isnan(ref[9]).all()
+    keep = torch.arange(11, device="cuda") != 9
+    _check(got[keep], ref[keep], torch.float32)
+
+
+@pytest.mark.parametrize("d", [96, 1664])
+def test_memory_project_int8_kernel_refuses_its_limits(cuda, d):
+    # D % 128 != 0, or D > 1536: a ValueError before any launch
+    bank = mp.quantize_bank(torch.randn(64, d, device="cuda"))
+    before = mp.memory_project_int8.launches
+    with pytest.raises(ValueError, match="D"):
+        mp.memory_project_int8(torch.randn(2, d, device="cuda"), bank)
+    assert mp.memory_project_int8.launches == before
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("nchunks,d", [(264, 768), (132, 1536), (1, 768), (3, 100)])
+def test_memory_project_combine_kernel(cuda, nchunks, d, normalize):
+    # the combine D and H end in, alone: the flagship's 264 partials
+    # (giant's 132), one partial, and a width off the 32-column slice (the
+    # f32 body takes any D); every fourth partial an empty range
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    m = torch.randn(nchunks, 8, generator=gen, device="cuda") * 20
+    l = torch.rand(nchunks, 8, generator=gen, device="cuda") * 3 + 1
+    acc = torch.randn(nchunks, 8, d, generator=gen, device="cuda")
+    if nchunks > 1:
+        m[1::4], l[1::4], acc[1::4] = -1e30, 0.0, 0.0
+    got = _counted(mp.combine_partials,
+                   lambda: mp.combine_partials(m, l, acc, normalize=normalize))
+    _check(got, mp.combine_partials_plain(m, l, acc, normalize=normalize), torch.float32)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_memory_project_kernel_at_giant_width(cuda, dtype):
     gen = torch.Generator(device="cuda").manual_seed(12)

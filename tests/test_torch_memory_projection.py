@@ -108,17 +108,37 @@ def _bf16_pieces(x: torch.Tensor, split: bool):
     return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
 
 
+def _s8_pieces(x: torch.Tensor):
+    """x (|x| <= 1) as the kernel's three int8 pieces with their weights:
+    x = (p0 + p1 / 254 + p2 / 254^2) / 127 (csrc/memory_projection.cu,
+    split_s8)."""
+    r, pieces, w = x.double(), [], 1 / 127
+    for m in (127.0, 254.0, 254.0):
+        n = torch.round(r * m)
+        r = r * m - n
+        pieces.append((n.float(), w))
+        w /= 254
+    return pieces
+
+
 def _emulate_bf16_kernel(feats, bank, *, temperature, normalize, blocks, split_f=True,
-                         tile=mp.ROW_TILE):
-    """The bf16 kernel's arithmetic (csrc/memory_projection.cu) in plain
-    torch: `blocks` ranges of whole 16-row tiles (the last ones empty),
-    each an online softmax in f32 whose two products take f and P as two
-    bf16 pieces (exact bf16 products summed in f32, as the tensor cores do);
-    then the combine of the partial (max, denom, acc)."""
+                         split_p=True, tile=mp.ROW_TILE):
+    """The tensor-core kernel's arithmetic (csrc/memory_projection.cu) in
+    plain torch: `blocks` ranges of whole `tile`-row tiles (the last ones
+    empty), each an online softmax in f32 whose two products take f and the
+    weights as two bf16 pieces (exact bf16 products summed in f32, as the
+    tensor cores do; one piece without `split_f` / `split_p`); then the
+    combine of the partial (max, denom, acc). A `QuantizedBank` (kernel H)
+    feeds its int8 rows as they are, scores them against f's three int8
+    pieces (exact integer products), folds its per-row scale into each
+    row's score factor and into the weight before the split, and sums the
+    unscaled weights in the denominator."""
     n = bank.num_real
     rows, inv = bank.rows.float(), bank.inv_norm.float()
+    int8 = isinstance(bank, mp.QuantizedBank)
+    scale = bank.scale.float() if int8 else torch.ones_like(inv)
     f = feats.float() / torch.linalg.vector_norm(feats.float(), dim=-1, keepdim=True)
-    f_pieces = _bf16_pieces(f, split_f)
+    f_pieces = _s8_pieces(f) if int8 else [(p, 1.0) for p in _bf16_pieces(f, split_f)]
     chunk = -(-n // (blocks * tile)) * tile
     parts = []
     for c0 in range(0, blocks * chunk, chunk):
@@ -127,21 +147,19 @@ def _emulate_bf16_kernel(feats, bank, *, temperature, normalize, blocks, split_f
         l = torch.zeros(f.shape[0], 1)
         acc = torch.zeros_like(f)
         for r0 in range(c0, c1, tile):
-            r = rows[r0:r0 + tile]
-            dot = sum(piece @ r.T for piece in f_pieces)
+            r, sc_r = rows[r0:r0 + tile], scale[r0:r0 + tile].T
+            dot = sum((piece @ r.T) * w for piece, w in f_pieces)
             live = torch.arange(r0, r0 + r.shape[0]) < c1
-            s = torch.where(live, dot * inv[r0:r0 + tile].T / temperature,
+            s = torch.where(live, dot * inv[r0:r0 + tile].T * sc_r / temperature,
                             torch.tensor(-1e30))
             m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
             sc, p = torch.exp(m - m_new), torch.exp(s - m_new)
             l = l * sc + p.sum(dim=1, keepdim=True)
-            acc = acc * sc + sum(piece @ r for piece in _bf16_pieces(p, True))
+            acc = acc * sc + sum(piece @ r for piece in _bf16_pieces(p * sc_r, split_p))
             m = m_new
         parts.append((m, l, acc))
-    mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
-    denom = sum(l * torch.exp(m - mx) for m, l, _ in parts)
-    out = sum(acc * torch.exp(m - mx) for m, _, acc in parts) / denom
-    return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True) if normalize else out
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    return mp.combine_partials_plain(m[..., 0], l[..., 0], acc, normalize=normalize)
 
 
 @pytest.mark.parametrize("split_f", [True, False])
@@ -165,3 +183,76 @@ def test_bf16_kernel_arithmetic_matches_the_pallas_kernel(split_f):
         assert rel <= 1e-4, rel
     else:
         assert rel > 1e-4, rel
+
+
+# ---------------------------------- kernel H's int8 tensor-core arithmetic
+
+
+def _wide_scale_rows(seed=5, m=203, d=256):
+    """Rows whose norms (so int8 scales) spread over six decades, 1e-3 to
+    1e3, and a row of +-3 whose every element quantizes to +-127."""
+    feats, rows = _data(seed, b=8, m=m, d=d)
+    rows *= np.logspace(-3, 3, m, dtype=np.float32)[:, None]
+    rows[7] = np.where(np.arange(d) % 2, 3.0, -3.0)
+    return feats, rows
+
+
+@pytest.mark.parametrize("normalize,split_p", [(True, True), (False, True), (True, False)])
+def test_int8_kernel_arithmetic_matches_the_pallas_kernel(normalize, split_p):
+    # H on the tensor-core body: int8 rows scored exactly against f's three
+    # int8 pieces, fed as exact bf16 to the weights' product with p * scale
+    # split in two bf16 pieces, 40 ranges of 16-row tiles (13 hold rows),
+    # against the Pallas int8 kernel on the bank the JAX package quantized
+    # and padded to 1024 rows. With p * scale in one bf16 piece the error
+    # grows past the split's.
+    feats, rows = _wide_scale_rows()
+    jq = jmp.quantize_bank(jnp.asarray(rows))
+    bank = bridge.bank_from_jax(jq)
+    assert bank.rows.shape[0] == 1024 and np.abs(bank.rows[7].numpy()).min() == 127
+    scales = bank.scale[:203].numpy()
+    assert scales.max() / scales.min() > 1e5
+    want = np.asarray(jmp.memory_project_int8(jnp.asarray(feats), jq, normalize=normalize,
+                                              interpret=True))
+
+    def rel(split):
+        got = _emulate_bf16_kernel(torch.from_numpy(feats), bank, normalize=normalize,
+                                   temperature=mp.DEFAULT_TEMPERATURE, blocks=40,
+                                   split_p=split).numpy()
+        return np.abs(got - want).max() / np.abs(want).max()
+
+    split_err = rel(True)
+    assert split_err <= 1e-4, split_err
+    if not split_p:
+        assert rel(False) > split_err
+
+
+def test_combine_partials_plain_matches_jax():
+    # 5 partials of 3 batch rows, two of them empty ranges (max -1e30,
+    # denominator 0, accumulators 0), as the kernels' blocks write them
+    rng = np.random.default_rng(6)
+    m = rng.normal(0, 20, (5, 3)).astype(np.float32)
+    l = rng.uniform(1, 4, (5, 3)).astype(np.float32)
+    acc = rng.normal(size=(5, 3, 64)).astype(np.float32)
+    m[[1, 3]], l[[1, 3]], acc[[1, 3]] = -1e30, 0.0, 0.0
+    for normalize in (True, False):
+        want = jmp.combine_partials(
+            jmp.PartialProjection(jnp.asarray(m[..., None]), jnp.asarray(l[..., None]),
+                                  jnp.asarray(acc)), normalize=normalize)
+        before = mp.combine_partials.launches
+        got = mp.combine_partials(*(torch.from_numpy(a) for a in (m, l, acc)),
+                                  normalize=normalize)
+        assert mp.combine_partials.launches == before  # the CPU takes the plain version
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_int8_pieces_of_f_are_bytes_within_6e8():
+    # H's three int8 pieces of a unit-norm f: each within +-127, and f
+    # back from them to 6.1e-8 (half the last piece's step, 1 / (127 254^2))
+    rng = np.random.default_rng(7)
+    f = torch.from_numpy(rng.standard_normal((64, 768)).astype(np.float32))
+    f = torch.cat([f / torch.linalg.vector_norm(f, dim=-1, keepdim=True),
+                   torch.tensor([[1.0, -1.0, 0.5 / 127, -0.5 / 127] + [0.0] * 764])])
+    pieces = _s8_pieces(f)
+    assert max(p.abs().max().item() for p, _ in pieces) <= 127
+    back = sum(p.double() * w for p, w in pieces)
+    assert (back - f.double()).abs().max().item() <= 0.5 / (127 * 254 * 254) * 1.001
