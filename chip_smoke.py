@@ -10,20 +10,22 @@ then exits non-zero without the final result line:
    power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from `patchioner_tpu_torch/csrc`, one
    nvcc process per source, all started together; prints ptxas' registers,
-   spills and wgmma remarks per kernel, and the HGMMA instructions that
-   cuobjdump finds in each kernel. Every wgmma instantiation must have
-   them, each found by its own mangled name (`WGMMA_KERNELS`): the online
-   attention of B, F and K, J's exact-max attention, A's qkv GEMM, F's
-   out-projection GEMM, and the fc1 and fc2 GEMMs of C and of G; and the
-   projection's tensor-core kernels, D's over a bf16 bank and H's over an
-   int8 one, must have mma.sync (HMMA) in both instantiations of each
-   (`MMA_KERNELS`);
+   spills and wgmma remarks per kernel, and the HGMMA and IGMMA
+   instructions that cuobjdump finds in each kernel. Every wgmma
+   instantiation must have them, each found by its own mangled name
+   (`WGMMA_KERNELS`): the online attention of B, F and K, J's exact-max
+   attention, A's qkv GEMM, E's dense + residual GEMM, F's out-projection
+   GEMM, and the fc1 and fc2 GEMMs of C and of G; I's integer GEMMs, fc1 and
+   fc2 in both activation types, must have the integer warpgroup MMA
+   (`INT_WGMMA_KERNELS`); and the projection's tensor-core kernels, D's
+   over a bf16 bank and H's over an int8 one, must have mma.sync (HMMA) in
+   both instantiations of each (`MMA_KERNELS`);
 3. kernels: each kernel (A-K, and C with the tanh GELU) against its plain
    PyTorch version on the card, in float32 (TF32 off) and bfloat16, at the
    shapes its path gives it: the flagship's (B = 8, N = 1374, D = 768, 12
    heads of 64, the full 591,753-row bank, in int8 for H), ViT-g's for G
-   (D = 1536, SwiGLU hidden 4096), and for A, F, D and H a second time at
-   ViT-g's shapes (D = 1536, 24 heads, the 1536-wide bank), and the
+   (D = 1536, SwiGLU hidden 4096), and for A, E, F, D and H a second time
+   at ViT-g's shapes (D = 1536, 24 heads, the 1536-wide bank), and the
    flagship MLP's for I (int8 weights), with CUDA-event timings,
    the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
@@ -169,6 +171,7 @@ WGMMA_KERNELS = {
     "B, F and K, online softmax": ("attention_sm90_kernel", False),
     "J, exact-max softmax": ("attention_sm90_kernel", True),
     "A qkv": ("gemm_bf16_kernel", "QkvEpilogue"),
+    "E dense + residual": ("gemm_bf16_kernel", "DenseResidualEpilogue"),
     "F out-projection": ("gemm_bf16_kernel", "AttnProjEpilogue"),
     "C fc1": ("gemm_bf16_kernel", "Fc1Epilogue"),
     "C fc2": ("gemm_bf16_kernel", "Fc2Epilogue"),
@@ -181,6 +184,12 @@ MMA_KERNELS = {
     "D bf16, D <= 1536": ("mem_proj_bf16_kernel", 12),
     "H int8, D <= 768": ("mem_proj_int8_kernel", 6),
     "H int8, D <= 1536": ("mem_proj_int8_kernel", 12),
+}
+# I's integer GEMMs (wgmma .s8); each instantiation (fc2's in both
+# activation types) must have the integer warpgroup MMA, IGMMA.
+INT_WGMMA_KERNELS = {
+    "I fc1": ("gemm_s8_kernel", "W8Fc1Epilogue"),
+    "I fc2": ("gemm_s8_kernel", "W8Fc2Epilogue"),
 }
 
 
@@ -204,21 +213,26 @@ def phase_build() -> None:
     resources = build.kernel_resources()
     for fn, (regs, stores, loads) in sorted(resources.items()):
         log(f"[build] {fn}: {regs} registers, spills {stores} B stored, {loads} B loaded")
-    hgmma, hmma = build.sass_counts("HGMMA"), build.sass_counts("HMMA")
-    for fn, n in sorted(hgmma.items()):
-        log(f"[build] {n} HGMMA in {fn}")
+    counts = {op: build.sass_counts(op) for op in ("HGMMA", "HMMA", "IGMMA")}
+    for op in ("HGMMA", "IGMMA"):
+        for fn, n in sorted(counts[op].items()):
+            log(f"[build] {n} {op} in {fn}")
     # each wgmma instantiation must be a Hopper warpgroup design (HGMMA in
-    # SASS), and each mma.sync one must run on the tensor cores (HMMA)
-    for opcode, counts, table in (("HGMMA", hgmma, WGMMA_KERNELS),
-                                  ("HMMA", hmma, MMA_KERNELS)):
+    # SASS, IGMMA for I's integer ones), and each mma.sync one must run on
+    # the tensor cores (HMMA); every compiled instantiation that matches a
+    # row is checked
+    for opcode, table in (("HGMMA", WGMMA_KERNELS), ("HMMA", MMA_KERNELS),
+                          ("IGMMA", INT_WGMMA_KERNELS)):
         for label, (kernel, arg) in table.items():
-            found = [fn for fn in counts if _is_instantiation(fn, kernel, arg)]
-            if not found:
-                raise AssertionError(f"no {opcode} instruction in {label} ({kernel}<{arg}>)")
+            found = [fn for fn in resources if _is_instantiation(fn, kernel, arg)]
+            missing = [fn for fn in found if not counts[opcode].get(fn)]
+            if not found or missing:
+                raise AssertionError(f"no {opcode} instruction in {label} "
+                                     f"({kernel}<{arg}>): {missing or 'not compiled'}")
             for fn in found:
                 regs, stores, loads = resources[fn]
-                log(f"[build] {label}: {counts[fn]} {opcode}, {regs} registers, spills "
-                    f"{stores} B stored, {loads} B loaded")
+                log(f"[build] {label}: {counts[opcode][fn]} {opcode}, {regs} registers, "
+                    f"spills {stores} B stored, {loads} B loaded")
 
 
 def _nbytes(*tensors) -> int:
@@ -267,6 +281,7 @@ def _kernel_cases(dtype, gen):
     ln_dense_g = (xg, gg, bgg, randn(GD, 3 * GD, scale=GD ** -0.5), randn(3 * GD, scale=0.1))
     qkvg = randn(B, N, 3 * GD)
     qkv_proj_g = (qkvg, xg, randn(GD, GD, scale=GD ** -0.5), randn(GD, scale=0.1), lsg)
+    dense_res_g = (xg, randn(B, N, GD), *qkv_proj_g[2:])
     # I: the flagship MLP's weights quantized per column
     w8_args = (x, g, bg, *mlp.quantize_mlp_weights(w1.float(), b1.float(), w2.float(),
                                                    b2.float()), ls)
@@ -360,6 +375,11 @@ def _kernel_cases(dtype, gen):
          lambda: attention.qkv_attention_proj_plain(*qkv_proj_g, num_heads=GHEADS,
                                                     scale=scale), None,
          gattn_flops + 2 * rows * GD * GD, _nbytes(*qkv_proj_g, xg)),
+        ("dense_residual_giant", "patchioner_tpu_torch/csrc/ln_dense.cu",
+         "patchioner_tpu/ops/mlp.py:261",
+         lambda: mlp.fused_dense_residual(*dense_res_g),
+         lambda: mlp.dense_residual_plain(*dense_res_g), None,
+         2 * rows * GD * GD, _nbytes(*dense_res_g, xg)),
         ("memory_project_int8_giant", "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:380",
          lambda: mp.memory_project_int8(gfeats, qgbank, normalize=True),

@@ -1,4 +1,4 @@
-// The bf16 pieces of kernels A (ln_dense.cu), C (ln_mlp.cu), F
+// The bf16 pieces of kernels A and E (ln_dense.cu), C (ln_mlp.cu), F
 // (qkv_attention_proj.cu) and G (ln_swiglu.cu) on Hopper: LN(x) of every
 // row, and one wgmma GEMM template whose epilogue each kernel supplies.
 //
@@ -6,7 +6,7 @@
 //   two-pass statistics; grid ceil(M / 8) of 256 threads.
 // - gemm_bf16_kernel: epi(A @ W) for A (M, K) and W (K, ...) row-major bf16,
 //   K % 64 == 0. A block owns 128 rows of A and two 64-column tiles of W
-//   (`WTiles`): 128 adjacent columns for a dense product (A's qkv, C's fc1
+//   (`WTiles`): 128 adjacent columns for a dense product (A's qkv, E, C's fc1
 //   and fc2, F's out-projection, G's fc2), or G's gate tile and its linear partner H columns away in one
 //   w12, so the weight is split nowhere. 256 threads, each warpgroup 64
 //   rows; per 64-deep stage 4 wgmma.m64n128k16 (f32 accumulators: 64

@@ -35,22 +35,27 @@
 // its output: A's output rows are 3D wide, and its GEMM reads rows of LN(x)
 // while other blocks write the outputs of those same rows.
 //
-// E, bf16: tensor cores through warp-level WMMA 16x16x16 tiles with f32
-// accumulators. One block copies 32 rows of x into shared memory and
-// sweeps all output columns in 128-wide tiles, W streamed in 64-row slices
-// with 16-byte copies; a tile's f32 sums go through shared memory to the
-// rounding epilogue. E is the last user of this template.
+// E, bf16: one launch of the same GEMM template over x and W (a grid of
+// O / 128 x ceil(M / 128): 6 x 86 blocks on the flagship, about two waves
+// at two blocks an SM; 12 x 86 at giant's width), whose epilogue reads the
+// residual r as one 4-byte bf16 pair a column pair, applies E's three
+// roundings and stores one packed pair. What bounds E is bytes (x, r and
+// out once, W once), and the template moves little more: the column tiles
+// of a row tile are the fastest grid index, so the 6 blocks that read the
+// same 128 rows of x run together and x comes from device memory about
+// once (its other reads hit L2); W (1.2 MB) stays in L2 and streams
+// through the 3-stage cp.async ring; r and out are touched once, 4 bytes
+// a thread a column pair. What keeps E above its byte bound is the
+// template's own gap: under two waves of blocks, and a full wgmma wait
+// and block barrier at every stage.
 //
 // float32 (both): the SIMT kernel of dense_f32.cuh.
-#include <mma.h>
-
 #include "dense_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // out[m, n .. n + 1] = round(round(acc) + b), packed bf16 pairs
 struct QkvEpilogue {
@@ -64,71 +69,25 @@ struct QkvEpilogue {
   }
 };
 
-// ---- E, bf16: 8 warps as 2 row groups x 4 column groups, each owning a
-// 16x32 sub-tile (2 fragments) of a 32x128 output tile. Needs D % 64 == 0
-// and O % 128 == 0 (the wrapper checks).
-constexpr int THREADS = 256, WBM = 32, WBN = 128, WKS = 64, BLD = WBN + 8,
-              CLD = WBN + 4;
-
-__global__ void __launch_bounds__(THREADS)
-dense_residual_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                           const bf16* __restrict__ bias, const bf16* __restrict__ r,
-                           const bf16* __restrict__ ls, bf16* __restrict__ out, int M,
-                           int D, int O) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DP = D + 8;
-  bf16* Ys = (bf16*)smem_raw;                  // [WBM][DP] rows of x
-  bf16* Bs = Ys + WBM * DP;                    // [WKS][BLD] W slice
-  float* Cs = (float*)(Bs + WKS * BLD);        // [WBM][CLD] f32 sums
-  const int m0 = blockIdx.x * WBM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-
-  for (int e = tid; e < WBM * D / 8; e += THREADS) {  // 16-byte copies, zeros past M
-    const int i = e / (D / 8), k = (e % (D / 8)) * 8, m = m0 + i;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m < M) v = *(const uint4*)(x + (size_t)m * D + k);
-    *(uint4*)(Ys + i * DP + k) = v;
-  }
-
-  const int rg = warp >> 2, cg = warp & 3;
-  for (int n0 = 0; n0 < O; n0 += WBN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int k0 = 0; k0 < D; k0 += WKS) {
-      __syncthreads();
-      for (int e = tid; e < WKS * WBN / 8; e += THREADS) {  // 16-byte copies
-        const int k = e / (WBN / 8), n = (e % (WBN / 8)) * 8;
-        *(uint4*)(Bs + k * BLD + n) = *(const uint4*)(w + (size_t)(k0 + k) * O + n0 + n);
-      }
-      __syncthreads();
+// out[m, n .. n + 1] = round(r + round(round(round(acc) + b) * ls)), the
+// residual read and the output stored as packed bf16 pairs
+struct DenseResidualEpilogue {
+  const bf16 *b, *r, *ls;
+  bf16* out;
+  int O;
+  __device__ __forceinline__ void operator()(int m, int n, float v0, float v1) const {
+    const size_t o = (size_t)m * O + n;
+    const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(r + o);
+    float v[2] = {v0, v1};
+    const float rf[2] = {__low2float(rv), __high2float(rv)};
 #pragma unroll
-      for (int kk = 0; kk < WKS; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ys + rg * 16 * DP + k0 + kk, DP);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs + kk * BLD + cg * 32 + j * 16, BLD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
+    for (int e = 0; e < 2; ++e) {
+      const float d = pt::round_t<bf16>(pt::round_t<bf16>(v[e]) + pt::to_f(b[n + e]));
+      v[e] = rf[e] + pt::round_t<bf16>(d * pt::to_f(ls[n + e]));
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + rg * 16 * CLD + cg * 32 + j * 16, acc[j], CLD,
-                              wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < WBM * WBN; e += THREADS) {
-      const int i = e / WBN, n = e % WBN, m = m0 + i;
-      if (m >= M) continue;
-      const size_t o = (size_t)m * O + n0 + n;
-      float v = pt::round_t<bf16>(pt::round_t<bf16>(Cs[i * CLD + n]) + pt::to_f(bias[n0 + n]));
-      v = pt::to_f(r[o]) + pt::round_t<bf16>(v * pt::to_f(ls[n0 + n]));
-      out[o] = pt::from_f<bf16>(v);
-    }
+    *(uint32_t*)(out + o) = pt::sm90::pack_bf16(v[0], v[1]);
   }
-}
+};
 
 }  // namespace
 
@@ -159,16 +118,12 @@ extern "C" int pt_dense_residual(const void* x, const void* r, const void* w,
                                  const void* b, const void* ls, void* out,
                                  int M, int D, int O, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == pt::kBF16) {
-    const size_t smem = (size_t)(WBM * (D + 8) + WKS * BLD) * sizeof(bf16) +
-                        (size_t)WBM * CLD * sizeof(float);
-    cudaError_t err = pt_allow_smem(dense_residual_bf16_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dense_residual_bf16_kernel<<<(M + WBM - 1) / WBM, THREADS, smem, s>>>(
-        (const bf16*)x, (const bf16*)w, (const bf16*)b, (const bf16*)r, (const bf16*)ls,
-        (bf16*)out, M, D, O);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == pt::kBF16)
+    return (int)pt::launch_gemm(
+        (const bf16*)x, (const bf16*)w, M, D, pt::dense_tiles(O),
+        pt::DenseEpilogue<DenseResidualEpilogue>{
+            {(const bf16*)b, (const bf16*)r, (const bf16*)ls, (bf16*)out, O}},
+        s);
   return (int)pt::launch_dense_f32<true>((const float*)x, nullptr, nullptr,
                                          (const float*)w, (const float*)b,
                                          (const float*)r, (const float*)ls, (float*)out,

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the bf16 attention of
-// B, F, J and K (attention_sm90.cuh) and the GEMMs of A, C, F and G
-// (gemm_sm90.cuh):
+// B, F, J and K (attention_sm90.cuh), the GEMMs of A, C, E, F and G
+// (gemm_sm90.cuh) and I's integer GEMMs (ln_mlp_w8.cu):
 //
 // - 16-byte cp.async copies from device to shared memory, with commit and
 //   wait_group, that feed a ring of tiles;
@@ -10,7 +10,8 @@
 //   generic proxy (thread stores, cp.async) and the async proxy that wgmma
 //   reads shared memory through;
 // - the wgmma shapes the kernels use: m64n64k16 and m64n128k16 with both
-//   operands in shared memory, m64n64k16 with A in registers;
+//   operands in shared memory, m64n64k16 with A in registers, and the
+//   integer m64n128k32 (s8 x s8 -> s32) of kernel I (ln_mlp_w8.cu);
 // - for the projection's tensor-core body (memory_projection.cu): ldmatrix
 //   (plain and transposed), mma.sync m16n8k16 in bf16 and m16n8k32 in
 //   int8, and the split of an f32 pair into two bf16 pieces.
@@ -92,6 +93,11 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Two floats as one register of two bf16, the first in the low half.
@@ -207,6 +213,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB)
+      : "memory");
+}
+
+// D (64 x 128, s32) += A (64 x 32, s8) * B (32 x 128, s8), both from shared
+// memory and both K-major: an 8-bit operand takes no transpose, so B is
+// stored N rows of K bytes (a 128-byte row holds 128 K values, a k32 step
+// advances the start by 32 bytes, as a bf16 k16 step does). The integer
+// sums are exact; the accumulator layout is the f32 one above.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d)
       : "memory");
 }
 

@@ -22,7 +22,7 @@ SIGNATURES = {
     "pt_dense_residual": [_P] * 6 + [_I, _I, _I, _I, _P],
     "pt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_ln_swiglu": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
-    "pt_ln_mlp_w8": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P],
+    "pt_ln_mlp_w8": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _P],
     "pt_qkv_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pt_qkv_attention_proj": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _P],
     "pt_flash_attention": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
@@ -79,7 +79,9 @@ def check_operands(name: str, *tensors, device=None) -> None:
 def launch(name: str, *args) -> None:
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream's handle without building a Stream object, which
+    # took ~9 us a launch on the card; PyTorch's own launchers read it so
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")

@@ -10,7 +10,8 @@ runs its hand-written CUDA kernel (`csrc/ln_dense.cu` for A and E,
 give the bound and design) on CUDA tensors and its plain PyTorch version
 on CPU tensors. `launches` on each wrapper counts the calls that ran its
 kernel (A's bf16 call is two CUDA launches: LN, then the qkv GEMM; C's and
-G's are three each: LN, fc1, fc2).
+G's are three each: LN, fc1, fc2; I's five: the weights' transpose, LN and
+quantize, fc1 twice, fc2).
 
 Rounding points follow the reference kernels (ops/mlp.py:_kernel,
 _ln_dense_kernel, _dense_res_kernel): f32 two-pass LN statistics, LN
@@ -297,21 +298,27 @@ def fused_ln_mlp_w8(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, ls, *,
     kernels.check_operands("fused_ln_mlp_w8", w1q, w2q, device=x.device)
     kernels.check_operands("fused_ln_mlp_w8", w1s, b1, w2s, b2, device=x.device)
     d, h = x.shape[-1], w1q.shape[1]
-    if (w1q.dtype != torch.int8 or w1s.dtype != torch.float32 or d % 64 or d > 768
-            or h % 256 or not d <= h <= 3840 or tuple(w1q.shape) != (d, h)
+    # 128-deep stages and 128-wide output tiles of both int8 GEMMs
+    if (w1q.dtype != torch.int8 or w1s.dtype != torch.float32 or not d or d % 128
+            or not h or h % 128 or tuple(w1q.shape) != (d, h)
             or tuple(w2q.shape) != (h, d) or w1s.numel() != h or b1.numel() != h
             or w2s.numel() != d or b2.numel() != d):
         raise ValueError(
             f"fused_ln_mlp_w8: needs int8 w1q (D, H) and w2q (H, D), f32 scales "
-            f"and biases, D % 64 == 0, D <= 768, H % 256 == 0, D <= H <= 3840; "
-            f"got x {tuple(x.shape)}, w1q {tuple(w1q.shape)} {w1q.dtype}, w2q "
-            f"{tuple(w2q.shape)}, scales {w1s.dtype}"
+            f"and biases, D % 128 == 0 and H % 128 == 0; got x {tuple(x.shape)}, "
+            f"w1q {tuple(w1q.shape)} {w1q.dtype}, w2q {tuple(w2q.shape)}, "
+            f"scales {w1s.dtype}"
         )
+    rows = x.numel() // d
     out = torch.empty_like(x)
+    # the f32 hidden (rows, H), Xq (rows, D), Hq (rows, H), both weights
+    # transposed, s_y and the hidden's amax (rows each, 4 bytes): the layout
+    # pt_ln_mlp_w8 carves
+    scratch = torch.empty(rows * (d + 5 * h + 8) + 2 * d * h, device=x.device,
+                          dtype=torch.int8)
     kernels.launch(
-        "pt_ln_mlp_w8", *(t.data_ptr() for t in (*args, out)),
-        x.numel() // d, d, h, float(eps), int(bool(gelu_approx)),
-        kernels.dtype_code(x),
+        "pt_ln_mlp_w8", *(t.data_ptr() for t in (*args, out, scratch)),
+        rows, d, h, float(eps), int(bool(gelu_approx)), kernels.dtype_code(x),
     )
     fused_ln_mlp_w8.launches += 1
     return out

@@ -118,11 +118,13 @@ def test_qkv_attention_kernel(cuda, dtype, n, num_real_k, heads):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("o", [256, 320])
-def test_dense_residual_kernel(cuda, dtype, o):
+@pytest.mark.parametrize("d,o", [(128, 256), (128, 320),
+                                 (768, 768), (1536, 1536)])  # flagship, giant
+def test_dense_residual_kernel(cuda, dtype, d, o):
+    # 154 rows: one full 128-row GEMM tile and a ragged one
     gen = torch.Generator(device="cuda").manual_seed(6)
-    args = (_randn(gen, 2, 77, 128, dtype=dtype), _randn(gen, 2, 77, o, dtype=dtype),
-            _randn(gen, 128, o, dtype=dtype, scale=128 ** -0.5),
+    args = (_randn(gen, 2, 77, d, dtype=dtype), _randn(gen, 2, 77, o, dtype=dtype),
+            _randn(gen, d, o, dtype=dtype, scale=d ** -0.5),
             _randn(gen, o, dtype=dtype, scale=0.1),
             1 + _randn(gen, o, dtype=dtype, scale=0.1))  # per-channel layerscale
     if dtype == torch.bfloat16 and o % 128:  # the tensor-core tile's width
@@ -252,22 +254,48 @@ def test_ln_swiglu_kernel(cuda, dtype, d, h, rows):
     _check(got, mlp.ln_swiglu_plain(*args, eps=1e-6), dtype)
 
 
-@pytest.mark.parametrize("gelu_approx", [False, True])
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,h", [(768, 3072), (128, 512)])
-def test_ln_mlp_w8_kernel(cuda, dtype, d, h, gelu_approx):
-    # 154 rows: twenty 8-row blocks, the last one ragged
-    gen = torch.Generator(device="cuda").manual_seed(10)
+def _w8_args(gen, dtype, d, h, rows=(2, 77)):
     f32 = torch.float32
     w1, b1 = _randn(gen, d, h, dtype=f32, scale=d ** -0.5), _randn(gen, h, dtype=f32, scale=0.1)
     w2, b2 = _randn(gen, h, d, dtype=f32, scale=h ** -0.5), _randn(gen, d, dtype=f32, scale=0.1)
-    args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+    return (_randn(gen, *rows, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
             _randn(gen, d, dtype=dtype, scale=0.1), *mlp.quantize_mlp_weights(w1, b1, w2, b2),
             1 + _randn(gen, d, dtype=dtype, scale=0.1))
+
+
+@pytest.mark.parametrize("gelu_approx", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,h", [(768, 3072), (128, 512),
+                                 (1024, 4096), (1536, 6144)])  # ViT-L, giant's width
+def test_ln_mlp_w8_kernel(cuda, dtype, d, h, gelu_approx):
+    # 154 rows: one full 128-row GEMM tile and a ragged one
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    args = _w8_args(gen, dtype, d, h)
     kw = dict(eps=1e-6, gelu_approx=gelu_approx)
     got = _counted(mlp.fused_ln_mlp_w8, lambda: mlp.fused_ln_mlp_w8(*args, **kw))
     _check(got, mlp.ln_mlp_w8_plain(*args, **kw), dtype,
            tol=1e-3 if dtype == torch.float32 else None)
+
+
+@pytest.mark.parametrize("rows", [(1, 1), (3, 300)])
+def test_ln_mlp_w8_kernel_ragged_rows(cuda, rows):
+    # one row (a 128-row tile of 127 zero-filled rows), and 900 rows: eight
+    # tiles, the last ragged
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    args = _w8_args(gen, torch.bfloat16, 256, 512, rows)
+    got = _counted(mlp.fused_ln_mlp_w8, lambda: mlp.fused_ln_mlp_w8(*args, eps=1e-6))
+    _check(got, mlp.ln_mlp_w8_plain(*args, eps=1e-6), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,h", [(96, 384), (128, 320), (192, 768)])
+def test_ln_mlp_w8_kernel_refuses_its_limits(cuda, d, h):
+    # D % 128 != 0 or H % 128 != 0: a ValueError before any launch
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    args = _w8_args(gen, torch.bfloat16, d, h, (1, 8))
+    before = mlp.fused_ln_mlp_w8.launches
+    with pytest.raises(ValueError, match="D % 128 == 0 and H % 128 == 0"):
+        mlp.fused_ln_mlp_w8(*args, eps=1e-6)
+    assert mlp.fused_ln_mlp_w8.launches == before
 
 
 @pytest.mark.parametrize("normalize", [True, False])

@@ -11,6 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from patchioner_tpu.models import vit as jvit
 from patchioner_tpu.ops import mlp as jmlp
@@ -213,3 +214,95 @@ def test_swiglu_and_w8_wrappers_raise_on_a_device_without_a_kernel():
     w8 = [t.to("meta") for t in (x, g, bg, *mlp.quantize_mlp_weights(w1, b1, w2, b2), ls)]
     with pytest.raises(ValueError, match="no kernel"):
         mlp.fused_ln_mlp_w8(*w8, eps=1e-6)
+
+
+# ---------------------------------- kernel I's launches, emulated on the CPU
+
+
+def _transpose_by_tiles(src):
+    """transpose_s8_kernel's 64 x 64 tiles, with its block indexing."""
+    r, c = src.shape
+    dst = torch.empty(c, r, dtype=src.dtype)
+    for bx in range(r * c // 4096):
+        r0, c0 = bx // (c // 64) * 64, bx % (c // 64) * 64
+        dst[c0:c0 + 64, r0:r0 + 64] = src[r0:r0 + 64, c0:c0 + 64].t()
+    return dst
+
+
+def _gemm_s8(a, bt):
+    """gemm_s8_kernel's int32 sums, one 128-deep stage at a time: A (M, K)
+    against Bt (N, K), both K-major."""
+    acc = torch.zeros(a.shape[0], bt.shape[0], dtype=torch.int64)
+    for k0 in range(0, a.shape[1], 128):
+        acc += a[:, k0:k0 + 128].long() @ bt[:, k0:k0 + 128].long().t()
+    assert acc.abs().max() < 2 ** 31  # the kernel's int32 accumulators
+    return acc.int()
+
+
+def _row_scale(amax):
+    return torch.clamp_min(amax / 127.0, 1e-12)
+
+
+def _quantize(a, s):
+    return torch.clamp(torch.round(a / s), -127, 127).to(torch.int8)
+
+
+def _emulate_w8_launches(x, g, bg, w1q, w1s, b1, w2q, w2s, b2, ls, *, eps, gelu_approx,
+                         rng):
+    """pt_ln_mlp_w8's five launches in torch: the weights transposed, LN
+    and quantize rows, fc1 storing the f32 hidden and folding |h| into the
+    row amax by 128-column blocks as a max over float bits (blocks in a
+    random order, as atomics land), the hidden quantized, fc2."""
+    d, h = w1q.shape
+    rows = x.reshape(-1, d)
+    w1t, w2t = _transpose_by_tiles(w1q), _transpose_by_tiles(w2q)
+    # ln_quant_rows_kernel: f64 statistics rounded to f32 once
+    xf = rows.float()
+    mu = (xf.double().sum(-1, keepdim=True) / d).float()
+    c = xf - mu
+    eps32 = torch.tensor(eps, dtype=torch.float32).item()
+    rstd = (1.0 / torch.sqrt((c.double() ** 2).sum(-1, keepdim=True) / d + eps32)).float()
+    y = c * rstd * g.float() + bg.float()
+    sy = _row_scale(y.abs().amax(-1, keepdim=True))
+    xq = _quantize(y, sy)
+    # W8Fc1Epilogue: the f32 hidden, and its row amax a 128-column block at
+    # a time
+    hidden = F.gelu(_gemm_s8(xq, w1t).float() * sy * w1s.reshape(-1) + b1,
+                    approximate="tanh" if gelu_approx else "none")
+    bits = hidden.abs().view(torch.int32).reshape(len(rows), h // 128, 128).amax(-1)
+    amax = torch.zeros(len(rows), dtype=torch.int32)  # zeroed by the LN launch
+    for blk in rng.permutation(h // 128):
+        amax = torch.maximum(amax, bits[:, blk])
+    # quant_hidden_kernel, then fc2
+    sh = _row_scale(amax.view(torch.float32)[:, None])
+    hq = _quantize(hidden, sh)
+    o = _gemm_s8(hq, w2t).float() * sh * w2s.reshape(-1) + b2
+    return x + (o * ls.float()).reshape(x.shape).to(x.dtype)
+
+
+@pytest.mark.parametrize("gelu_approx", [False, True])
+@pytest.mark.parametrize("case", ["rows_512", "ragged_rows_400", "zero_row"])
+def test_ln_mlp_w8_launches_match_plain_and_pallas(case, gelu_approx):
+    # bit-exact against the plain version (the same f32 steps, int32 sums
+    # exact in any order and amax order-free), and within 1e-3 of
+    # max|ref| of the Pallas kernel as the plain test above; 400 rows are
+    # ragged against the 128-row GEMM tile; the zero row, with zero LN and
+    # MLP biases, quantizes zeros at the 1e-12 floor of both scales
+    n = 200 if case == "ragged_rows_400" else 256
+    rng = np.random.default_rng(14)
+    x, g, bg, w1, b1, w2, b2, ls = _w8_inputs(rng, n=n)
+    if case == "zero_row":
+        x[1, 5], bg[:], b1[:], b2[:] = 0.0, 0.0, 0.0, 0.0
+    jq = jmlp.quantize_mlp_weights(*map(jnp.asarray, (w1, b1, w2, b2)))
+    q = bridge.mlp_w8_from_jax(jq)
+    x_, g_, bg_, ls_ = _t(x, g, bg, ls)
+    kw = dict(eps=1e-6, gelu_approx=gelu_approx)
+    got = _emulate_w8_launches(x_, g_, bg_, *q, ls_, **kw, rng=rng)
+    plain = mlp.ln_mlp_w8_plain(x_, g_, bg_, *q, ls_, **kw)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    want = np.asarray(jmlp.fused_ln_mlp_w8(
+        *map(jnp.asarray, (x, g, bg)), *jq, jnp.asarray(ls), **kw, block_q=n,
+        interpret=True))
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-3 * np.max(np.abs(want))
+    if case == "zero_row":  # o = 0 there, so out is x's zero row
+        assert not got[1, 5].any()
