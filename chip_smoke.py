@@ -31,7 +31,9 @@ then exits non-zero without the final result line:
    `scaled_dot_product_attention` on the same q, k, v as the attention
    kernels' library yardstick; the projections (D and H, each also at
    giant's width) also print the rate they read their bank at and its
-   share of 3.35 TB/s.
+   share of 3.35 TB/s. D and H also run at 128 batch rows (a served box
+   batch: 8 images x 16 boxes) against the full flagship bank, printed
+   with their bank rate, not rows of the JSON summary.
    No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
@@ -39,17 +41,27 @@ then exits non-zero without the final result line:
 4b. the same for each further attention configuration of the encoder
    (`proj_fused`, `fusedqkv_proj`, `flash`, `flash1p`, `flash_builtin`):
    one batch of 8 served, the launch counters of its kernels asserted;
+   for `flash_builtin` a batch through a new server, and one through a
+   new server after `CaptionServer.warmup()`, their latencies printed
+   beside the first server's;
 4c. giant: ViT-g/14-reg at full width (40 layers, D = 1536, 24 heads,
    SwiGLU FFN) with the 591,753 x 1536 bank, one batch of 8 served: A, B
    and G 40 launches a batch, D one; then the same with
    `attn_impl: fusedqkv_proj`: A, F and G 40 launches a batch, D one;
 4d. int8 bank: the flagship with `memory_bank_int8: true`, one batch of 8
    served: H one launch a batch, D none;
+4e. the other spatial queries on phase 4's model: 8 whole-image
+   requests, 8 box requests of 1-16 boxes (padded to 16: 128 rows through
+   the projection and the decode) and 8 region-set requests, each kind one
+   batch through the `CaptionServer`, A, B and C 12 launches and D one
+   asserted for each; the box batch's prefix and decode timed apart;
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
    drawn near 1 so that the kernels move the residual stream, for the
    flagship, the int8-bank flagship, and giant cut to 4 layers (full width)
-   under `fusedqkv` and under `fusedqkv_proj`;
+   under `fusedqkv` and under `fusedqkv_proj`; for the flagship also the
+   box path with the attention map, the region-set path with Gaussian
+   weights and the whole-image `avg_self_attn` path;
 5b. the same gate between each further attention configuration's prefix
    and the `fusedqkv` one's, both on the card: the flagship's, and giant's
    `fusedqkv_proj`.
@@ -101,12 +113,13 @@ GIANT_CONFIG = dict(FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg", prefix_size
 # so it takes 1e-3 in float32.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant",
-               "memory_project_int8_giant"}
+               "memory_project_int8_giant", "memory_project_128", "memory_project_int8_128"}
 W8_F32_TOLERANCE = 1e-3
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
 HD = D // HEADS
 GD, GH, GHEADS = 1536, 4096, 24  # ViT-g's width, SwiGLU hidden and heads
+MAX_BOXES = 16  # the server's boxes a request: a box batch is B * 16 rows
 
 # The least time the card could take: the larger of the operations over the
 # peak rate for their type (dense tensor cores in bf16 and int8, the SIMT
@@ -287,6 +300,8 @@ def _kernel_cases(dtype, gen):
                                                    b2.float()), ls)
     # H over giant's 1536-wide bank in int8
     qgbank = mp.quantize_bank(torch.randn(nb, GD, generator=gen, device=dev))
+    # D and H at a served box batch's rows
+    bfeats = torch.randn(B * MAX_BOXES, D, generator=gen, device=dev)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -385,6 +400,17 @@ def _kernel_cases(dtype, gen):
          lambda: mp.memory_project_int8(gfeats, qgbank, normalize=True),
          lambda: mp.memory_project_int8_plain(gfeats, qgbank, normalize=True), None,
          4 * B * nb * GD, _nbytes(gfeats, *qgbank[:-1], gfeats)),
+        ("memory_project_128", "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:521",
+         lambda: mp.memory_project_streamed(bfeats, bank, normalize=True),
+         lambda: mp.memory_project_plain(bfeats, bank, normalize=True), None,
+         4 * B * MAX_BOXES * nb * D,
+         _nbytes(bfeats, bank.rows[:nb], bank.inv_norm[:nb], bfeats)),
+        ("memory_project_int8_128", "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:380",
+         lambda: mp.memory_project_int8(bfeats, qbank, normalize=True),
+         lambda: mp.memory_project_int8_plain(bfeats, qbank, normalize=True), None,
+         4 * B * MAX_BOXES * nb * D, _nbytes(bfeats, *qbank[:-1], bfeats)),
     ]
 
 
@@ -498,23 +524,16 @@ def _padded(traces):
     return pts, valid
 
 
-def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
-                    n_requests: int = 2 * B,
-                    base: dict = FLAGSHIP_CONFIG) -> tuple[dict, list]:
-    """Serve `n_requests` requests through the `base` config (the flagship's
-    by default) plus `opts`; returns the launch counts of the served run and
-    the captions."""
-    from patchioner_tpu_torch import entry
+def build_model(config: dict, seed: int, tag: str):
+    """The port's model of `config` in bf16 on the card, seeded random
+    weights and bank."""
     from patchioner_tpu_torch.models.patchioner import Patchioner
-    from patchioner_tpu_torch.serve import CaptionServer
 
-    config = dict(base, **(opts or {}))
-    tag = f"[{label}]"
     t0 = time.perf_counter()
     model = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"{tag} {config['dino_model']} {opts or ''}: model built in "
+    log(f"{tag} {config['dino_model']}: model built in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} "
         f"({model.vit_cfg.ffn} FFN {model.vit_cfg.ffn_hidden}) at "
@@ -523,6 +542,63 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
         f"{str(model.bank.rows.dtype)[6:]}, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
+    return model
+
+
+def _serve(model, requests: list, tag: str) -> tuple[list, dict, int, float, dict]:
+    """Serve (image, submit keywords) requests through a new server after
+    zeroing every launch counter, and assert the counts; (results, the
+    server's snapshot, batches, wall s, launch counts)."""
+    from patchioner_tpu_torch.serve import CaptionServer
+
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with CaptionServer(model, max_batch=B, max_delay_ms=200.0,
+                       max_boxes=MAX_BOXES) as server:
+        futures = [server.submit(im, **kw) for im, kw in requests]
+        results = [f.result(timeout=900) for f in futures]
+        wall = time.perf_counter() - t0
+        snap = server.snapshot()
+        batches = server.stats.batches
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    expected = expected_launches(model.config, model.vit_cfg.depth, batches)
+    log(f"{tag} {len(results)} requests answered in {batches} batches; "
+        f"launches {counts}, expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != {expected}")
+    return results, snap, batches, wall, counts
+
+
+def _host_ms(fn) -> float:
+    """Median of 3 host-clock times of fn(), the card synchronised before
+    and after each."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    return statistics.median(times) * 1e3
+
+
+def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
+                    n_requests: int = 2 * B, base: dict = FLAGSHIP_CONFIG,
+                    model=None, warm: bool = False) -> tuple[dict, list]:
+    """Serve `n_requests` trace requests through the `base` config (the
+    flagship's by default) plus `opts`, on `model` if given (kept) or on
+    one built here (dropped); returns the launch counts of the served run
+    and the captions. With `warm`, two new servers serve one batch each,
+    the second after its `warmup()`."""
+    from patchioner_tpu_torch import entry
+
+    tag = f"[{label}]"
+    own = model is None
+    if own:
+        model = build_model(dict(base, **(opts or {})), seed, f"{tag} {opts or ''}")
+    config = model.config
 
     imgs, traces = _requests(2 * B, seed)
     imgs, traces = imgs[:n_requests], traces[:n_requests]
@@ -530,24 +606,10 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
     pts, valid = _padded(traces[:B])
     model.caption_traces_fused(imgs[:B], pts, valid)
 
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with CaptionServer(model, max_batch=B, max_delay_ms=200.0) as server:
-        futures = [server.submit(im, tr) for im, tr in zip(imgs, traces)]
-        captions = [f.result(timeout=900) for f in futures]
-        wall = time.perf_counter() - t0
-        snap = server.snapshot()
-        batches = server.stats.batches
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    captions, snap, _, wall, counts = _serve(
+        model, [(im, {"trace": tr}) for im, tr in zip(imgs, traces)], tag)
     if not all(isinstance(c, str) for c in captions):
         raise AssertionError("a request did not resolve to a caption string")
-    expected = expected_launches(config, model.vit_cfg.depth, batches)
-    log(f"{tag} {len(captions)} requests answered in {batches} batches; "
-        f"launches {counts}, expected {expected}")
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != {expected}")
     log(f"{tag} caption 0: {captions[0][:80]!r}")
 
     # the served path's projected prefixes: finite, (B, D), unit norm
@@ -562,27 +624,137 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
     if prefix.shape != (B, width) or not torch.isfinite(prefix).all() or norm_err > 1e-3:
         raise AssertionError("the main path's projected prefix is malformed")
 
-    # steady-state batch time, outside the server (host clock; the caption
-    # list ends in a device-to-host copy, which synchronises)
-    times = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        model.caption_traces_fused(imgs[:B], pts, valid)
-        times.append(time.perf_counter() - t1)
-    batch_ms = statistics.median(times) * 1e3
+    # steady-state batch time, outside the server
+    batch_ms = _host_ms(lambda: model.caption_traces_fused(imgs[:B], pts, valid))
     log(f"{tag} {len(captions) / wall:.3f} captions/s through the server "
         f"({wall:.3f} s for {len(captions)}), mean request latency "
         f"{snap['mean_latency_ms']} ms, batch of {B}: {batch_ms:.1f} ms "
         f"(median of 3); {smi}")
-    del model
-    torch.cuda.empty_cache()
+    if warm:
+        # two more new servers' first batches: one cold again, one after
+        # warmup(), which runs its dummy batch on the server's worker thread
+        from patchioner_tpu_torch.serve import CaptionServer
+
+        for use_warmup in (False, True):
+            with CaptionServer(model, max_batch=B, max_delay_ms=200.0) as server:
+                t0 = time.perf_counter()
+                if use_warmup:
+                    server.warmup(buckets=[B], pixel_dtype=np.uint8)
+                warm_s = time.perf_counter() - t0
+                futures = [server.submit(im, tr) for im, tr in zip(imgs[:B], traces[:B])]
+                warm_caps = [f.result(timeout=900) for f in futures]
+                warm_snap = server.snapshot()
+            if not all(isinstance(c, str) for c in warm_caps):
+                raise AssertionError("a request of a new server did not resolve to a caption")
+            what = f"after warmup() ({warm_s:.3f} s)" if use_warmup else "without warmup()"
+            log(f"{tag} a new server's first batch {what}: mean request latency "
+                f"{warm_snap['mean_latency_ms']} ms in {warm_snap['batches']} batch(es), "
+                f"against {snap['mean_latency_ms']} ms for the first server's; {smi}")
+    if own:
+        del model
+        torch.cuda.empty_cache()
     return counts, captions
 
 
+def _query_boxes(n: int, seed: int) -> list:
+    """n sets of 1-16 normalised xyxy boxes (the first 16), seeded."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        k = MAX_BOXES if i == 0 else int(rng.integers(1, MAX_BOXES + 1))
+        lo = rng.uniform(0, 0.7, (k, 2))
+        hi = np.minimum(lo + rng.uniform(0.05, 0.5, (k, 2)), 1.0)
+        out.append(np.concatenate([lo, hi], -1).tolist())
+    return out
+
+
+def _pixel_boxes(sets: list, pad) -> np.ndarray:
+    """Normalised xyxy box sets as the server hands them to the model:
+    (n, 16, 4) pixel [x1, y1, w, h], padded with `pad`."""
+    boxes = np.tile(np.asarray(pad, np.float32), (len(sets), MAX_BOXES, 1))
+    for i, bs in enumerate(sets):
+        b = np.asarray(bs, np.float32) * IMG
+        boxes[i, : len(bs)] = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], -1)
+    return boxes
+
+
+def phase_other_queries(model, seed: int, smi: str) -> dict:
+    """Phase 4e: whole-image, box and region-set requests, one batch of B
+    each, through the server on `model`; returns each kind's launches."""
+    from patchioner_tpu_torch import entry
+    from patchioner_tpu_torch.models import decap
+
+    imgs, _ = _requests(B, seed + 3)
+    sets = _query_boxes(B, seed + 4)
+    direct = {
+        "cls": lambda: model.caption_images_fused(imgs),
+        "bbox": lambda: model.caption_bboxes_fused(imgs, _pixel_boxes(sets, [0, 0, 1, 1])),
+        "region_set": lambda: model.caption_region_sets_fused(
+            imgs, _pixel_boxes(sets, [-1] * 4)),
+    }
+    requests = {
+        "cls": [(im, {}) for im in imgs],
+        "bbox": [(im, {"bboxes": bs}) for im, bs in zip(imgs, sets)],
+        "region_set": [(im, {"bboxes": bs, "region_set": True})
+                       for im, bs in zip(imgs, sets)],
+    }
+    rows = {"cls": B, "bbox": B * MAX_BOXES, "region_set": B}
+    launches = {}
+    for kind, call in direct.items():
+        tag = f"[queries {kind}]"
+        t0 = time.perf_counter()
+        call()  # first call, outside the counted run
+        first_ms = (time.perf_counter() - t0) * 1e3
+        results, snap, batches, wall, launches[kind] = _serve(model, requests[kind], tag)
+        for (_, kw), res in zip(requests[kind], results):
+            want = len(kw["bboxes"]) if kind == "bbox" else None
+            if (not isinstance(res, str) if want is None else
+                    not (isinstance(res, list) and len(res) == want
+                         and all(isinstance(c, str) for c in res))):
+                raise AssertionError(f"{tag} a request resolved to {res!r}")
+        log(f"{tag} result 0: {str(results[0])[:80]!r}")
+        if kind == "bbox":
+            n_boxes = sum(len(bs) for bs in sets)
+            log(f"{tag} {n_boxes} boxes: {n_boxes / wall:.3f} box captions/s "
+                "through the server")
+        batch_ms = _host_ms(call)
+        log(f"{tag} {len(results) / wall:.3f} requests/s through the server "
+            f"({wall:.3f} s for {len(results)} in {batches} batch(es), {rows[kind]} rows "
+            f"projected and decoded a batch), mean request latency "
+            f"{snap['mean_latency_ms']} ms, first direct batch {first_ms:.1f} ms, "
+            f"batch of {B}: {batch_ms:.1f} ms (median of 3); {smi}")
+
+    # the box batch apart: its (128, D) prefix, finite and unit norm, and
+    # the prefix step and the 128-row decode each timed
+    step = entry.make_prefix_step(model.vit_cfg, model.bank.num_real,
+                                  normalize=model.normalize,
+                                  pool=entry.make_bbox_pool(model.patch_size))
+    px = model.pixels_to_device(imgs)
+    boxes = torch.from_numpy(_pixel_boxes(sets, [0, 0, 1, 1])).cuda()
+    prefix = step(model.state(), px, boxes)
+    norm_err = (prefix.norm(dim=-1) - 1).abs().max().item()
+    if (prefix.shape != (B * MAX_BOXES, int(model.config["prefix_size"]))
+            or not torch.isfinite(prefix).all() or norm_err > 1e-3):
+        raise AssertionError(f"the box batch's prefix is malformed: {tuple(prefix.shape)}, "
+                             f"max |norm - 1| {norm_err:.2e}")
+
+    prefix_ms = _host_ms(lambda: step(model.state(), px, boxes))
+    decode_ms = _host_ms(lambda: decap.greedy_decode(model.decoder, prefix, model.gpt2_cfg))
+    decode8_ms = _host_ms(lambda: decap.greedy_decode(model.decoder, prefix[:B], model.gpt2_cfg))
+    log(f"[queries bbox] prefix {tuple(prefix.shape)}, max |norm - 1| {norm_err:.2e}; "
+        f"encoder + pool + projection {prefix_ms:.1f} ms, decode of {B * MAX_BOXES} rows "
+        f"{decode_ms:.1f} ms, of {B} rows {decode8_ms:.1f} ms (host clock, median of 3); "
+        f"{smi}")
+    return launches
+
+
 def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str = "f32",
-                         configs: dict = None) -> None:
-    """The f32 prefix of `config` on the card against the CPU; then, for each
-    of `configs`, against the `fusedqkv` prefix on the card."""
+                         configs: dict = None, queries: bool = False) -> None:
+    """The f32 prefix of `config` on the card against the CPU; with
+    `queries` also those of the box path (attention-map weights), the
+    region-set path (Gaussian weights) and the whole image
+    (`avg_self_attn`); then, for each of `configs`, the trace prefix
+    against the `fusedqkv` one on the card."""
     from patchioner_tpu_torch import entry
     from patchioner_tpu_torch.models import decap
     from patchioner_tpu_torch.models.patchioner import Patchioner
@@ -599,15 +771,15 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
     cpu = gpu.to("cpu")
     imgs, traces = _requests(2, seed + 1)
     pts, valid = _padded(traces)
+    sets = _query_boxes(2, seed + 5)
 
-    def prefix(m, vit_cfg):
+    def prefix(m, vit_cfg, what="trace", pool=None, args=(pts, valid)):
         step = entry.make_prefix_step(vit_cfg, m.bank.num_real, use_attention=True,
-                                      normalize=m.normalize)
+                                      normalize=m.normalize, pool=pool)
         t0 = time.perf_counter()
         out = step(m.state(), m.pixels_to_device(imgs),
-                   torch.from_numpy(pts).to(m.device),
-                   torch.from_numpy(valid).to(m.device))
-        log(f"[{label}] prefix on {m.device}, attn_impl={vit_cfg.attn_impl!r}, "
+                   *(torch.from_numpy(a).to(m.device) for a in args))
+        log(f"[{label}] {what} prefix on {m.device}, attn_impl={vit_cfg.attn_impl!r}, "
             f"proj_fused={vit_cfg.proj_fused}: {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -627,6 +799,19 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
     log(f"[{label}] caption-token agreement card vs CPU (reported, not asserted): "
         f"{agree:.4f}")
     del cpu, ref, tok_cpu
+    if queries:
+        patch = gpu.patch_size
+        for what, pool, args in (
+                ("bbox attention-map", entry.make_bbox_pool(patch, use_attn_map=True),
+                 (_pixel_boxes(sets, [0, 0, 1, 1]),)),
+                ("region-set gaussian", entry.make_region_set_pool(patch, gaussian_avg=True),
+                 (_pixel_boxes(sets, [-1] * 4),)),
+                ("avg_self_attn", entry.make_image_pool("avg_self_attn"), ())):
+            on_card = prefix(gpu, gpu.vit_cfg, what, pool, args)
+            cpu = gpu.to("cpu")
+            gate(on_card.cpu(), prefix(cpu, cpu.vit_cfg, what, pool, args),
+                 f"{what} card vs CPU")
+            del cpu
     # phase 5b: each further attention configuration against fusedqkv's
     fusedqkv = dataclasses.replace(gpu.vit_cfg, attn_impl="fusedqkv")
     base = prefix(gpu, fusedqkv) if configs else None
@@ -652,15 +837,22 @@ def main() -> None:
     # (count, the run it was read from) for every kernel
     launches = {"ln_mlp_w8": (mlp.fused_ln_mlp_w8.launches,
                               "kernels (no model path reaches I)")}
-    counts, captions = phase_main_path(args.seed, smi)
+    flagship = build_model(FLAGSHIP_CONFIG, args.seed, "[main]")
+    counts, captions = phase_main_path(args.seed, smi, model=flagship)
     launches.update({k: (counts[k], "main") for k in (
         "ln_dense", "qkv_attention", "ln_mlp", "memory_project")})
+    # phase 4e: the other spatial queries on the same model; each kind's
+    # launches were asserted batch by batch, the table keeps the trace run's
+    phase_other_queries(flagship, args.seed, smi)
+    del flagship
+    torch.cuda.empty_cache()
     # phase 4b: the kernel each further configuration adds is read from its
     # own served run
     added = {"proj_fused": "dense_residual", "fusedqkv_proj": "qkv_attention_proj",
              "flash1p": "flash_attention_1pass", "flash": "flash_attention"}
     for label, opts in CONFIGS.items():
-        counts, caps = phase_main_path(args.seed, smi, label, opts, n_requests=B)
+        counts, caps = phase_main_path(args.seed, smi, label, opts, n_requests=B,
+                                       warm=label == "flash_builtin")
         if label in added:
             launches[added[label]] = (counts[added[label]], label)
         same = sum(a == b for a, b in zip(caps, captions))
@@ -675,7 +867,7 @@ def main() -> None:
     counts, _ = phase_main_path(args.seed, smi, "int8_bank", {"memory_bank_int8": True},
                                 n_requests=B)
     launches["memory_project_int8"] = (counts["memory_project_int8"], "int8_bank")
-    phase_f32_crosscheck(args.seed, configs=CONFIGS)
+    phase_f32_crosscheck(args.seed, configs=CONFIGS, queries=True)
     phase_f32_crosscheck(args.seed, dict(FLAGSHIP_CONFIG, memory_bank_int8=True),
                          "f32 int8_bank")
     giant4 = dict(GIANT_CONFIG, dino_geometry={"depth": 4})

@@ -1,10 +1,14 @@
-"""Patchioner: the DINOv2 + DeCap trace-captioning subset, in PyTorch.
+"""Patchioner: the DINOv2 + DeCap captioning subset, in PyTorch.
 
-Twin of the trace path of `patchioner_tpu/models/patchioner.py`:
-`from_config`, `supports_fused_trace_path`, `caption_traces_fused`,
-`crop_dim` and `resize_dim` — the surface the caption server
-(`patchioner_tpu_torch.serve`, twin of `patchioner_tpu/serve.py:530-564`)
-drives. The step itself is `entry.make_caption_step`.
+Twin of the fused caption paths of `patchioner_tpu/models/patchioner.py`:
+`from_config`, `supports_fused_trace_path`, `caption_traces_fused` (a
+trace), `caption_bboxes_fused` (a caption per box),
+`caption_images_fused` (the whole image) and `caption_region_sets_fused`
+(a caption per box set), `patch_size`, `crop_dim` and `resize_dim` — the
+surface the caption server (`patchioner_tpu_torch.serve`, twin of
+`patchioner_tpu/serve.py`) drives. Each path is `entry.make_caption_step`
+with its own pool; all share the encoder, the projection and the decode.
+`Patchioner.forward` and its flag surface are not ported.
 
 `from_config` takes the reference YAML schema (a path or a dict), with
 the encoder keys `attn_impl`, `proj_fused` and `gelu_approx` of the
@@ -87,7 +91,7 @@ def _check_config(config: dict) -> None:
             continue
         raise NotImplementedError(
             f"config key {key}={value!r} is outside the ported DINOv2 + DeCap "
-            "trace subset"
+            "subset"
         )
     dino_model = config.get("dino_model")
     if not dino_model or "dinov2" not in dino_model or "dinotxt" in dino_model:
@@ -141,6 +145,7 @@ class Patchioner:
 
             tokenizer = clip_bpe.get_tokenizer()
         self.tokenizer = tokenizer
+        self.patch_size = vit_cfg.patch_size
         self.crop_dim = vit_cfg.img_size
         self.resize_dim = int(self.config.get("resize_dim", vit_cfg.img_size))
         self._mean = torch.tensor(self.config.get("image_mean", IMAGENET_MEAN),
@@ -235,22 +240,61 @@ class Patchioner:
         x = _as_nhwc(imgs).to(self.device)
         if x.shape[1] != self.crop_dim or x.shape[2] != self.crop_dim:
             raise ValueError(
-                f"the trace path needs {self.crop_dim}px images, got "
+                f"the fused caption paths need {self.crop_dim}px images, got "
                 f"{x.shape[1]}x{x.shape[2]}")
         if x.dtype == torch.uint8:
             x = (x.float() / 255.0 - self._mean) / self._std
         return x.float()
 
+    def _caption_rows(self, pool, imgs, *pool_args) -> list:
+        """One fused step with `pool` over the images and the pool's
+        arrays (f32 on the model's device); a caption string per row."""
+        step = entry.make_caption_step(
+            self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
+            n_steps=self.entry_length, normalize=self.normalize, pool=pool)
+        args = [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                for a in pool_args]
+        tokens, _ = step(self.state(), self.pixels_to_device(imgs), *args)
+        return [self.tokenizer.decode_caption(row) for row in tokens.cpu().numpy()]
+
     def caption_traces_fused(self, imgs, pts, valid, *,
                              use_attention_tracing: bool = False) -> list:
         """Caption (B, P, 2) trace points in [0, 1] with a (B, P) valid mask;
         `use_attention_tracing` weights the trace by the CLS->patch
-        attention row."""
-        step = entry.make_caption_step(
-            self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
-            n_steps=self.entry_length, use_attention=use_attention_tracing,
-            normalize=self.normalize)
-        pts = torch.as_tensor(np.asarray(pts, np.float32), device=self.device)
-        valid = torch.as_tensor(np.asarray(valid, np.float32), device=self.device)
-        tokens, _ = step(self.state(), self.pixels_to_device(imgs), pts, valid)
-        return [self.tokenizer.decode_caption(row) for row in tokens.cpu().numpy()]
+        attention row. Twin of `patchioner.py:1800`."""
+        pool = entry.make_trace_pool(self.vit_cfg, use_attention_tracing)
+        return self._caption_rows(pool, imgs, pts, valid)
+
+    def caption_bboxes_fused(self, imgs, bboxes, *, gaussian_avg: bool = False,
+                             gaussian_bbox_variance: float = 0.5,
+                             use_attn_map_for_bboxes: bool = False) -> list:
+        """Caption each of (B, NB, 4) pixel `[x1, y1, w, h]` boxes, padded
+        to a fixed NB; B lists of NB captions. The B * NB rows go through
+        one projection and one decode. Twin of `patchioner.py:1842`."""
+        n_boxes = int(np.shape(bboxes)[1])
+        pool = entry.make_bbox_pool(
+            self.patch_size, gaussian_avg=gaussian_avg,
+            gaussian_bbox_variance=gaussian_bbox_variance,
+            use_attn_map=use_attn_map_for_bboxes)
+        capts = self._caption_rows(pool, imgs, bboxes)
+        return [capts[i:i + n_boxes] for i in range(0, len(capts), n_boxes)]
+
+    def caption_images_fused(self, imgs, *, caption_from: str = "cls",
+                             gaussian_img_variance: float = 1.0) -> list:
+        """Caption each whole image from `caption_from` ('cls',
+        'avg_self_attn' or 'patches', which takes `gaussian_img_variance`;
+        anything else raises ValueError). Twin of `patchioner.py:1900`."""
+        pool = entry.make_image_pool(caption_from, gaussian_img_variance)
+        return self._caption_rows(pool, imgs)
+
+    def caption_region_sets_fused(self, imgs, bboxes, *, gaussian_avg: bool = False,
+                                  gaussian_bbox_variance: float = 0.5,
+                                  use_attn_map_for_bboxes: bool = False) -> list:
+        """One caption per image for the union of its (NB, 4) pixel boxes;
+        `[-1] * 4` rows pad a set and are skipped. Twin of
+        `patchioner.py:1941`."""
+        pool = entry.make_region_set_pool(
+            self.patch_size, gaussian_avg=gaussian_avg,
+            gaussian_bbox_variance=gaussian_bbox_variance,
+            use_attn_map=use_attn_map_for_bboxes)
+        return self._caption_rows(pool, imgs, bboxes)

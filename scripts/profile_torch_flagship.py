@@ -10,10 +10,12 @@ of `chip_smoke.CONFIGS`), then `int8_bank` (the flagship with
 `memory_bank_int8: true`), `giant` (`chip_smoke.GIANT_CONFIG`, ViT-g/14
 at full width with the 1536-wide bank) and `giant_fusedqkv_proj` (giant
 with `attn_impl: fusedqkv_proj`), and captions one batch of 8 trace
-requests:
+requests; then `bbox`, `region_set` and `cls`: the flagship's batch of 8
+box requests (16 boxes an image, 128 rows after the encoder), region-set
+requests and whole-image requests, as `chip_smoke.py` phase 4e sends them:
 
-- the stage split (encoder, trace pooling + memory projection, decode)
-  with CUDA events, over 5 batches;
+- the stage split (encoder, pooling + memory projection, decode) with
+  CUDA events, over 5 batches;
 - one batch under `torch.profiler`: device time per kernel, the sum of the
   device time of all kernels and copies, and the card's idle share of the
   batch's wall time (1 - device time / wall time);
@@ -37,18 +39,18 @@ import chip_smoke
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.models import decap, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
-from patchioner_tpu_torch.ops import region_pooling as rp
 
 
-def stage_ms(model, imgs, pts, valid) -> list:
+def stage_ms(model, imgs, pool, args) -> list:
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    state = model.state()
+    state, cfg = model.state(), model.vit_cfg
     with torch.no_grad():
         ev[0].record()
-        outs = vit.vit_forward(state["vit"], model.pixels_to_device(imgs), model.vit_cfg)
+        outs = vit.vit_forward(state["vit"], model.pixels_to_device(imgs), cfg)
         ev[1].record()
-        grid = rp.traces_to_grid(pts, valid, model.vit_cfg.grid_size)
-        feats = rp.trace_pool(outs["x_norm_patchtokens"], grid)
+        feats = pool(outs, lambda: vit.process_self_attention(
+            outs["qkv_last"], num_heads=cfg.extract_heads,
+            num_global_tokens=cfg.num_global_tokens, scale=cfg.extract_scale)[0], *args)
         prefix = entry.project(state, feats, model.bank.num_real, normalize=model.normalize)
         ev[2].record()
         decap.greedy_decode(model.decoder, prefix, model.gpt2_cfg)
@@ -57,24 +59,45 @@ def stage_ms(model, imgs, pts, valid) -> list:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def profile_config(label: str, config: dict, smi: str) -> None:
+def batch(model, kind: str):
+    """The batch of 8 of a request kind: (images, its pool, the pool's
+    arrays on the card, the model's caption call)."""
+    imgs, traces = chip_smoke._requests(chip_smoke.B, 0)
+    if kind == "trace":
+        pts, valid = chip_smoke._padded(traces)
+        return (imgs, entry.make_trace_pool(model.vit_cfg, use_attention=False),
+                (torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda()),
+                lambda: model.caption_traces_fused(imgs, pts, valid))
+    if kind == "cls":
+        return imgs, entry.make_image_pool("cls"), (), lambda: model.caption_images_fused(imgs)
+    sets = chip_smoke._query_boxes(chip_smoke.B, 4)
+    if kind == "bbox":
+        boxes = chip_smoke._pixel_boxes(sets, [0, 0, 1, 1])
+        return (imgs, entry.make_bbox_pool(model.patch_size),
+                (torch.from_numpy(boxes).cuda(),),
+                lambda: model.caption_bboxes_fused(imgs, boxes))
+    boxes = chip_smoke._pixel_boxes(sets, [-1] * 4)
+    return (imgs, entry.make_region_set_pool(model.patch_size),
+            (torch.from_numpy(boxes).cuda(),),
+            lambda: model.caption_region_sets_fused(imgs, boxes))
+
+
+def profile_config(label: str, config: dict, kind: str, smi: str) -> None:
     model = Patchioner.from_config(config, allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
-    imgs, traces = chip_smoke._requests(chip_smoke.B, 0)
-    pts, valid = chip_smoke._padded(traces)
-    model.caption_traces_fused(imgs, pts, valid)  # first-call set-up
-    pts_d, valid_d = torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda()
-    stages = [stage_ms(model, imgs, pts_d, valid_d) for _ in range(5)]
+    imgs, pool, args, caption = batch(model, kind)
+    caption()  # first-call set-up
+    stages = [stage_ms(model, imgs, pool, args) for _ in range(5)]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.caption_traces_fused(imgs, pts, valid)
+        caption()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    print(f"== {label} {config}")
+    print(f"== {label} {config} {kind} requests")
     print(events.table(sort_by="self_cuda_time_total", row_limit=12))
     # only the device's own events: an operator's row repeats the time of
     # the kernels it launched
@@ -98,6 +121,9 @@ def main() -> None:
     configs["giant"] = chip_smoke.GIANT_CONFIG
     configs["giant_fusedqkv_proj"] = dict(chip_smoke.GIANT_CONFIG,
                                           **chip_smoke.CONFIGS["fusedqkv_proj"])
+    kinds = {label: "trace" for label in configs}
+    for kind in ("bbox", "region_set", "cls"):
+        configs[kind], kinds[kind] = flagship, kind
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("configs", nargs="*",
                     help=f"any of {', '.join(configs)}; every one when none is named")
@@ -112,7 +138,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     for label in args.configs or configs:
-        profile_config(label, configs[label], smi)
+        profile_config(label, configs[label], kinds[label], smi)
 
 
 if __name__ == "__main__":

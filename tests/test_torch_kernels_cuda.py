@@ -199,13 +199,15 @@ def test_memory_project_kernel(cuda, dtype, normalize):
 
 
 @pytest.mark.parametrize("bank_rows", ["ragged", "short"])
-@pytest.mark.parametrize("b", [1, 8, 11])
+@pytest.mark.parametrize("b", [1, 8, 11, 48, 80, 125, 128])
 @pytest.mark.parametrize("d", [128, 768, 1536])
 def test_memory_project_bf16_kernel(cuda, d, b, bank_rows):
     # D's tensor-core body. "ragged": 5003 real rows (a multiple of neither
     # the 16-row tile nor a block's range) and a zero tail of 125 rows
     # masked by num_real; "short": 37 rows, fewer than the grid's blocks, so
-    # most ranges are empty. 11 features: a second batch tile of 3.
+    # most ranges are empty. 11 features: a second batch tile of 3; 48, 80
+    # and 128: a served box batch of 3, 5 and 8 images x 16 boxes, 6 to 16
+    # batch tiles; 125: a ragged last tile.
     gen = torch.Generator(device="cuda").manual_seed(13)
     n = 5003 if bank_rows == "ragged" else 37
     real = mp.prepare_bank(torch.randn(n, d, generator=gen, device="cuda"),
@@ -315,7 +317,7 @@ def test_memory_project_int8_kernel(cuda, d, normalize):
 
 
 @pytest.mark.parametrize("bank_rows", ["ragged", "short"])
-@pytest.mark.parametrize("b", [1, 8, 11])
+@pytest.mark.parametrize("b", [1, 8, 11, 48, 80, 125, 128])
 @pytest.mark.parametrize("d", [128, 768, 1536])
 def test_memory_project_int8_tc_kernel(cuda, d, b, bank_rows):
     # H's tensor-core body, as the bf16 test above: 5003 real int8 rows and

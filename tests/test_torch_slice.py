@@ -176,9 +176,17 @@ m = Patchioner.from_config(cfg, allow_missing_weights=True, device="cpu")
 caps = m.caption_traces_fused(np.zeros((2, 28, 28, 3), np.uint8),
                               np.full((2, 4, 2), 0.5, np.float32), np.ones((2, 4), np.float32))
 assert len(caps) == 2
+boxes = np.asarray([[[0, 0, 14, 14], [-1, -1, -1, -1]]] * 2, np.float32)
+assert len(m.caption_bboxes_fused(np.zeros((2, 28, 28, 3), np.uint8), boxes)) == 2
+assert len(m.caption_region_sets_fused(np.zeros((2, 28, 28, 3), np.uint8), boxes)) == 2
+assert len(m.caption_images_fused(np.zeros((2, 28, 28, 3), np.uint8),
+                                  caption_from="avg_self_attn")) == 2
 with CaptionServer(m, max_batch=2) as server:
+    server.warmup(cls=True, bbox=True, region_set=True)
     assert all(isinstance(c, str) for c in server.caption(
         np.zeros((3, 28, 28, 3), np.uint8), [[(0.5, 0.5)]] * 3, timeout=60))
+    assert len(server.submit(np.zeros((28, 28, 3), np.uint8),
+                             bboxes=[(0, 0, 0.5, 0.5)] * 3).result(timeout=60)) == 3
 print("jax loaded:", any(k == "jax" or k.startswith("jax.") for k in sys.modules))
 print("reference loaded:", sorted(k for k in sys.modules if k.split(".")[0] == "patchioner_tpu"))
 """
