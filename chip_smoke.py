@@ -37,7 +37,10 @@ then exits non-zero without the final result line:
    No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
-   bfloat16; the kernels' launch counters prove the path ran through them;
+   bfloat16; the kernels' launch counters prove the path ran through them,
+   and the decoder's counters that every served batch replayed a CUDA
+   graph of the decode, none captured after the server's `warmup()` (in
+   every served phase below as well);
 4b. the same for each further attention configuration of the encoder
    (`proj_fused`, `fusedqkv_proj`, `flash`, `flash1p`, `flash_builtin`):
    one batch of 8 served, the launch counters of its kernels asserted;
@@ -54,7 +57,13 @@ then exits non-zero without the final result line:
    requests, 8 box requests of 1-16 boxes (padded to 16: 128 rows through
    the projection and the decode) and 8 region-set requests, each kind one
    batch through the `CaptionServer`, A, B and C 12 launches and D one
-   asserted for each; the box batch's prefix and decode timed apart;
+   asserted for each; the box batch's prefix and decode (graph and eager)
+   timed apart;
+4f. decode graph vs eager: the flagship's decoder weights in bfloat16 and
+   in float32, at 8 and 128 rows, as a replayed CUDA graph and as the
+   eager loop on the same prefixes: tokens equal, scores within
+   `SCORE_TOLERANCE`, and a clean batch after one with NaN rows still
+   equal; each decode's time, launches a step and the graphs' memory;
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
    drawn near 1 so that the kernels move the residual stream, for the
@@ -115,6 +124,11 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant",
                "memory_project_int8_giant", "memory_project_128", "memory_project_int8_128"}
 W8_F32_TOLERANCE = 1e-3
+# The decode graph replays the very launches of the eager loop, so its
+# scores should equal the loop's; any difference is a bug, and these
+# bounds (relative) only leave room for what a different cuBLAS choice
+# between the two could move.
+SCORE_TOLERANCE = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
 
 B, IMG, N, D, HEADS = 8, 518, 1374, 768, 12
 HD = D // HEADS
@@ -545,18 +559,35 @@ def build_model(config: dict, seed: int, tag: str):
     return model
 
 
-def _serve(model, requests: list, tag: str) -> tuple[list, dict, int, float, dict]:
-    """Serve (image, submit keywords) requests through a new server after
-    zeroing every launch counter, and assert the counts; (results, the
-    server's snapshot, batches, wall s, launch counts)."""
+def _check_graphs(decoder, before: tuple, batches: int, tag: str) -> None:
+    """The decoder replayed its CUDA graph at least once a served batch and
+    captured none: `before` is its (captures, replays) before serving."""
+    captured, replayed = decoder.captures - before[0], decoder.replays - before[1]
+    log(f"{tag} decode graphs: {replayed} replays and {captured} captures for "
+        f"{batches} served batches ({decoder.captures} graphs in all)")
+    if captured or replayed < batches:
+        raise AssertionError(f"{tag} the served batches did not all replay a captured "
+                             f"decode graph: {captured} captures, {replayed} replays")
+
+
+def _serve(model, requests: list, tag: str,
+           kind: str = "trace") -> tuple[list, dict, int, float, dict]:
+    """Serve (image, submit keywords) requests of one kind through a new
+    server: its `warmup()` of every bucket first, then every launch counter
+    zeroed; assert the counts, and that each batch replayed a decode graph
+    that warm-up had captured; (results, the server's snapshot, batches,
+    wall s, launch counts)."""
     from patchioner_tpu_torch.serve import CaptionServer
 
     wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
     with CaptionServer(model, max_batch=B, max_delay_ms=200.0,
                        max_boxes=MAX_BOXES) as server:
+        server.warmup(trace=kind == "trace", cls=kind == "cls", bbox=kind == "bbox",
+                      region_set=kind == "region_set", pixel_dtype=np.uint8)
+        for fn in wrappers.values():
+            fn.launches = 0
+        graphs = model.decode.captures, model.decode.replays
+        t0 = time.perf_counter()
         futures = [server.submit(im, **kw) for im, kw in requests]
         results = [f.result(timeout=900) for f in futures]
         wall = time.perf_counter() - t0
@@ -568,6 +599,7 @@ def _serve(model, requests: list, tag: str) -> tuple[list, dict, int, float, dic
         f"launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
+    _check_graphs(model.decode, graphs, batches, tag)
     return results, snap, batches, wall, counts
 
 
@@ -641,9 +673,12 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
                 if use_warmup:
                     server.warmup(buckets=[B], pixel_dtype=np.uint8)
                 warm_s = time.perf_counter() - t0
+                graphs = model.decode.captures, model.decode.replays
                 futures = [server.submit(im, tr) for im, tr in zip(imgs[:B], traces[:B])]
                 warm_caps = [f.result(timeout=900) for f in futures]
                 warm_snap = server.snapshot()
+            if use_warmup:
+                _check_graphs(model.decode, graphs, warm_snap["batches"], tag)
             if not all(isinstance(c, str) for c in warm_caps):
                 raise AssertionError("a request of a new server did not resolve to a caption")
             what = f"after warmup() ({warm_s:.3f} s)" if use_warmup else "without warmup()"
@@ -705,7 +740,8 @@ def phase_other_queries(model, seed: int, smi: str) -> dict:
         t0 = time.perf_counter()
         call()  # first call, outside the counted run
         first_ms = (time.perf_counter() - t0) * 1e3
-        results, snap, batches, wall, launches[kind] = _serve(model, requests[kind], tag)
+        results, snap, batches, wall, launches[kind] = _serve(model, requests[kind], tag,
+                                                              kind)
         for (_, kw), res in zip(requests[kind], results):
             want = len(kw["bboxes"]) if kind == "bbox" else None
             if (not isinstance(res, str) if want is None else
@@ -739,13 +775,104 @@ def phase_other_queries(model, seed: int, smi: str) -> dict:
                              f"max |norm - 1| {norm_err:.2e}")
 
     prefix_ms = _host_ms(lambda: step(model.state(), px, boxes))
-    decode_ms = _host_ms(lambda: decap.greedy_decode(model.decoder, prefix, model.gpt2_cfg))
-    decode8_ms = _host_ms(lambda: decap.greedy_decode(model.decoder, prefix[:B], model.gpt2_cfg))
+    decode_ms = {(how, rows): _host_ms(lambda: fn(prefix[:rows]))
+                 for how, fn in (("graph", model.decode), ("eager", lambda p: decap.greedy_decode(
+                     model.decoder, p, model.gpt2_cfg)))
+                 for rows in (B * MAX_BOXES, B)}
     log(f"[queries bbox] prefix {tuple(prefix.shape)}, max |norm - 1| {norm_err:.2e}; "
         f"encoder + pool + projection {prefix_ms:.1f} ms, decode of {B * MAX_BOXES} rows "
-        f"{decode_ms:.1f} ms, of {B} rows {decode8_ms:.1f} ms (host clock, median of 3); "
-        f"{smi}")
+        f"{decode_ms['graph', B * MAX_BOXES]:.1f} ms as a graph "
+        f"({decode_ms['eager', B * MAX_BOXES]:.1f} eager), of {B} rows "
+        f"{decode_ms['graph', B]:.1f} ms ({decode_ms['eager', B]:.1f} eager) "
+        f"(host clock, median of 3); {smi}")
     return launches
+
+
+def _kernel_count(fn) -> tuple[int, float]:
+    """(CUDA kernels launched, their device ms) in one call of fn(), by
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def phase_decode_graph(model, seed: int, smi: str) -> None:
+    """The decode as one CUDA graph against the eager loop (its plain
+    version, `decap.greedy_decode`) on the same prefixes, on the flagship's
+    decoder weights in bf16 and in f32, at B and at a box batch's B * 16
+    rows: tokens equal, scores within SCORE_TOLERANCE relative; then a
+    batch with NaN rows and after it a clean batch, whose tokens must still
+    be the eager loop's. Each decoder here is new, so that the memory of
+    its graphs shows. With the DeCap init's wte (std 0.02) the logits are
+    near uniform and 30 steps' scores underflow to 0; wte is scaled by 10
+    here so that the scores are compared as numbers."""
+    from patchioner_tpu_torch.models import decap
+
+    master = model.decoder
+    sharp = master._replace(gpt2=dict(master.gpt2, wte=master.gpt2["wte"] * 10))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    width = master.clip_project["w"].shape[0]
+
+    def prefixes(rows):
+        return torch.nn.functional.normalize(
+            torch.randn(rows, width, generator=gen, device="cuda"), dim=-1)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(model.gpt2_cfg, dtype=dtype)
+        tag = f"[decode graph {str(dtype)[6:]}]"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        decoder = decap.GreedyDecoder(sharp, cfg, model.entry_length)
+        weights = torch.cuda.memory_reserved() - reserved
+        for rows in (B, B * MAX_BOXES):
+            clean, later = prefixes(rows), prefixes(rows)
+            tokens, scores = decoder(clean)
+            torch.cuda.empty_cache()
+            want_tokens, want_scores = decap.greedy_decode(sharp, clean, cfg)
+            nan = clean.clone()
+            nan[::3] = float("nan")
+            nan_tokens, _ = decoder(nan)
+            later_tokens, _ = decoder(later)
+            nan_same = torch.equal(nan_tokens, decap.greedy_decode(sharp, nan, cfg)[0])
+            later_same = torch.equal(later_tokens, decap.greedy_decode(sharp, later, cfg)[0])
+            score_err = ((scores - want_scores).abs()
+                         / want_scores.abs().clamp_min(1e-30)).max().item()
+            graph_ms = cuda_ms(lambda: decoder(clean))
+            eager_ms = cuda_ms(lambda: decap.greedy_decode(sharp, clean, cfg))
+            graph_kernels, graph_device_ms = _kernel_count(lambda: decoder(clean))
+            eager_kernels, _ = _kernel_count(
+                lambda: decap._decode(decoder.params, clean, cfg, decoder.n_steps))
+            steps = decoder.n_steps
+            log(f"{tag} {rows} rows: tokens equal {torch.equal(tokens, want_tokens)}, "
+                f"scores > 0: {int((want_scores > 0).sum())}/{rows}, max rel score error "
+                f"{score_err:.3e} (tol {SCORE_TOLERANCE[dtype]:.0e}); after a batch with "
+                f"{int(nan.isnan().any(1).sum())} NaN rows (their tokens equal eager's: "
+                f"{nan_same}) a clean batch's tokens equal eager's: {later_same}")
+            log(f"{tag} {rows} rows: graph {graph_ms:.3f} ms, eager {eager_ms:.3f} ms "
+                f"(CUDA events, median of 10); the graph's kernels {graph_device_ms:.3f} ms "
+                f"of device time; {eager_kernels / steps:.1f} launches a step eager, "
+                f"{graph_kernels / steps:.1f} kernels a step in the graph; "
+                f"{decoder.captures} graphs, {decoder.replays} replays; {smi}")
+            if not (torch.equal(tokens, want_tokens) and later_same
+                    and score_err <= SCORE_TOLERANCE[dtype]):
+                raise AssertionError(f"{tag} {rows} rows: the graph's decode differs "
+                                     "from the eager loop's")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"{tag} {decoder.captures} graphs (rows {B} and {B * MAX_BOXES}) hold "
+            f"{(torch.cuda.memory_reserved() - reserved - weights) / 2**20:.1f} MiB, "
+            f"the cast weights {weights / 2**20:.1f} MiB")
+        del decoder
+    del sharp
+    torch.cuda.empty_cache()
 
 
 def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str = "f32",
@@ -756,7 +883,6 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
     (`avg_self_attn`); then, for each of `configs`, the trace prefix
     against the `fusedqkv` one on the card."""
     from patchioner_tpu_torch import entry
-    from patchioner_tpu_torch.models import decap
     from patchioner_tpu_torch.models.patchioner import Patchioner
 
     gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
@@ -793,8 +919,8 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
     on_card = prefix(gpu, gpu.vit_cfg)
     ref = prefix(cpu, cpu.vit_cfg)
     gate(on_card.cpu(), ref, "card vs CPU")
-    tok_gpu, _ = decap.greedy_decode(gpu.decoder, on_card, gpu.gpt2_cfg)
-    tok_cpu, _ = decap.greedy_decode(cpu.decoder, ref, cpu.gpt2_cfg)
+    tok_gpu, _ = gpu.decode(on_card)
+    tok_cpu, _ = cpu.decode(ref)
     agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
     log(f"[{label}] caption-token agreement card vs CPU (reported, not asserted): "
         f"{agree:.4f}")
@@ -844,6 +970,7 @@ def main() -> None:
     # phase 4e: the other spatial queries on the same model; each kind's
     # launches were asserted batch by batch, the table keeps the trace run's
     phase_other_queries(flagship, args.seed, smi)
+    phase_decode_graph(flagship, args.seed, smi)
     del flagship
     torch.cuda.empty_cache()
     # phase 4b: the kernel each further configuration adds is read from its

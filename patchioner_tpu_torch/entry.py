@@ -10,9 +10,10 @@ box set or the whole image through the `make_*_pool` builders) ->
 support-memory projection (kernel D, or H over an int8 bank) ->
 [Talk2DINO inversion] -> 30-step greedy DeCap decode. Every pool shares
 the projection and the decode. The device of the state and inputs decides
-where it runs: on CUDA tensors every kernel launches, on CPU tensors their
-plain versions run. `Patchioner` builds its fused caption paths from these
-same functions.
+where it runs: on CUDA tensors every kernel launches and a state's
+`decap.GreedyDecoder` replays its CUDA graph of the decode, on CPU tensors
+the plain versions and the eager loop run. `Patchioner` builds its fused
+caption paths from these same functions.
 """
 
 from __future__ import annotations
@@ -159,21 +160,32 @@ def make_prefix_step(vit_cfg: vit.ViTConfig, bank_num_real: int, *,
 def make_caption_step(vit_cfg: vit.ViTConfig, gcfg, bank_num_real: int, *,
                       n_steps: int = decap.ENTRY_LENGTH, **prefix_kw):
     """`caption_step(state, pixels, *pool_args) -> (tokens, scores)`; the
-    keywords of `make_prefix_step` choose the pool."""
+    keywords of `make_prefix_step` choose the pool. The decode is the
+    state's `GreedyDecoder` (`state["decode"]`, of the same config and
+    steps) when it has one, else `decap.greedy_decode` of its decoder."""
     prefix_step = make_prefix_step(vit_cfg, bank_num_real, **prefix_kw)
 
     def caption_step(state, pixels, *pool_args):
         prefix = prefix_step(state, pixels, *pool_args)
-        return decap.greedy_decode(state["decoder"], prefix, gcfg, n_steps)
+        decode = state.get("decode")
+        if decode is None:
+            return decap.greedy_decode(state["decoder"], prefix, gcfg, n_steps)
+        if decode.cfg != gcfg or decode.n_steps != n_steps:
+            raise ValueError(f"the state's decoder runs {decode.n_steps} steps of "
+                             f"{decode.cfg}, the step {n_steps} of {gcfg}")
+        return decode(prefix)
 
     return caption_step
 
 
 def make_state(vit_params: dict, decoder: decap.DecapParams, bank,
-               inversion=None) -> dict:
-    """The step's state; a `QuantizedBank` adds its per-row `bank_scale`."""
+               inversion=None, decode: decap.GreedyDecoder | None = None) -> dict:
+    """The step's state; a `QuantizedBank` adds its per-row `bank_scale`,
+    and `decode` the decoder object the caption step decodes with."""
     state = {"vit": vit_params, "decoder": decoder,
              "bank_rows": bank.rows, "bank_inv": bank.inv_norm}
+    if decode is not None:
+        state["decode"] = decode
     if isinstance(bank, memproj.QuantizedBank):
         state["bank_scale"] = bank.scale
     if inversion is not None:

@@ -7,7 +7,9 @@ trace), `caption_bboxes_fused` (a caption per box),
 (a caption per box set), `patch_size`, `crop_dim` and `resize_dim` — the
 surface the caption server (`patchioner_tpu_torch.serve`, twin of
 `patchioner_tpu/serve.py`) drives. Each path is `entry.make_caption_step`
-with its own pool; all share the encoder, the projection and the decode.
+with its own pool; all share the encoder, the projection and the decode,
+which the model's `decap.GreedyDecoder` (`decode`) runs: on the card one
+CUDA graph a batch's row count.
 `Patchioner.forward` and its flag surface are not ported.
 
 `from_config` takes the reference YAML schema (a path or a dict), with
@@ -130,8 +132,11 @@ class Patchioner:
         self.gpt2_cfg = gpt2_cfg
         self.device = entry.resolve_device(device)
         self.vit_params = vit.cast_params(vit_params, vit_cfg.dtype, self.device)
+        # the f32 master, which `to()` copies; `decode` holds the weights
+        # cast to the decoder's type and its CUDA graphs
         self.decoder = decap.DecapParams(
             *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
+        self.decode = decap.GreedyDecoder(self.decoder, gpt2_cfg, entry_length)
         # a PreparedBank, or a QuantizedBank (int8 rows, per-row scales)
         self.bank = type(bank)(*(t.to(self.device).contiguous() for t in bank[:-1]),
                                int(bank.num_real))
@@ -232,7 +237,7 @@ class Patchioner:
 
     def state(self) -> dict:
         return entry.make_state(self.vit_params, self.decoder, self.bank,
-                                self.inversion)
+                                self.inversion, decode=self.decode)
 
     def pixels_to_device(self, imgs) -> torch.Tensor:
         """NHWC or NCHW uint8 / normalised float images -> normalised f32

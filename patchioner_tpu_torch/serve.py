@@ -14,7 +14,9 @@ depend on its neighbours in the batch.
 
 `warmup` runs dummy batches of each bucket before traffic arrives, on the
 worker thread: CUDA libraries keep some state per host thread, which a
-warm-up on the caller's thread would leave cold. Serving over several
+warm-up on the caller's thread would leave cold, and the model's decoder
+captures its CUDA graph for each bucket's row count there, so that no
+served batch pays a capture. Serving over several
 devices (`mesh`) and several worker threads (`workers`) is not ported.
 """
 
@@ -235,12 +237,16 @@ class CaptionServer:
 
     def snapshot(self) -> dict:
         """JSON-ready telemetry. Latency percentiles cover the last 2048
-        requests, enqueue to future resolved."""
+        requests, enqueue to future resolved. A model with a graph decoder
+        (`decode`) adds its CUDA graph captures and replays."""
+        decode = getattr(self.model, "decode", None)
+        graphs = ({} if decode is None else
+                  {"decode_captures": decode.captures, "decode_replays": decode.replays})
         with self._stats_lock:
             s = self.stats
             recent = sorted(s.recent_latency_s)
             done = s.completed
-            return {
+            return graphs | {
                 "uptime_s": round(time.perf_counter() - self._t0, 3),
                 "requests": s.requests, "completed": done,
                 "rejected": s.rejected, "errors": s.errors,

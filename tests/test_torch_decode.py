@@ -47,3 +47,67 @@ def test_greedy_decode_is_token_exact_with_jax(seed):
     assert tok.shape == (4, decap.ENTRY_LENGTH)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
     np.testing.assert_allclose(score.numpy(), np.asarray(jscore), rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_greedy_decoder_is_token_exact_with_the_eager_loop_and_jax(seed):
+    jparams, params = _decoder(seed)
+    prefix = np.random.default_rng(seed + 2).standard_normal((5, 96)).astype(np.float32)
+    cfg = gpt2.GPT2Config(**GEOM)
+    jtok, jscore = jdecap.greedy_decode(jparams, jnp.asarray(prefix),
+                                        jgpt2.GPT2Config(**GEOM))
+    eager = decap.greedy_decode(params, torch.from_numpy(prefix), cfg)
+    tok, score = decap.GreedyDecoder(params, cfg)(torch.from_numpy(prefix))
+    # on CPU tensors the object runs the eager loop: the same bits
+    torch.testing.assert_close((tok, score), eager, rtol=0, atol=0)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore), rtol=1e-4)
+
+
+def test_greedy_decoder_casts_its_weights_once(monkeypatch):
+    from patchioner_tpu_torch.models import vit
+
+    _, params = _decoder(2)
+    cfg = gpt2.GPT2Config(**GEOM, dtype=torch.bfloat16)
+    decoder = decap.GreedyDecoder(params, cfg, n_steps=6)
+    leaves = [decoder.params.gpt2["wte"], decoder.params.gpt2["wpe"],
+              *(t for blk in decoder.params.gpt2["blocks"] for p in blk.values()
+                for t in ([p["scale"], p["bias"]] if "scale" in p else
+                          [q[k] for q in p.values() for k in ("w", "b")]))]
+    assert len(leaves) == 2 + GEOM["n_layer"] * 12
+    assert all(t.dtype == torch.bfloat16 for t in leaves)
+    assert decoder.params.clip_project["w"].dtype == torch.float32
+    prefix = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((2, 96)).astype(np.float32))
+    want = decap.greedy_decode(params, prefix, cfg, 6)
+
+    def no_cast(*args, **kw):
+        raise AssertionError("the decoder cast its weights again")
+
+    monkeypatch.setattr(vit, "cast_params", no_cast)
+    for _ in range(2):
+        torch.testing.assert_close(decoder(prefix), want, rtol=0, atol=0)
+    assert (decoder.captures, decoder.replays) == (0, 0)  # no graph on the CPU
+
+
+def test_caption_step_decodes_alike_with_and_without_the_decoder_object():
+    from patchioner_tpu_torch import entry
+    from patchioner_tpu_torch.models import vit
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    vcfg = vit.ViTConfig(img_size=56, embed_dim=96, depth=1, num_heads=2,
+                         num_registers=4, extract_heads=4, pos_grid=4)
+    cfg = gpt2.GPT2Config(**GEOM)
+    gen = torch.Generator().manual_seed(3)
+    _, params = _decoder(3)
+    state = entry.make_state(vit.init_vit(vcfg, gen), params,
+                             mp.prepare_bank(torch.randn(64, 96, generator=gen)))
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=8, seed=4, device="cpu")
+    step = entry.make_caption_step(vcfg, cfg, 64)
+    want = step(state, *inputs)
+    decoder = decap.GreedyDecoder(params, cfg)
+    got = step(dict(state, decode=decoder), *inputs)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="steps"):
+        entry.make_caption_step(vcfg, cfg, 64, n_steps=5)(dict(state, decode=decoder),
+                                                          *inputs)

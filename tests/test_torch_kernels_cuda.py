@@ -13,7 +13,15 @@ boundaries (2^-8 relative each). The W8A8 MLP (I) takes 1e-3 at float32:
 an f32 difference of one ulp in LN(x) or GELU can move an activation
 across a rounding boundary of its int8 quantization, which moves an
 output by about amax / 127 * |w|.
+
+The DeCap decode's CUDA graph (`decap.GreedyDecoder`) is held against the
+eager loop, its plain version: the graph replays the loop's own launches,
+so the tokens must be equal and the scores within 1e-6 (f32) and 1e-3
+(bf16) relative.
 """
+
+import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -466,3 +474,110 @@ def test_giant_and_int8_bank_slices_on_the_card_match_the_cpu(cuda, kind):
     added = [w.launches - c for w, c in zip(wrappers, counts)]
     assert added == ([2, 0, 0, 1] if swiglu else [0, 2, 1, 0])
     assert np.max(np.abs((got - ref).numpy())) <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def _sharp_decoder(dtype, seed):
+    """The DeCap decoder at full width, seeded, with wte scaled by 10: at the
+    init's std of 0.02 the logits are near uniform and 30 steps' scores
+    underflow to 0; sharper logits leave them numbers to compare."""
+    cfg = dataclasses.replace(gpt2.DECAP_DECODER_CONFIG, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = decap.init_decap(gpt2.DECAP_DECODER_CONFIG, 768, gen, "cuda")
+    params.gpt2["wte"] *= 10
+    return params, cfg, gen
+
+
+def _unit_prefix(gen, rows):
+    return torch.nn.functional.normalize(
+        torch.randn(rows, 768, generator=gen, device="cuda"), dim=-1)
+
+
+# the graph replays the eager loop's launches: tokens equal, scores within
+SCORE_RTOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [1, 8, 128])
+def test_decode_graph_equals_the_eager_loop(cuda, dtype, rows):
+    params, cfg, gen = _sharp_decoder(dtype, 20)
+    decoder = decap.GreedyDecoder(params, cfg)
+    for call in range(2):  # a capture, then a replay of the same graph
+        prefix = _unit_prefix(gen, rows)
+        tokens, scores = decoder(prefix)
+        want_tokens, want_scores = decap.greedy_decode(params, prefix, cfg)
+        assert (decoder.captures, decoder.replays) == (1, call + 1)
+        assert torch.equal(tokens, want_tokens)
+        assert (want_scores > 0).all()
+        torch.testing.assert_close(scores, want_scores, rtol=SCORE_RTOL[dtype], atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_graph_after_a_nan_batch(cuda, dtype):
+    # the KV cache is zeroed inside the graph: a NaN row of one batch (a
+    # `[-1] * 4` box gives a NaN prefix) must not reach the next batch
+    params, cfg, gen = _sharp_decoder(dtype, 21)
+    decoder = decap.GreedyDecoder(params, cfg)
+    nan = _unit_prefix(gen, 8)
+    nan[::3] = float("nan")
+    decoder(nan)
+    clean = _unit_prefix(gen, 8)
+    tokens, scores = decoder(clean)
+    want_tokens, want_scores = decap.greedy_decode(params, clean, cfg)
+    assert decoder.captures == 1 and torch.equal(tokens, want_tokens)
+    torch.testing.assert_close(scores, want_scores, rtol=SCORE_RTOL[dtype], atol=0)
+
+
+def test_decode_graph_keys_on_the_tf32_setting(cuda):
+    params, cfg, gen = _sharp_decoder(torch.float32, 22)
+    decoder = decap.GreedyDecoder(params, cfg)
+    prefix = _unit_prefix(gen, 4)
+    decoder(prefix)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tokens, _ = decoder(prefix)
+        want, _ = decap.greedy_decode(params, prefix, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert decoder.captures == 2 and torch.equal(tokens, want)
+
+
+def test_two_servers_on_two_threads_share_the_decode_graphs(cuda):
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+    from patchioner_tpu_torch.serve import CaptionServer
+
+    config = {"dino_model": "dinov2_vitb14_reg", "crop_dim": 56, "prefix_size": 128,
+              "support_memory_size": 200, "normalize": True,
+              "dino_geometry": {"embed_dim": 128, "depth": 2, "num_heads": 2,
+                                "extract_heads": 4, "pos_grid": 4},
+              "decap_arch": {"n_layer": 2, "n_embd": 128, "n_head": 4}}
+    model = Patchioner.from_config(config, allow_missing_weights=True, device="cuda")
+    rng = np.random.default_rng(23)
+    imgs = rng.integers(0, 256, (2, 4, 56, 56, 3), dtype=np.uint8)
+    traces = [[rng.uniform(0, 1, (6, 2)).tolist() for _ in range(4)] for _ in range(2)]
+    servers = [CaptionServer(model, max_batch=4, max_delay_ms=200.0) for _ in range(2)]
+    try:
+        for server in servers:  # the first captures on its worker, the second replays
+            server.warmup(buckets=[4], pixel_dtype=np.uint8)
+        assert model.decode.captures == 1
+        results = [None, None]
+
+        def client(i):
+            results[i] = servers[i].caption(list(imgs[i]), traces[i], timeout=300)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        snaps = [server.snapshot() for server in servers]
+    finally:
+        for server in servers:
+            server.close()
+    assert model.decode.captures == 1
+    assert snaps[0]["decode_replays"] == model.decode.replays >= 2 + 2
+    for i in range(2):
+        pts = np.zeros((4, 64, 2), np.float32)
+        valid = np.zeros((4, 64), np.float32)
+        pts[:, :6], valid[:, :6] = np.asarray(traces[i]), 1.0
+        assert results[i] == model.caption_traces_fused(imgs[i], pts, valid)
