@@ -73,7 +73,20 @@ then exits non-zero without the final result line:
    weights and the whole-image `avg_self_attn` path;
 5b. the same gate between each further attention configuration's prefix
    and the `fusedqkv` one's, both on the card: the flagship's, and giant's
-   `fusedqkv_proj`.
+   `fusedqkv_proj`;
+6. loaded checkpoints: the flagship's weights at full width, seeded,
+   written with `torch.save` in the published layouts (a torch.hub DINOv2
+   ViT-B/14-reg and a DeCap decoder) into a temporary directory, loaded
+   through `Patchioner.from_config` in bf16 on the card, the seconds spent
+   reading, porting and uploading printed; 8 trace requests served after
+   the server's `warmup()`, A-D's launches and the decode graphs'
+   replays asserted, the first batch's latency printed; then the f32
+   prefix of the model loaded on the card against the same files loaded
+   on the CPU, under the gate of phase 5: plain, with a Talk2DINO file
+   (512 -> 768) and a DeCap file whose prefix linear takes 512 under
+   `prefix_size: 512`, so that the inversion runs on the card, and on the
+   int8 bank (H). No bank file is read (the card's machine has no h5py):
+   the bank is drawn at random at the config's size.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -86,9 +99,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -875,6 +890,17 @@ def phase_decode_graph(model, seed: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _gate(label: str, got: torch.Tensor, ref: torch.Tensor, what: str) -> None:
+    """The f32 prefix gate: max|got - ref| <= 1e-4 * max(1, max|ref|)."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"f32 prefix {what}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    log(f"[{label}] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"f32 prefix {what} differs: {err:.3e} > {tol:.3e}")
+
+
 def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str = "f32",
                          configs: dict = None, queries: bool = False) -> None:
     """The f32 prefix of `config` on the card against the CPU; with
@@ -909,16 +935,9 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
             f"proj_fused={vit_cfg.proj_fused}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    def gate(got, ref, what):
-        err = (got - ref).abs().max().item()
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
-        log(f"[{label}] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"f32 prefix {what} differs: {err:.3e} > {tol:.3e}")
-
     on_card = prefix(gpu, gpu.vit_cfg)
     ref = prefix(cpu, cpu.vit_cfg)
-    gate(on_card.cpu(), ref, "card vs CPU")
+    _gate(label, on_card.cpu(), ref, "card vs CPU")
     tok_gpu, _ = gpu.decode(on_card)
     tok_cpu, _ = cpu.decode(ref)
     agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
@@ -935,17 +954,185 @@ def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str =
                 ("avg_self_attn", entry.make_image_pool("avg_self_attn"), ())):
             on_card = prefix(gpu, gpu.vit_cfg, what, pool, args)
             cpu = gpu.to("cpu")
-            gate(on_card.cpu(), prefix(cpu, cpu.vit_cfg, what, pool, args),
-                 f"{what} card vs CPU")
+            _gate(label, on_card.cpu(), prefix(cpu, cpu.vit_cfg, what, pool, args),
+                  f"{what} card vs CPU")
             del cpu
     # phase 5b: each further attention configuration against fusedqkv's
     fusedqkv = dataclasses.replace(gpu.vit_cfg, attn_impl="fusedqkv")
     base = prefix(gpu, fusedqkv) if configs else None
     for name, opts in (configs or {}).items():
-        gate(prefix(gpu, dataclasses.replace(fusedqkv, **opts)), base,
-             f"{name} vs fusedqkv on the card")
+        _gate(label, prefix(gpu, dataclasses.replace(fusedqkv, **opts)), base,
+              f"{name} vs fusedqkv on the card")
     del gpu
     torch.cuda.empty_cache()
+
+
+def _cpu(sd: dict) -> dict:
+    """A state dict of contiguous f32 CPU tensors, each with a storage of its
+    own, as `torch.save` should write it."""
+    return {k: v.detach().to("cpu", torch.float32).clone(memory_format=torch.contiguous_format)
+            for k, v in sd.items()}
+
+
+def hub_state_dict(tree: dict) -> dict:
+    """A port ViT tree as a torch.hub DINOv2 state dict, the inverse of
+    `io.torch_port.port_dinov2`: an `nn.Linear` weight is (out, in), the
+    patch conv (D, 3, P, P)."""
+    d = tree["cls_token"].shape[-1]
+    p = int(round((tree["patch_embed"]["w"].shape[0] // 3) ** 0.5))
+    sd = {"cls_token": tree["cls_token"], "pos_embed": tree["pos_embed"],
+          "patch_embed.proj.weight": tree["patch_embed"]["w"].reshape(p, p, 3, d)
+          .permute(3, 2, 0, 1),
+          "patch_embed.proj.bias": tree["patch_embed"]["b"],
+          "norm.weight": tree["norm"]["scale"], "norm.bias": tree["norm"]["bias"]}
+    if "register_tokens" in tree:
+        sd["register_tokens"] = tree["register_tokens"]
+    linears = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+               "w12": "mlp.w12", "w3": "mlp.w3"}
+    for i, blk in enumerate(tree["blocks"]):
+        for key in ("norm1", "norm2"):
+            sd[f"blocks.{i}.{key}.weight"] = blk[key]["scale"]
+            sd[f"blocks.{i}.{key}.bias"] = blk[key]["bias"]
+        for key, name in linears.items():
+            if key in blk:
+                sd[f"blocks.{i}.{name}.weight"] = blk[key]["w"].t()
+                sd[f"blocks.{i}.{name}.bias"] = blk[key]["b"]
+        for key in ("ls1", "ls2"):
+            if key in blk:
+                sd[f"blocks.{i}.{key}.gamma"] = blk[key]
+    return _cpu(sd)
+
+
+def decap_state_dict(params) -> dict:
+    """Port DecapParams as a DeCap checkpoint, the inverse of
+    `io.torch_port.port_decap`: the GPT-2 under decoder.transformer.*
+    (Conv1D weights stay (in, out)), the prefix linear under
+    clip_project.model.0 as an `nn.Linear`."""
+    g, t = params.gpt2, "decoder.transformer"
+    sd = {f"{t}.wte.weight": g["wte"], f"{t}.wpe.weight": g["wpe"],
+          f"{t}.ln_f.weight": g["ln_f"]["scale"], f"{t}.ln_f.bias": g["ln_f"]["bias"],
+          "clip_project.model.0.weight": params.clip_project["w"].t(),
+          "clip_project.model.0.bias": params.clip_project["b"]}
+    for i, blk in enumerate(g["blocks"]):
+        for key in ("ln_1", "ln_2"):
+            sd[f"{t}.h.{i}.{key}.weight"] = blk[key]["scale"]
+            sd[f"{t}.h.{i}.{key}.bias"] = blk[key]["bias"]
+        for part in ("attn", "mlp"):
+            for key, dense in blk[part].items():
+                sd[f"{t}.h.{i}.{part}.{key}.weight"] = dense["w"]
+                sd[f"{t}.h.{i}.{part}.{key}.bias"] = dense["b"]
+    return _cpu(sd)
+
+
+def talk2dino_state_dict(linear: dict) -> dict:
+    """A Talk2DINO ProjectionLayer with no hidden layer: its linear_layer
+    (CLIP -> DINO, {'w': (clip, dino), 'b'}) as an `nn.Linear`."""
+    return _cpu({"linear_layer.weight": linear["w"].t(), "linear_layer.bias": linear["b"]})
+
+
+def write_checkpoints(seed: int, directory: str) -> dict:
+    """The flagship's weights at full width, seeded, written with `torch.save`
+    in the published layouts: a torch.hub DINOv2 ViT-B/14-reg (layerscale
+    drawn near 1, so that the blocks move the residual stream), a DeCap
+    decoder (wte scaled by 10, as phase 4f does, so that 30 steps' scores
+    do not underflow to 0), a second DeCap file whose prefix linear maps
+    CLIP's 512 -> 768, and a Talk2DINO projection 512 -> 768; the paths."""
+    from patchioner_tpu_torch.models import decap, gpt2, vit
+
+    gen = torch.Generator().manual_seed(seed + 8)
+    tree = vit.init_vit(vit.config_for(FLAGSHIP_CONFIG["dino_model"]), gen)
+    for blk in tree["blocks"]:
+        blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, D, generator=gen)
+    dec = decap.init_decap(gpt2.DECAP_DECODER_CONFIG, D, gen)
+    dec.gpt2["wte"] *= 10
+    clip = 512
+    bound = clip ** -0.5
+    dec_clip = dec._replace(clip_project={
+        "w": (torch.rand(clip, D, generator=gen) * 2 - 1) * bound,
+        "b": (torch.rand(D, generator=gen) * 2 - 1) * bound})
+    t2d = {"w": torch.randn(clip, D, generator=gen) * bound,
+           "b": 0.1 * torch.randn(D, generator=gen)}
+    paths = {name: os.path.join(directory, name) for name in (
+        "dinov2_vitb14_reg4_pretrain.pth", "decap.pt", "decap_clip512.pt",
+        "talk2dino.pth")}
+    for name, sd in zip(paths, (hub_state_dict(tree), decap_state_dict(dec),
+                                decap_state_dict(dec_clip), talk2dino_state_dict(t2d))):
+        torch.save(sd, paths[name])
+    return paths
+
+
+def _loaded_f32_gate(config: dict, seed: int, label: str) -> None:
+    """The f32 prefix of a model loaded from `config`'s files on the card
+    against the same files loaded on the CPU, under the gate; the card's
+    projection must be D, or H over an int8 bank."""
+    from patchioner_tpu_torch import entry
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    cpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
+                                 random_bank_size=1, device="cpu")
+    # no bank file on either side (phase 6): the CPU model takes the very
+    # rows the card drew
+    cpu.bank = type(gpu.bank)(*(t.cpu() for t in gpu.bank[:-1]), gpu.bank.num_real)
+    imgs, traces = _requests(2, seed + 9)
+    pts, valid = _padded(traces)
+    wrappers = _wrappers()
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    prefix = {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        step = entry.make_prefix_step(m.vit_cfg, m.bank.num_real, use_attention=True,
+                                      normalize=m.normalize)
+        prefix[where] = step(m.state(), m.pixels_to_device(imgs),
+                             *(torch.from_numpy(a).to(m.device) for a in (pts, valid)))
+    launched = {name: fn.launches - before[name] for name, fn in wrappers.items()}
+    want = expected_launches(config, gpu.vit_cfg.depth, 1)
+    log(f"[{label}] card prefix {tuple(prefix['card'].shape)} (inversion "
+        f"{'on' if gpu.inversion is not None else 'off'}, bank "
+        f"{tuple(gpu.bank.rows.shape)} {str(gpu.bank.rows.dtype)[6:]}); launches {launched}")
+    if launched != want:
+        raise AssertionError(f"[{label}] launches {launched} != {want}")
+    if prefix["card"].shape != (2, int(config["prefix_size"])):
+        raise AssertionError(f"[{label}] prefix shape {tuple(prefix['card'].shape)}")
+    _gate(label, prefix["card"].cpu(), prefix["cpu"], "loaded, card vs CPU")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_loaded(seed: int, smi: str, directory: str) -> None:
+    """Phase 6: the flagship loaded from checkpoint files written into
+    `directory` through `Patchioner.from_config`, served, and held to the
+    CPU in f32. No bank file is read (the card's machine has no h5py; the
+    CPU tests read and write bank files): the bank is drawn at random at
+    the config's size."""
+    t0 = time.perf_counter()
+    paths = write_checkpoints(seed, directory)
+    sizes = ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e9:.3f} GB"
+                      for p in paths.values())
+    log(f"[loaded] wrote {sizes} in {time.perf_counter() - t0:.1f} s")
+    dino, dec, dec_clip, t2d = paths.values()
+    config = dict(FLAGSHIP_CONFIG, dino_weights=dino, decap_weights=dec)
+    model = build_model(config, seed, "[loaded]")
+    secs = model.load_seconds
+    log(f"[loaded] from_config: torch.load {secs['read']:.3f} s, porting "
+        f"{secs['port']:.3f} s, cast and upload {secs['upload']:.3f} s; {smi}")
+    # the first batch any server of this model answers, after its warmup()
+    imgs, traces = _requests(B, seed + 7)
+    captions, snap, batches, wall, _ = _serve(
+        model, [(im, {"trace": tr}) for im, tr in zip(imgs, traces)], "[loaded]")
+    log(f"[loaded] first served batch after warmup(): {batches} batch(es), mean request "
+        f"latency {snap['mean_latency_ms']} ms, {len(captions) / wall:.3f} captions/s; "
+        f"caption 0: {captions[0][:60]!r}; {smi}")
+    # then as the random-weight flagship is served (phase 4)
+    phase_main_path(seed, smi, "loaded", model=model, n_requests=B)
+    del model
+    torch.cuda.empty_cache()
+    _loaded_f32_gate(config, seed, "f32 loaded")
+    _loaded_f32_gate(dict(config, prefix_size=512, decap_weights=dec_clip,
+                          talk2dino_weights=t2d), seed, "f32 loaded talk2dino")
+    _loaded_f32_gate(dict(config, memory_bank_int8=True), seed, "f32 loaded int8_bank")
+    for path in paths.values():
+        os.remove(path)
 
 
 def main() -> None:
@@ -955,22 +1142,38 @@ def main() -> None:
 
     t_start = time.perf_counter()
     name, smi = phase_device()
+    # Every bank here is drawn at random (no bank file is in the repository,
+    # and the card's machine has no h5py to read one): the directory the
+    # config's bank file is looked for in, and that phase 6 writes its
+    # checkpoints to, is a new empty one of this run's.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        os.environ["IM2TXT_MEMORY_PATH"] = scratch
+        kernels = run_phases(args.seed, smi, scratch)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s for the whole run")
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def run_phases(seed: int, smi: str, scratch: str) -> list:
+    """Phases 2-6; the kernels' rows of the JSON summary."""
     phase_build()
     from patchioner_tpu_torch.ops import mlp
 
     mlp.fused_ln_mlp_w8.launches = 0
-    summary = phase_kernels(args.seed)
+    summary = phase_kernels(seed)
     # (count, the run it was read from) for every kernel
     launches = {"ln_mlp_w8": (mlp.fused_ln_mlp_w8.launches,
                               "kernels (no model path reaches I)")}
-    flagship = build_model(FLAGSHIP_CONFIG, args.seed, "[main]")
-    counts, captions = phase_main_path(args.seed, smi, model=flagship)
+    flagship = build_model(FLAGSHIP_CONFIG, seed, "[main]")
+    counts, captions = phase_main_path(seed, smi, model=flagship)
     launches.update({k: (counts[k], "main") for k in (
         "ln_dense", "qkv_attention", "ln_mlp", "memory_project")})
     # phase 4e: the other spatial queries on the same model; each kind's
     # launches were asserted batch by batch, the table keeps the trace run's
-    phase_other_queries(flagship, args.seed, smi)
-    phase_decode_graph(flagship, args.seed, smi)
+    phase_other_queries(flagship, seed, smi)
+    phase_decode_graph(flagship, seed, smi)
     del flagship
     torch.cuda.empty_cache()
     # phase 4b: the kernel each further configuration adds is read from its
@@ -978,7 +1181,7 @@ def main() -> None:
     added = {"proj_fused": "dense_residual", "fusedqkv_proj": "qkv_attention_proj",
              "flash1p": "flash_attention_1pass", "flash": "flash_attention"}
     for label, opts in CONFIGS.items():
-        counts, caps = phase_main_path(args.seed, smi, label, opts, n_requests=B,
+        counts, caps = phase_main_path(seed, smi, label, opts, n_requests=B,
                                        warm=label == "flash_builtin")
         if label in added:
             launches[added[label]] = (counts[added[label]], label)
@@ -987,21 +1190,22 @@ def main() -> None:
             f"asserted): {same}/{len(caps)}")
     # phase 4c, 4d: the paths of G and H, each read from its own served run,
     # and giant under fusedqkv_proj
-    counts, _ = phase_main_path(args.seed, smi, "giant", n_requests=B, base=GIANT_CONFIG)
+    counts, _ = phase_main_path(seed, smi, "giant", n_requests=B, base=GIANT_CONFIG)
     launches["ln_swiglu"] = (counts["ln_swiglu"], "giant")
-    phase_main_path(args.seed, smi, "giant_fusedqkv_proj", CONFIGS["fusedqkv_proj"],
+    phase_main_path(seed, smi, "giant_fusedqkv_proj", CONFIGS["fusedqkv_proj"],
                     n_requests=B, base=GIANT_CONFIG)
-    counts, _ = phase_main_path(args.seed, smi, "int8_bank", {"memory_bank_int8": True},
+    counts, _ = phase_main_path(seed, smi, "int8_bank", {"memory_bank_int8": True},
                                 n_requests=B)
     launches["memory_project_int8"] = (counts["memory_project_int8"], "int8_bank")
-    phase_f32_crosscheck(args.seed, configs=CONFIGS, queries=True)
-    phase_f32_crosscheck(args.seed, dict(FLAGSHIP_CONFIG, memory_bank_int8=True),
+    phase_f32_crosscheck(seed, configs=CONFIGS, queries=True)
+    phase_f32_crosscheck(seed, dict(FLAGSHIP_CONFIG, memory_bank_int8=True),
                          "f32 int8_bank")
     giant4 = dict(GIANT_CONFIG, dino_geometry={"depth": 4})
-    phase_f32_crosscheck(args.seed, giant4, "f32 giant")
-    phase_f32_crosscheck(args.seed, dict(giant4, **CONFIGS["fusedqkv_proj"]),
+    phase_f32_crosscheck(seed, giant4, "f32 giant")
+    phase_f32_crosscheck(seed, dict(giant4, **CONFIGS["fusedqkv_proj"]),
                          "f32 giant fusedqkv_proj",
                          {"fusedqkv_proj": CONFIGS["fusedqkv_proj"]})
+    phase_loaded(seed, smi, scratch)
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:
@@ -1013,11 +1217,7 @@ def main() -> None:
             raise AssertionError(f"{key} was never launched on its path")
     if len(summary) != len(_wrappers()):
         raise AssertionError(f"kernel rows {sorted(summary)} != {sorted(_wrappers())}")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s for the whole run")
-    log(smi)
-    log(json.dumps({"kernels": [summary[k] for k in _wrappers()]}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return [summary[k] for k in _wrappers()]
 
 
 if __name__ == "__main__":

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["GPT2Config", "DECAP_DECODER_CONFIG", "init_gpt2", "KVCache",
+__all__ = ["GPT2Config", "DECAP_DECODER_CONFIG", "init_gpt2", "param_template", "KVCache",
            "init_kv_cache", "gpt2_step", "gpt2_hidden", "gpt2_hidden_packed",
            "gpt2_forward", "gpt2_prefill", "gpt2_candidates_step", "commit_candidate"]
 
@@ -78,6 +78,27 @@ def init_gpt2(cfg: GPT2Config, generator: torch.Generator, device="cpu") -> dict
             "mlp": {"c_fc": dense(d, 4 * d), "c_proj": dense(4 * d, d, resid_std)},
         })
     return params
+
+
+def param_template(cfg: GPT2Config) -> dict:
+    """`init_gpt2`'s tree as empty meta tensors of its shapes, for checking
+    a loaded tree against the config."""
+    d = cfg.n_embd
+
+    def empty(*shape):
+        return torch.empty(shape, device="meta")
+
+    def dense(fi, fo):
+        return {"w": empty(fi, fo), "b": empty(fo)}
+
+    def ln():
+        return {"scale": empty(d), "bias": empty(d)}
+
+    return {"wte": empty(cfg.vocab_size, d), "wpe": empty(cfg.n_positions, d),
+            "ln_f": ln(),
+            "blocks": [{"ln_1": ln(), "attn": {"c_attn": dense(d, 3 * d), "c_proj": dense(d, d)},
+                        "ln_2": ln(), "mlp": {"c_fc": dense(d, 4 * d), "c_proj": dense(4 * d, d)}}
+                       for _ in range(cfg.n_layer)]}
 
 
 class KVCache(NamedTuple):

@@ -1,17 +1,59 @@
-"""Talk2DINO embedding inversion: DINO space back to CLIP text space.
+"""Talk2DINO's projection (CLIP text -> DINO space) and its inversion.
 
-Twin of `patchioner_tpu/models/talk2dino.py:build_inversion` and
-`revert_transformation` (reference src/embedding_utils.py:3-25): the SVD
-pseudo-inverse of Talk2DINO's first linear layer, applied as
-(x - b) @ A_pinv.T. Plain PyTorch.
+Twin of `patchioner_tpu/models/talk2dino.py`: `project_clip_txt`, the
+linear layer and the optional hidden layers, each after the activation
+(reference src/talk2dino/talk2dino.py:6-97), which builds a bank's rows;
+`talk2dino_config_from_yaml`; and `build_inversion` /
+`revert_transformation` (reference src/embedding_utils.py:3-25), the SVD
+pseudo-inverse of the first linear layer applied as (x - b) @ A_pinv.T,
+which takes a DINO-space prefix back to CLIP space. Plain PyTorch; the
+parameters are `io.torch_port.port_talk2dino`'s tree.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-__all__ = ["build_inversion", "revert_transformation"]
+__all__ = ["project_clip_txt", "build_inversion", "revert_transformation",
+           "talk2dino_config_from_yaml"]
+
+_ACTS = {None: None, "tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid}
+
+
+def talk2dino_config_from_yaml(path_or_dict) -> dict:
+    """A Talk2DINO config (configs_talk2dino/*.yaml: a top-level `model:`
+    block) as {act, hidden_layer, dino_embed_dim, clip_embed_dim}. A path
+    needs PyYAML; a dict is the `model:` block itself."""
+    if isinstance(path_or_dict, str):
+        import yaml
+
+        with open(path_or_dict) as f:
+            cfg = yaml.safe_load(f)["model"]
+    else:
+        cfg = dict(path_or_dict)
+    act = cfg.get("act")
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation: {act}")
+    return {"act": act, "hidden_layer": cfg.get("hidden_layer", False),
+            "dino_embed_dim": cfg.get("dino_embed_dim", 1024),
+            "clip_embed_dim": cfg.get("clip_embed_dim", 512)}
+
+
+def project_clip_txt(params: dict, x: torch.Tensor,
+                     act: Optional[str] = "tanh") -> torch.Tensor:
+    """CLIP text embeddings (N, clip) -> DINO space (N, dino) in f32: the
+    linear layer, then for each hidden layer the activation and the layer
+    (talk2dino.py:78-81)."""
+    x = x.float() @ params["linear"]["w"] + params["linear"]["b"]
+    fn = _ACTS[act]
+    for h in params.get("hidden", []):
+        if fn is not None:
+            x = fn(x)
+        x = x @ h["w"] + h["b"]
+    return x
 
 
 def build_inversion(params: dict, device="cpu") -> dict:

@@ -41,8 +41,9 @@ from patchioner_tpu_torch.ops.mlp import (dense_residual_plain, fused_dense_resi
                                           fused_ln_dense, fused_ln_mlp, fused_ln_swiglu,
                                           ln_rows)
 
-__all__ = ["ViTConfig", "VARIANTS", "config_for", "init_vit", "cast_params",
-           "interpolate_pos_embed", "vit_forward", "process_self_attention"]
+__all__ = ["ViTConfig", "VARIANTS", "config_for", "init_vit", "param_template",
+           "cast_params", "interpolate_pos_embed", "patch_embed", "vit_forward",
+           "process_self_attention"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +175,38 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator,
     return params
 
 
+def param_template(cfg: ViTConfig) -> dict:
+    """`init_vit`'s tree as empty meta tensors of its shapes, for checking a
+    loaded tree against the config (no meta operation runs: those import
+    half of torch the first time)."""
+    d, h = cfg.embed_dim, cfg.ffn_hidden
+
+    def empty(*shape):
+        return torch.empty(shape, device="meta")
+
+    def dense(fan_in, fan_out):
+        return {"w": empty(fan_in, fan_out), "b": empty(fan_out)}
+
+    def ln():
+        return {"scale": empty(d), "bias": empty(d)}
+
+    tree = {"patch_embed": dense(cfg.patch_size ** 2 * 3, d), "cls_token": empty(1, 1, d),
+            "pos_embed": empty(1, 1 + cfg.stored_pos_grid ** 2, d), "norm": ln(),
+            "blocks": []}
+    if cfg.num_registers:
+        tree["register_tokens"] = empty(1, cfg.num_registers, d)
+    for _ in range(cfg.depth):
+        blk = {"norm1": ln(), "qkv": dense(d, 3 * d), "proj": dense(d, d), "norm2": ln()}
+        if cfg.ffn == "swiglu":
+            blk.update(w12=dense(d, 2 * h), w3=dense(h, d))
+        else:
+            blk.update(fc1=dense(d, h), fc2=dense(h, d))
+        if cfg.layerscale:
+            blk.update(ls1=empty(d), ls2=empty(d))
+        tree["blocks"].append(blk)
+    return tree
+
+
 def cast_params(tree, dtype: torch.dtype, device=None):
     """Every floating tensor of a nested dict/list cast to `dtype` (and moved
     to `device`), contiguous."""
@@ -261,18 +294,25 @@ def _block(x: torch.Tensor, blk: dict, cfg: ViTConfig):
     return x, qkv
 
 
+def patch_embed(params: dict, pixels: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """The p x p, stride p patch conv as one matmul: (B, H, W, 3) NHWC
+    pixels -> (B, G * G, D), each patch's pixels flattened row-major,
+    channel last, the order `io.torch_port` lays a conv kernel out in."""
+    b, hh, _, _ = pixels.shape
+    p = patch_size
+    g = hh // p
+    x = pixels.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, -1)
+    return torch.matmul(x, params["w"]) + params["b"]
+
+
 def vit_forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> dict:
     """(B, H, W, 3) normalised NHWC pixels -> dict of x_norm_clstoken (B, D),
     x_norm_regtokens (B, R, D), x_norm_patchtokens (B, G*G, D), x_prenorm
     (B, T, D) and qkv_last (B, T, 3D), the last block's fused qkv."""
     params = cast_params(params, cfg.dtype)
     b, hh, _, _ = pixels.shape
-    p = cfg.patch_size
-    g = hh // p
-    x = pixels.to(cfg.dtype)
-    # patch embed: conv p x p / stride p == reshape into patches + one matmul
-    x = x.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, -1)
-    x = torch.matmul(x, params["patch_embed"]["w"]) + params["patch_embed"]["b"]
+    g = hh // cfg.patch_size
+    x = patch_embed(params["patch_embed"], pixels.to(cfg.dtype), cfg.patch_size)
     cls = params["cls_token"].expand(b, 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + interpolate_pos_embed(params["pos_embed"], cfg.stored_pos_grid, g)

@@ -581,3 +581,46 @@ def test_two_servers_on_two_threads_share_the_decode_graphs(cuda):
         valid = np.zeros((4, 64), np.float32)
         pts[:, :6], valid[:, :6] = np.asarray(traces[i]), 1.0
         assert results[i] == model.caption_traces_fused(imgs[i], pts, valid)
+
+
+@pytest.mark.parametrize("bank", ["f32", "int8"])
+def test_loaded_model_on_the_card_matches_the_same_files_on_the_cpu(cuda, tmp_path, bank):
+    # checkpoints written in the published layouts by chip_smoke's writers;
+    # no bank file (h5py may be absent on the card's machine): the CPU model
+    # takes the rows the card drew
+    import importlib.util
+    import os
+
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    geometry = {"embed_dim": 128, "depth": 2, "num_heads": 2, "extract_heads": 4,
+                "pos_grid": 4}
+    arch = {"n_layer": 2, "n_embd": 128, "n_head": 4, "vocab_size": 1000}
+    gen = torch.Generator().manual_seed(24)
+    tree = vit.init_vit(vit.config_for("dinov2_vitb14_reg", img_size=56, **geometry), gen)
+    for blk in tree["blocks"]:  # near 1, so kernels A-C move the residual
+        blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, 128, generator=gen)
+    torch.save(smoke.hub_state_dict(tree), tmp_path / "dino.pth")
+    torch.save(smoke.decap_state_dict(decap.init_decap(gpt2.GPT2Config(**arch), 128, gen)),
+               tmp_path / "decap.pt")
+    config = {"dino_model": "dinov2_vitb14_reg", "crop_dim": 56, "prefix_size": 128,
+              "support_memory_size": 300, "dino_geometry": geometry, "decap_arch": arch,
+              "dino_weights": str(tmp_path / "dino.pth"),
+              "decap_weights": str(tmp_path / "decap.pt"),
+              "memory_bank_path": str(tmp_path / "absent.h5"),
+              "memory_bank_int8": bank == "int8"}
+    gpu = Patchioner.from_config(config, allow_missing_weights=True, device="cuda")
+    cpu = Patchioner.from_config(config, allow_missing_weights=True, random_bank_size=1,
+                                 device="cpu")
+    cpu.bank = type(gpu.bank)(*(t.cpu() for t in gpu.bank[:-1]), gpu.bank.num_real)
+    inputs = entry.example_inputs(batch=3, img=56, n_pts=16, seed=25, device="cpu")
+    step = entry.make_prefix_step(gpu.vit_cfg, gpu.bank.num_real)
+    ref = step(cpu.state(), *inputs)
+    wrapper = mp.memory_project_int8 if bank == "int8" else mp.memory_project_streamed
+    got = _counted(wrapper, lambda: step(gpu.state(), *(t.cuda() for t in inputs))).cpu()
+    assert np.max(np.abs((got - ref).numpy())) <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -149,7 +149,7 @@ def test_shipped_flagship_configs_build(path):
     {"dino_model": "vit_base_patch16_clip_224.openai"},
     {"calculate_argmax_text": True},
     {"encoder_w8a8": True}, {"softmax_f32": False},
-    {"memory_bank_path": "bank.h5"}, {"an_unknown_key": 1},
+    {"use_open_clip": True}, {"an_unknown_key": 1},
 ])
 def test_keys_outside_the_subset_raise(extra):
     with pytest.raises(NotImplementedError):
