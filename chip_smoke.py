@@ -86,7 +86,32 @@ then exits non-zero without the final result line:
    (512 -> 768) and a DeCap file whose prefix linear takes 512 under
    `prefix_size: 512`, so that the inversion runs on the card, and on the
    int8 bank (H). No bank file is read (the card's machine has no h5py):
-   the bank is drawn at random at the config's size.
+   the bank is drawn at random at the config's size;
+7. ViECap on DINOv2: `configs/mlp.viecap.k.yaml` (`VIECAP_CONFIG`) loaded
+   through `from_config` from phase 6's DINOv2 and DeCap files and a
+   seeded full-width ViECap checkpoint in the published layout (the
+   8-layer mapping network, GPT-2 base in f32), the vendored COCO entity
+   embeddings and the whitespace fallback tokenizer; 8 trace, 8 box (1-16
+   boxes) and 8 whole-image requests served through `forward` after each
+   kind's `warmup()`, A, B and C 12 launches a batch asserted and neither
+   D nor H, with captions/s, latency and a whole-image batch's split
+   (encoder, prompts, search, timed inside the same `forward` calls); then
+   on 8 rows of the model's prompts the soft prompt and the prefill's
+   logits held to the CPU under phase 5's gate, the greedy, beam (width 5)
+   and contrastive (top_k 48, alpha 0.1) tokens over 16 steps compared
+   with the CPU's (reported), and each search timed at the config's 64
+   tokens with its kernels a step;
+7b. the served route in f32: one trace batch and one box batch of an f32
+   copy of the same model served on the card and on the CPU, the features
+   `forward` hands to `caption_tokens` and the prompt embeddings built from
+   them held to each other under phase 5's gate, captions compared
+   (reported);
+7c. DeCap without a bank: the same config without its `viecap` block
+   (`support_memory_size: 0`), 8 whole-image and 8 box requests served
+   through `forward` in bf16 after `warmup()`, each batch replaying a CUDA
+   graph of the DeCap decoder that warm-up captured; then as 7b, the
+   prefix DeCap decodes in place of the prompt embeddings, with one graph
+   replay asserted for each `caption_tokens` call on the card.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -123,6 +148,31 @@ FLAGSHIP_CONFIG = {
 }
 # ViT-g/14 with registers: the bank and prefix live in encoder space
 GIANT_CONFIG = dict(FLAGSHIP_CONFIG, dino_model="dinov2_vitg14_reg", prefix_size=1536)
+# configs/mlp.viecap.k.yaml (ViECap on DINOv2 features) as a dict;
+# tests/test_torch_slice.py holds it against the file
+VIECAP_CONFIG = {
+    "decap_weights": "weights/decap/talkingdino/talkingDINO.pt",
+    "prefix_size": 768,
+    "support_memory_size": 0,
+    "dino_model": "dinov2_vitb14_reg",
+    "normalize": False,
+    "use_talk2dino_project": False,
+    "clip_model_name": "ViT-B/16",
+    "viecap": {
+        "clip_hidden_size": 768,
+        "suffix": "ViT-B16_t2d_",
+        "temperature": 0.01,
+        "top_k": 3,
+        "threshold": 0.4,
+        "name_of_entities_text": "coco_entities",
+        "prompt_ensemble": True,
+        "weight_path": "weights/viecap/train_coco_t2d_B16/coco_prefix-0014.pt",
+        "using_hard_prompt": True,
+        "soft_prompt_first": True,
+        "using_greedy_search": True,
+        "beam_width": 5,
+    },
+}
 
 # Max |kernel - plain| over max |plain|. float32: the two differ only in the
 # order of f32 sums (relative error ~1e-6 over <= 3072 terms), so 1e-4
@@ -519,7 +569,8 @@ def expected_launches(config: dict, depth: int, batches: int) -> dict:
     """Launches of every kernel for `batches` batches of a configuration:
     A each layer, C (G for ViT-g's SwiGLU FFN) each layer, the attention
     kernel `attn_impl` selects each layer, D (H over an int8 bank) once a
-    batch, every other kernel never."""
+    batch when the configuration has a support memory, every other kernel
+    never."""
     impl = config.get("attn_impl", "xla")
     layer = {"ln_dense", "ln_swiglu" if "vitg" in config["dino_model"] else "ln_mlp"}
     if impl in ("xla", "fusedqkv"):
@@ -529,8 +580,9 @@ def expected_launches(config: dict, depth: int, batches: int) -> dict:
     layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
               "flash1p": {"flash_attention_1pass"}}.get(impl, set())
     counts = {name: depth * batches if name in layer else 0 for name in _wrappers()}
-    counts["memory_project_int8" if config.get("memory_bank_int8")
-           else "memory_project"] = batches
+    if int(config.get("support_memory_size", 0)) > 0:  # a ViECap model has no bank
+        counts["memory_project_int8" if config.get("memory_bank_int8")
+               else "memory_project"] = batches
     return counts
 
 
@@ -562,13 +614,13 @@ def build_model(config: dict, seed: int, tag: str):
     model = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
                                    dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
+    bank = ("none" if model.bank is None else f"{model.bank.num_real} x "
+            f"{model.bank.rows.shape[1]} {str(model.bank.rows.dtype)[6:]}")
     log(f"{tag} {config['dino_model']}: model built in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} "
         f"({model.vit_cfg.ffn} FFN {model.vit_cfg.ffn_hidden}) at "
-        f"{model.crop_dim} px ({model.vit_cfg.num_tokens} tokens), bank "
-        f"{model.bank.num_real} x {model.bank.rows.shape[1]} "
-        f"{str(model.bank.rows.dtype)[6:]}, decoder "
+        f"{model.crop_dim} px ({model.vit_cfg.num_tokens} tokens), bank {bank}, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
     return model
@@ -589,9 +641,10 @@ def _serve(model, requests: list, tag: str,
            kind: str = "trace") -> tuple[list, dict, int, float, dict]:
     """Serve (image, submit keywords) requests of one kind through a new
     server: its `warmup()` of every bucket first, then every launch counter
-    zeroed; assert the counts, and that each batch replayed a decode graph
-    that warm-up had captured; (results, the server's snapshot, batches,
-    wall s, launch counts)."""
+    zeroed; assert the counts, and that each batch replayed a DeCap decode
+    graph that warm-up had captured (on a ViECap model: that the DeCap
+    decoder neither captured nor replayed one); (results, the server's
+    snapshot, batches, wall s, launch counts)."""
     from patchioner_tpu_torch.serve import CaptionServer
 
     wrappers = _wrappers()
@@ -614,7 +667,10 @@ def _serve(model, requests: list, tag: str,
         f"launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
-    _check_graphs(model.decode, graphs, batches, tag)
+    if model.viecap is None:
+        _check_graphs(model.decode, graphs, batches, tag)
+    elif (model.decode.captures, model.decode.replays) != graphs:
+        raise AssertionError(f"{tag} the DeCap decoder ran on a ViECap model")
     return results, snap, batches, wall, counts
 
 
@@ -890,15 +946,17 @@ def phase_decode_graph(model, seed: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _gate(label: str, got: torch.Tensor, ref: torch.Tensor, what: str) -> None:
-    """The f32 prefix gate: max|got - ref| <= 1e-4 * max(1, max|ref|)."""
+def _gate(label: str, got: torch.Tensor, ref: torch.Tensor, what: str,
+          noun: str = "prefix") -> None:
+    """The f32 gate (on the prefix by default): max|got - ref| <= 1e-4 *
+    max(1, max|ref|)."""
     if got.shape != ref.shape:
-        raise AssertionError(f"f32 prefix {what}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+        raise AssertionError(f"f32 {noun} {what}: {tuple(got.shape)} vs {tuple(ref.shape)}")
     err = (got - ref).abs().max().item()
     tol = 1e-4 * max(1.0, ref.abs().max().item())
-    log(f"[{label}] prefix {what}: max|d|={err:.3e} (tol {tol:.3e})")
+    log(f"[{label}] {noun} {what}: max|d|={err:.3e} (tol {tol:.3e})")
     if not err <= tol:
-        raise AssertionError(f"f32 prefix {what} differs: {err:.3e} > {tol:.3e}")
+        raise AssertionError(f"f32 {noun} {what} differs: {err:.3e} > {tol:.3e}")
 
 
 def phase_f32_crosscheck(seed: int, config: dict = FLAGSHIP_CONFIG, label: str = "f32",
@@ -1003,16 +1061,13 @@ def hub_state_dict(tree: dict) -> dict:
     return _cpu(sd)
 
 
-def decap_state_dict(params) -> dict:
-    """Port DecapParams as a DeCap checkpoint, the inverse of
-    `io.torch_port.port_decap`: the GPT-2 under decoder.transformer.*
-    (Conv1D weights stay (in, out)), the prefix linear under
-    clip_project.model.0 as an `nn.Linear`."""
-    g, t = params.gpt2, "decoder.transformer"
+def gpt2_state_dict(g: dict, prefix: str) -> dict:
+    """A port GPT-2 tree as a transformers GPT2LMHeadModel state dict under
+    `prefix` (Conv1D weights stay (in, out)), the inverse of
+    `io.torch_port.port_hf_gpt2_lmhead`."""
+    t = f"{prefix}transformer"
     sd = {f"{t}.wte.weight": g["wte"], f"{t}.wpe.weight": g["wpe"],
-          f"{t}.ln_f.weight": g["ln_f"]["scale"], f"{t}.ln_f.bias": g["ln_f"]["bias"],
-          "clip_project.model.0.weight": params.clip_project["w"].t(),
-          "clip_project.model.0.bias": params.clip_project["b"]}
+          f"{t}.ln_f.weight": g["ln_f"]["scale"], f"{t}.ln_f.bias": g["ln_f"]["bias"]}
     for i, blk in enumerate(g["blocks"]):
         for key in ("ln_1", "ln_2"):
             sd[f"{t}.h.{i}.{key}.weight"] = blk[key]["scale"]
@@ -1021,7 +1076,39 @@ def decap_state_dict(params) -> dict:
             for key, dense in blk[part].items():
                 sd[f"{t}.h.{i}.{part}.{key}.weight"] = dense["w"]
                 sd[f"{t}.h.{i}.{part}.{key}.bias"] = dense["b"]
-    return _cpu(sd)
+    return sd
+
+
+def decap_state_dict(params) -> dict:
+    """Port DecapParams as a DeCap checkpoint, the inverse of
+    `io.torch_port.port_decap`: the GPT-2 under decoder.*, the prefix
+    linear under clip_project.model.0 as an `nn.Linear`."""
+    return _cpu(gpt2_state_dict(params.gpt2, "decoder.") | {
+        "clip_project.model.0.weight": params.clip_project["w"].t(),
+        "clip_project.model.0.bias": params.clip_project["b"]})
+
+
+def viecap_state_dict(mapping: dict, gpt: dict) -> dict:
+    """A port mapping network and GPT-2 as a ViECap checkpoint, the inverse
+    of `models.viecap.port_mapping_network` and `port_hf_gpt2_lmhead`:
+    mapping_network.* (each `nn.Linear` (out, in); the attention's query
+    and key-value linears without bias) and gpt.*."""
+    p = "mapping_network."
+    sd = {f"{p}linear.weight": mapping["linear"]["w"].t(),
+          f"{p}linear.bias": mapping["linear"]["b"],
+          f"{p}prefix_const": mapping["prefix_const"]}
+    for i, layer in enumerate(mapping["layers"]):
+        q = f"{p}transformer.layers.{i}"
+        for key, name in (("norm1", "norm1"), ("norm2", "norm2"),
+                          ("to_queries", "attn.to_queries"),
+                          ("to_keys_values", "attn.to_keys_values"),
+                          ("project", "attn.project"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            leaf = layer[key]
+            w, b = (leaf["scale"], leaf["bias"]) if "scale" in leaf else (leaf["w"].t(), leaf["b"])
+            sd[f"{q}.{name}.weight"] = w
+            if b is not None:
+                sd[f"{q}.{name}.bias"] = b
+    return _cpu(sd | gpt2_state_dict(gpt, "gpt."))
 
 
 def talk2dino_state_dict(linear: dict) -> dict:
@@ -1099,12 +1186,12 @@ def _loaded_f32_gate(config: dict, seed: int, label: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_loaded(seed: int, smi: str, directory: str) -> None:
+def phase_loaded(seed: int, smi: str, directory: str) -> dict:
     """Phase 6: the flagship loaded from checkpoint files written into
     `directory` through `Patchioner.from_config`, served, and held to the
     CPU in f32. No bank file is read (the card's machine has no h5py; the
     CPU tests read and write bank files): the bank is drawn at random at
-    the config's size."""
+    the config's size. Returns the files' paths, which phase 7 reads too."""
     t0 = time.perf_counter()
     paths = write_checkpoints(seed, directory)
     sizes = ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e9:.3f} GB"
@@ -1131,8 +1218,280 @@ def phase_loaded(seed: int, smi: str, directory: str) -> None:
     _loaded_f32_gate(dict(config, prefix_size=512, decap_weights=dec_clip,
                           talk2dino_weights=t2d), seed, "f32 loaded talk2dino")
     _loaded_f32_gate(dict(config, memory_bank_int8=True), seed, "f32 loaded int8_bank")
-    for path in paths.values():
-        os.remove(path)
+    return paths
+
+
+def write_viecap_checkpoint(seed: int, directory: str) -> str:
+    """A ViECap checkpoint at full width, seeded, in the published layout:
+    the 8-layer mapping network (768 -> 10 x 768, 10 prefix tokens) and
+    GPT-2 base (12 layers, 768 wide, vocabulary 50257), wte scaled by 10
+    as the DeCap file's is, so that the greedy steps are not near-ties;
+    its path."""
+    from patchioner_tpu_torch.models import gpt2, viecap
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    cfg = viecap.ViecapConfig(clip_hidden_size=D)
+    mapping = viecap.init_mapping_network(cfg, D, gen)
+    gpt = gpt2.init_gpt2(gpt2.GPT2_BASE_CONFIG, gen)
+    gpt["wte"] *= 10
+    path = os.path.join(directory, "coco_prefix-0014.pt")
+    torch.save(viecap_state_dict(mapping, gpt), path)
+    return path
+
+
+def _search_calls(params, cfg, embeds, eos, max_len: int) -> dict:
+    """Each search of the model's GPT-2 on `embeds`, to `max_len` tokens:
+    greedy, beam (width 5) and contrastive (top_k 48, alpha 0.1)."""
+    from patchioner_tpu_torch.models import viecap
+
+    return {"greedy": lambda: viecap.greedy_tokens(params, embeds, cfg, max_len),
+            "beam": lambda: viecap.beam_tokens(params, embeds, eos, cfg, max_len, 5)[0],
+            "contrastive": lambda: viecap.contrastive_tokens(params, embeds, cfg, max_len,
+                                                             48, 0.1)}
+
+
+def _kind_requests(n: int, seed: int) -> tuple[np.ndarray, dict]:
+    """n seeded images and, for each request kind that goes through
+    `forward` here, their (image, submit keywords) requests: a trace, 1-16
+    boxes, or the whole image."""
+    imgs, traces = _requests(n, seed)
+    sets = _query_boxes(n, seed + 1)
+    return imgs, {"trace": [(im, {"trace": tr}) for im, tr in zip(imgs, traces)],
+                  "bbox": [(im, {"bboxes": bs}) for im, bs in zip(imgs, sets)],
+                  "cls": [(im, {}) for im in imgs]}
+
+
+def _flat(results: list) -> list:
+    """The captions of served requests: a box request's list is spread."""
+    return [c for r in results for c in (r if isinstance(r, list) else [r])]
+
+
+def _serve_kinds(model, kinds: tuple, seed: int, label: str, smi: str) -> np.ndarray:
+    """B requests of each of `kinds` served through `_serve` (after each
+    kind's `warmup()`, launches and decode graphs asserted); the images."""
+    imgs, requests = _kind_requests(B, seed)
+    for kind in kinds:
+        tag = f"[{label} {kind}]"
+        results, snap, batches, wall, _ = _serve(model, requests[kind], tag, kind)
+        flat = _flat(results)
+        if not all(isinstance(c, str) for c in flat):
+            raise AssertionError(f"{tag} a request did not resolve to caption strings")
+        log(f"{tag} {len(flat)} captions from {len(results)} requests in {batches} batch(es): "
+            f"{len(flat) / wall:.3f} captions/s, mean request latency "
+            f"{snap['mean_latency_ms']} ms; result 0: {str(results[0])[:60]!r}; {smi}")
+    return imgs
+
+
+def _forward_split(model, imgs, smi: str, runs: int = 5) -> None:
+    """A whole-image ViECap batch's split, each part timed inside the same
+    `forward` call as the whole (host clock, the card synchronised around
+    each part): the encoder, the prompts (mapping network, entity
+    retrieval, hard prompt) and the search; medians of `runs` calls, and
+    the search's share of each call's whole."""
+    from patchioner_tpu_torch.models import viecap
+
+    vc = model.viecap
+    parts = {"encode_images": (model, []), "prompt_embeds": (vc, []),
+             "run_search": (viecap, [])}
+    old = {name: obj.__dict__.get(name) for name, (obj, _) in parts.items()}
+
+    def timed(fn, acc):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return call
+
+    for name, (obj, acc) in parts.items():
+        setattr(obj, name, timed(getattr(obj, name), acc))
+    try:
+        whole = []
+        timed(lambda: model.forward(imgs, get_cls_capt=True), [])()  # first call set-up
+        for acc in [a for _, a in parts.values()]:
+            acc.clear()
+        for _ in range(runs):
+            timed(lambda: model.forward(imgs, get_cls_capt=True), whole)()
+    finally:
+        for name, (obj, _) in parts.items():
+            if old[name] is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old[name])
+    ms = {name: statistics.median(acc) for name, (_, acc) in parts.items()}
+    share = statistics.median(s / w for s, w in zip(parts["run_search"][1], whole))
+    log(f"[viecap] a whole-image batch of {B}, inside the same forward calls: forward "
+        f"{statistics.median(whole):.1f} ms; encoder {ms['encode_images']:.1f}, prompts "
+        f"{ms['prompt_embeds']:.1f}, greedy search of {vc.cfg.max_len} tokens "
+        f"{ms['run_search']:.1f}; the search {share:.3f} of its forward (host clock, "
+        f"medians of {runs}); {smi}")
+
+
+def _recording(model) -> dict:
+    """Wrap, on this model object, the two steps of `forward`'s route that
+    the served f32 gate holds to the CPU: the features handed to
+    `caption_tokens`, and what the decoder is given (ViECap's prompt
+    embeddings, DeCap's prefix); returns the lists they are appended to."""
+    seen = {"features": [], "decoder input": []}
+
+    def wrap(obj, name, key, argument):
+        fn = getattr(obj, name)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen[key].append(torch.as_tensor(args[0] if argument else out).float().cpu())
+            return out
+        setattr(obj, name, call)
+
+    wrap(model, "caption_tokens", "features", True)
+    if model.viecap is not None:
+        wrap(model.viecap, "prompt_embeds", "decoder input", False)
+    else:
+        wrap(model, "project_features", "decoder input", False)
+    return seen
+
+
+def phase_served_f32_gate(config: dict, seed: int, label: str, kinds: tuple) -> None:
+    """Phases 7b and 7c: one served batch (2 requests) of each of `kinds`
+    on an f32 copy of `config` on the card and on the CPU, TF32 off: the
+    features `forward` hands to `caption_tokens` and the decoder's input
+    under the gate, the captions compared (reported). On a DeCap model
+    each `caption_tokens` call on the card must replay a decode graph."""
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+    from patchioner_tpu_torch.serve import CaptionServer
+
+    gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    cpu = gpu.to("cpu")
+    _, requests = _kind_requests(2, seed + 14)
+    graphs = gpu.decode.captures, gpu.decode.replays
+    seen, caps = {}, {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        seen[where] = _recording(m)
+        # both requests of a kind in one batch: the server waits for the second
+        with CaptionServer(m, max_batch=2, max_delay_ms=2000.0,
+                           max_boxes=MAX_BOXES) as server:
+            for kind in kinds:
+                futures = [server.submit(im, **kw) for im, kw in requests[kind]]
+                caps[where, kind] = [f.result(timeout=900) for f in futures]
+    for key in ("features", "decoder input"):
+        if not len(seen["card"][key]) == len(seen["cpu"][key]) == len(kinds):
+            raise AssertionError(f"[{label}] {key}: {len(seen['card'][key])} calls on the "
+                                 f"card, {len(seen['cpu'][key])} on the CPU, for "
+                                 f"{len(kinds)} batches")
+        for kind, got, want in zip(kinds, seen["card"][key], seen["cpu"][key]):
+            _gate(label, got, want, f"{kind} batch {tuple(want.shape)}, card vs CPU", key)
+    flat = {w: [c for k in kinds for c in _flat(caps[w, k])] for w in ("card", "cpu")}
+    log(f"[{label}] served captions card vs CPU (reported, not asserted): "
+        f"{sum(a == b for a, b in zip(flat['card'], flat['cpu']))}/{len(flat['cpu'])} equal; "
+        f"card 0: {flat['card'][0][:60]!r}")
+    captured, replayed = (gpu.decode.captures - graphs[0], gpu.decode.replays - graphs[1])
+    log(f"[{label}] DeCap decode graphs on the card: {captured} captures, {replayed} replays "
+        f"for {len(kinds)} caption_tokens calls")
+    want = len(kinds) if gpu.viecap is None else 0
+    if replayed != want or captured > want:
+        raise AssertionError(f"[{label}] {replayed} decode graph replays, {captured} "
+                             f"captures; {want} expected")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_decap_no_bank(config: dict, seed: int, smi: str) -> None:
+    """Phase 7c: `config` (no bank, no ViECap) served through `forward` in
+    bf16, whole images and boxes, then held to the CPU in f32."""
+    model = build_model(config, seed, "[decap no bank]")
+    if model.bank is not None or model.viecap is not None:
+        raise AssertionError("[decap no bank] the model must decode through DeCap, "
+                             "without a bank")
+    _serve_kinds(model, ("cls", "bbox"), seed + 16, "decap no bank", smi)
+    del model
+    torch.cuda.empty_cache()
+    phase_served_f32_gate(config, seed, "f32 decap no bank", ("cls", "bbox"))
+
+
+def phase_viecap(seed: int, smi: str, directory: str, paths: dict) -> None:
+    """Phase 7: ViECap on DINOv2, configs/mlp.viecap.k.yaml loaded from phase
+    6's hub DINOv2 and DeCap files and a full-width ViECap checkpoint written
+    here, in bf16 on the card (ViECap's GPT-2 is f32 as the config's); served
+    through `forward`, the searches held to the CPU and timed."""
+    from patchioner_tpu_torch.models import viecap
+    from patchioner_tpu_torch.models.patchioner import uses_fallback_tokenizer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 7 holds the f32 GPT-2 to the CPU: TF32 must be off")
+    t0 = time.perf_counter()
+    pt = write_viecap_checkpoint(seed, directory)
+    log(f"[viecap] wrote {os.path.basename(pt)} {os.path.getsize(pt) / 1e9:.3f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dino, dec = list(paths.values())[:2]
+    config = dict(VIECAP_CONFIG, dino_weights=dino, decap_weights=dec,
+                  viecap=dict(VIECAP_CONFIG["viecap"], weight_path=pt))
+    model = build_model(config, seed, "[viecap]")
+    vc = model.viecap
+    secs = model.load_seconds
+    log(f"[viecap] from_config: torch.load {secs['read']:.3f} s, porting {secs['port']:.3f} s, "
+        f"cast and upload {secs['upload']:.3f} s; mapping network {vc.cfg.num_layers} layers "
+        f"{vc.cfg.clip_hidden_size} -> {vc.cfg.clip_project_length} x {vc.gpt2_cfg.n_embd}, "
+        f"GPT-2 {vc.gpt2_cfg.n_layer}L/{vc.gpt2_cfg.n_embd}/vocab {vc.gpt2_cfg.vocab_size} in "
+        f"{str(vc.gpt2_params['wte'].dtype)[6:]}, {len(vc.entities)} entities x "
+        f"{vc.texts_embeddings.shape[1]}; fallback tokenizer {uses_fallback_tokenizer(model)}; "
+        f"bank {model.bank}, fused path {model.supports_fused_trace_path()}")
+    if model.bank is not None or model.supports_fused_trace_path():
+        raise AssertionError("[viecap] the model must caption through forward, without a bank")
+
+    imgs = _serve_kinds(model, ("trace", "bbox", "cls"), seed + 12, "viecap", smi)
+
+    _forward_split(model, imgs, smi)
+    cls = model.encode_images(imgs)["x_norm_clstoken"]
+    embeds = vc.prompt_embeds(cls)
+
+    # card vs CPU on the same weights and prompts, f32 (TF32 off)
+    cpu = vc.to("cpu")
+    f = cls.float() / cls.float().norm(dim=-1, keepdim=True)
+    soft = viecap.mapping_network_forward(vc.mapping_params, f, vc.cfg, vc.gpt2_cfg.n_embd)
+    soft_ref = viecap.mapping_network_forward(cpu.mapping_params, f.cpu(), cpu.cfg,
+                                              cpu.gpt2_cfg.n_embd)
+    _gate("viecap", soft.cpu(), soft_ref, "card vs CPU", "soft prompt")
+    from patchioner_tpu_torch.models import gpt2
+
+    t_all = embeds.shape[1] + 1
+    logits, _ = gpt2.gpt2_prefill(vc.gpt2_params, embeds, vc.gpt2_cfg, t_all)
+    logits_ref, _ = gpt2.gpt2_prefill(cpu.gpt2_params, embeds.cpu(), cpu.gpt2_cfg, t_all)
+    _gate("viecap", logits.cpu(), logits_ref, "card vs CPU", "prefill logits")
+    eos = torch.tensor([vc.tokenizer.encode(e)[-1] for e in (".", " .")])
+    card = _search_calls(vc.gpt2_params, vc.gpt2_cfg, embeds, eos.cuda(), 16)
+    ref = _search_calls(cpu.gpt2_params, cpu.gpt2_cfg, embeds.cpu(), eos, 16)
+    for name in card:
+        got, want = card[name]().cpu(), ref[name]()
+        log(f"[viecap] {name} tokens over max_len 16, card vs CPU (reported, not asserted): "
+            f"{int((got == want).sum())}/{want.numel()} equal, {int((got == want).all(-1).sum())}"
+            f"/{want[..., 0].numel()} rows")
+    batched = viecap.beam_search_batched(vc.gpt2_params, embeds, vc.gpt2_cfg, vc.tokenizer,
+                                         max_len=16)
+    per_image = [viecap.beam_search(vc.gpt2_params, embeds[i:i + 1], vc.gpt2_cfg, vc.tokenizer,
+                                    max_len=16)[0] for i in range(B)]
+    log(f"[viecap] batched beam search vs per image on the card (reported): "
+        f"{sum(a == b for a, b in zip(batched, per_image))}/{B} captions equal")
+    del cpu, ref
+
+    # each search on the card at the config's max_len, and its launches a step
+    for name, call in _search_calls(vc.gpt2_params, vc.gpt2_cfg, embeds, eos.cuda(),
+                                    vc.cfg.max_len).items():
+        call()
+        ms = _host_ms(call)
+        short = _search_calls(vc.gpt2_params, vc.gpt2_cfg, embeds, eos.cuda(), 16)[name]
+        long = _search_calls(vc.gpt2_params, vc.gpt2_cfg, embeds, eos.cuda(), 32)[name]
+        (n16, dev16), (n32, dev32) = _kernel_count(short), _kernel_count(long)
+        log(f"[viecap] {name} search, {B} prompts x {vc.cfg.max_len} tokens: {ms:.1f} ms "
+            f"(host clock, median of 3); {(n32 - n16) / 16:.1f} kernels and "
+            f"{(dev32 - dev16) / 16:.3f} ms of device time a step; {smi}")
+    del model, vc
+    torch.cuda.empty_cache()
+    phase_served_f32_gate(config, seed, "f32 viecap served", ("trace", "bbox"))
+    phase_decap_no_bank(dict(config, viecap=None), seed, smi)
+    os.remove(pt)
 
 
 def main() -> None:
@@ -1157,7 +1516,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-6; the kernels' rows of the JSON summary."""
+    """Phases 2-7; the kernels' rows of the JSON summary."""
     phase_build()
     from patchioner_tpu_torch.ops import mlp
 
@@ -1205,7 +1564,10 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     phase_f32_crosscheck(seed, dict(giant4, **CONFIGS["fusedqkv_proj"]),
                          "f32 giant fusedqkv_proj",
                          {"fusedqkv_proj": CONFIGS["fusedqkv_proj"]})
-    phase_loaded(seed, smi, scratch)
+    paths = phase_loaded(seed, smi, scratch)
+    phase_viecap(seed, smi, scratch, paths)
+    for path in paths.values():
+        os.remove(path)
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -1,7 +1,7 @@
 """GPT-2 language model in PyTorch, with a static KV cache.
 
 Twin of `patchioner_tpu/models/gpt2.py`: `GPT2Config`,
-`DECAP_DECODER_CONFIG`, `init_gpt2`, `KVCache`, `init_kv_cache`, the
+`DECAP_DECODER_CONFIG`, `GPT2_BASE_CONFIG`, `init_gpt2`, `KVCache`, `init_kv_cache`, the
 decode step `gpt2_step`, the full-sequence passes `gpt2_hidden`,
 `gpt2_hidden_packed`, `gpt2_forward` and `gpt2_prefill`, and the shared-
 cache candidate step `gpt2_candidates_step` with `commit_candidate`.
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["GPT2Config", "DECAP_DECODER_CONFIG", "init_gpt2", "param_template", "KVCache",
+__all__ = ["GPT2Config", "DECAP_DECODER_CONFIG", "GPT2_BASE_CONFIG", "init_gpt2", "param_template", "KVCache",
            "init_kv_cache", "gpt2_step", "gpt2_hidden", "gpt2_hidden_packed",
            "gpt2_forward", "gpt2_prefill", "gpt2_candidates_step", "commit_candidate"]
 
@@ -49,6 +49,8 @@ class GPT2Config:
 
 # DeCap's decoder (reference decoder_config.pkl): 4 layers, 4 heads, 768 wide
 DECAP_DECODER_CONFIG = GPT2Config(n_layer=4, n_head=4, n_embd=768)
+# the full GPT-2 base that ViECap decodes with, in f32
+GPT2_BASE_CONFIG = GPT2Config()
 
 
 def init_gpt2(cfg: GPT2Config, generator: torch.Generator, device="cpu") -> dict:

@@ -1,20 +1,33 @@
-"""Patchioner: the DINOv2 + DeCap captioning subset, in PyTorch.
+"""Patchioner: the DINOv2 captioning subset, with DeCap or ViECap, in PyTorch.
 
-Twin of the fused caption paths of `patchioner_tpu/models/patchioner.py`:
-`from_config`, `supports_fused_trace_path`, `caption_traces_fused` (a
-trace), `caption_bboxes_fused` (a caption per box),
-`caption_images_fused` (the whole image) and `caption_region_sets_fused`
-(a caption per box set), `patch_size`, `crop_dim` and `resize_dim` — the
-surface the caption server (`patchioner_tpu_torch.serve`, twin of
-`patchioner_tpu/serve.py`) drives. Each path is `entry.make_caption_step`
-with its own pool; all share the encoder, the projection and the decode,
-which the model's `decap.GreedyDecoder` (`decode`) runs: on the card one
-CUDA graph a batch's row count.
-`Patchioner.forward` and its flag surface are not ported.
+Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone:
+`from_config`, `supports_fused_trace_path`, the fused caption paths
+`caption_traces_fused` (a trace), `caption_bboxes_fused` (a caption per
+box), `caption_images_fused` (the whole image) and
+`caption_region_sets_fused` (a caption per box set), and the generic path
+`forward` over `encode_images`, `project_features` and `caption_tokens`,
+with `patch_size`, `crop_dim` and `resize_dim`: the surface the caption
+server (`patchioner_tpu_torch.serve`, twin of `patchioner_tpu/serve.py`)
+drives. Each fused path is `entry.make_caption_step` with its own pool;
+all share the encoder, the projection and the decode, which the model's
+`decap.GreedyDecoder` (`decode`) runs: on the card one CUDA graph a
+batch's row count. A DeCap model over a support memory has the fused
+paths; a ViECap model, or one without a bank, captions through `forward`
+(`supports_fused_trace_path()` is False), as in the reference.
+
+`forward` takes the reference's flags: `get_cls_capt`,
+`get_avg_self_attn_capt`, `get_avg_patch_capt`, `get_patch_capts`,
+`get_register_capts`, `bboxes` (with `gaussian_avg`,
+`gaussian_bbox_variance`, `use_attn_map_for_bboxes`),
+`get_controllable_capts`, `traces` (with `use_attention_tracing`) and
+`compute_scores`, and returns the reference's keys, split per image. The
+context cleaner (`cleaning_type`), double-DINO boxes,
+`caption_bboxes_type`, `get_attn_heads_capt` and `return_n_best_sims`
+raise NotImplementedError.
 
 `from_config` takes the reference YAML schema (a path or a dict) and
 loads what the reference's `from_config` loads for this subset
-(patchioner.py:506-547, 836-957), the same files:
+(patchioner.py:155-300, 506-547, 836-972), the same files:
 - `dino_weights`: a torch.hub DINOv2 `.pth` (a `state_dict` key is
   unwrapped) through `io.torch_port.port_dinov2`, or an `.npz` of
   `io.checkpoints.save_params_npz`;
@@ -23,10 +36,21 @@ loads what the reference's `from_config` loads for this subset
 - `talk2dino_weights`: Talk2DINO's projection through `port_talk2dino`,
   whose `talk2dino.build_inversion` takes the projected prefix back to
   CLIP space; the bank then lives in DINO space, the prefix in CLIP space;
-- the support memory: the HDF5 bank at `memory_bank_path`, or else at
-  `$IM2TXT_MEMORY_PATH` (default /im2txtmemories) under the name
-  `io.memory_bank.bank_filename` gives the config; its texts are
-  `bank_texts`. Reading it needs h5py.
+- the support memory, when `support_memory_size` > 0: the HDF5 bank at
+  `memory_bank_path`, or else at `$IM2TXT_MEMORY_PATH` (default
+  /im2txtmemories) under the name `io.memory_bank.bank_filename` gives the
+  config; its texts are `bank_texts`. Reading it needs h5py. Without one,
+  `bank` is None and DeCap decodes the features as they are;
+- a `viecap` block: the ViECap `.pt` at `weight_path` (`mapping_network.*`
+  through `viecap.port_mapping_network`, `gpt.*` through
+  `port_hf_gpt2_lmhead` into GPT-2 base, f32), the entity vocabulary and
+  its embedding pickle from `files_path/annotations/vocabulary` or else
+  the port's data folder (the COCO, VG/OI and Open Images vocabularies
+  and the Talk2DINO-space COCO embeddings are there; the CLIP-space
+  pickles are read from `files_path`), and the GPT-2 tokenizer
+  (`text.gpt2_bpe` over $GPT2_BPE_DIR or the Hugging Face cache, else the
+  whitespace fallback under `allow_missing_weights`). A `meacap` block
+  raises NotImplementedError.
 A file that is missing falls back to seeded random tensors, drawn with
 `torch.Generator`, only under `allow_missing_weights=True`, and otherwise
 raises FileNotFoundError, as the reference does; a missing Talk2DINO file
@@ -45,7 +69,7 @@ are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and ViT-g,
 bank are 1536-wide as the config gives them; every `attn_impl` runs on
 each. Any key that leaves this subset raises NotImplementedError: other
 backbones (ViT-L among them, until C's f32 kernel takes D = 1024, and
-DINO.txt), ViECap / MeaCap / ClipCap, argmax-text, int8 (W8A8) encoders,
+DINO.txt), MeaCap / ClipCap, argmax-text, int8 (W8A8) encoders,
 the compute-dtype softmax (`softmax_f32: false`) and a non-qkv
 attention_type. A config given as a Hugging Face model id is not ported
 (it must be a path or a dict), nor are the reference's
@@ -59,18 +83,21 @@ from __future__ import annotations
 
 import contextlib
 import os
+import pickle
 import time
-from typing import Optional
+import warnings
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.io import checkpoints, memory_bank, torch_port
-from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit
+from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit, viecap as viecap_mod
 from patchioner_tpu_torch.ops import memory_projection as memproj
+from patchioner_tpu_torch.ops import region_pooling as rp
 
-__all__ = ["Patchioner"]
+__all__ = ["Patchioner", "uses_fallback_tokenizer"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -80,7 +107,7 @@ _KEYS = {
     "dino_model", "crop_dim", "resize_dim", "image_mean", "image_std",
     "dino_geometry", "attention_type", "prefix_size", "decap_arch",
     "normalize", "support_memory_size", "decap_weights", "dino_weights",
-    "talk2dino_weights", "memory_bank_int8", "memory_bank_path",
+    "talk2dino_weights", "memory_bank_int8", "memory_bank_path", "viecap",
 }
 # keys that name the bank file under $IM2TXT_MEMORY_PATH
 # (`io.memory_bank.bank_filename`) when `memory_bank_path` is not given
@@ -95,7 +122,7 @@ _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
 _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {
-    "calculate_argmax_text", "viecap", "clipcap",
+    "calculate_argmax_text", "clipcap",
     "encoder_w8a8", "regionclip_config",
     "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
     "use_open_clip", "invite_config",
@@ -128,8 +155,14 @@ def _check_config(config: dict) -> None:
     if config.get("attention_type", "qkv") != "qkv":
         raise NotImplementedError(
             f"attention_type={config['attention_type']!r} is not ported yet")
-    if int(config.get("support_memory_size", 0)) <= 0:
-        raise NotImplementedError("captioning without a support memory is not ported yet")
+    if (config.get("viecap") or {}).get("meacap") is not None:
+        raise NotImplementedError("MeaCap (a `meacap` block in `viecap`) is not ported yet")
+    if (config.get("viecap") or {}).get("hard_prompt_pad_multiple"):
+        # the JAX package's shape buckets for its per-shape compiles; the
+        # port's searches run eagerly and pad to the batch's longest
+        raise NotImplementedError(
+            "viecap.hard_prompt_pad_multiple is not ported: the hard prompt pads to "
+            "the batch's longest")
 
 
 def _encoder_options(config: dict) -> dict:
@@ -181,6 +214,10 @@ def _check_tree(key: str, path: str, tree, template, config: str) -> None:
                     f"where the config ({config}) gives {len(want)}")
             for i, (g, w) in enumerate(zip(got, want)):
                 walk(g, w, f"{at}[{i}]")
+        elif want is None:  # a linear without a bias
+            if got is not None:
+                raise ValueError(f"{key}={path!r}: {at} is a tensor where the config "
+                                 f"({config}) gives none")
         elif not torch.is_tensor(got) or got.shape != want.shape:
             shape = tuple(got.shape) if torch.is_tensor(got) else type(got).__name__
             raise ValueError(f"{key}={path!r}: {at} is {shape} where the "
@@ -272,13 +309,200 @@ def _bank_path(config: dict) -> tuple[str, str]:
     return os.path.join(os.getenv("IM2TXT_MEMORY_PATH", "/im2txtmemories"), fname), dataset
 
 
+class _FallbackWordTokenizer:
+    """The whitespace tokenizer taken only when no GPT-2 vocabulary is on
+    the machine and `allow_missing_weights=True`: it keeps the ViECap path
+    runnable, and its strings are not the reference's. Ids go to words in
+    order of first use from 10 on; the pad id is 0. Twin of
+    `patchioner_tpu/models/patchioner.py:68`."""
+
+    pad_token_id = 0
+
+    def __init__(self):
+        self.vocab, self.rev = {}, {}
+
+    def _id(self, w):
+        if w not in self.vocab:
+            i = len(self.vocab) + 10
+            self.vocab[w] = i
+            self.rev[i] = w
+        return self.vocab[w]
+
+    def encode(self, text):
+        return [self._id(w) for w in text.strip().split(" ") if w]
+
+    def decode(self, ids):
+        return " ".join(self.rev.get(int(i), "") for i in ids).strip()
+
+
+def _get_gpt2_tokenizer(allow_fallback: bool):
+    """The GPT-2 tokenizer: `text.gpt2_bpe` over local vocabulary files
+    ($GPT2_BPE_DIR, then the Hugging Face cache), else the whitespace
+    fallback under `allow_fallback` (a UserWarning, which Python shows once
+    by default), else FileNotFoundError.
+    The reference asks transformers' cache first; over the same files the
+    in-tree BPE gives its ids."""
+    from patchioner_tpu_torch.text import gpt2_bpe
+
+    tok = gpt2_bpe.load_gpt2_tokenizer()
+    if tok is not None:
+        return tok
+    if not allow_fallback:
+        raise FileNotFoundError("GPT-2 tokenizer files unavailable; set $GPT2_BPE_DIR to a "
+                                "directory with vocab.json + merges.txt or pass "
+                                "allow_missing_weights=True")
+    warnings.warn("GPT-2 vocab files unavailable locally (set $GPT2_BPE_DIR to a dir with "
+                  "vocab.json+merges.txt): using a whitespace fallback tokenizer (not "
+                  "caption parity)")
+    return _FallbackWordTokenizer()
+
+
+def uses_fallback_tokenizer(model) -> bool:
+    """True when the model's GPT-2 decoder (ViECap) detokenises through the
+    whitespace fallback, so its strings are not the reference's. DeCap's
+    CLIP BPE never does."""
+    comp = getattr(model, "viecap", None)
+    return isinstance(getattr(comp, "tokenizer", None), _FallbackWordTokenizer)
+
+
+# the entity vocabularies: the text file and the stem of the embedding
+# pickle (`{stem}_{suffix}[_with_ensemble].pickle`) of each
+_ENTITY_FILES = {
+    "coco_entities": ("coco_categories.json", "coco_embeddings"),
+    "vinvl_vgoi_entities": ("vgcocooiobjects_v1_class2ind.json", "vgoi_embeddings"),
+    "visual_genome_entities": ("all_objects_attributes_relationships.pickle",
+                               "visual_genome_embedding"),
+    "open_image_entities": ("oidv7-class-descriptions-boxable.csv", "open_image_embeddings"),
+    "vinvl_vg_entities": ("VG-SGG-dicts-vgoi6-clipped.json", "vg_embeddings"),
+}
+
+
+def _load_viecap_file(path: str, cfg: viecap_mod.ViecapConfig, gcfg: gpt2.GPT2Config,
+                      clock: _Clock) -> tuple[dict, Optional[dict]]:
+    """A ViECap `.pt` (`mapping_network.*`, and `gpt.*` in GPT2LMHeadModel
+    naming when it carries the GPT-2) as f32 CPU trees, checked against
+    the config: (mapping, gpt2 or None)."""
+    sd = _torch_load(path, clock)
+    layers = _num_blocks(sd, "mapping_network.transformer.layers.")
+    if layers != cfg.num_layers:
+        raise ValueError(f"viecap.weight_path={path!r} holds a mapping network of {layers} "
+                         f"layers where the config gives {cfg.num_layers}")
+    with clock("port"):
+        mapping = viecap_mod.port_mapping_network(sd, num_layers=layers)
+        gpt = None
+        if any(k.startswith("gpt.") for k in sd):
+            gpt = torch_port.port_hf_gpt2_lmhead(
+                {k[4:]: v for k, v in sd.items() if k.startswith("gpt.")},
+                _num_blocks(sd, "gpt.transformer.h."))
+    _check_tree("viecap.weight_path", path, mapping,
+                viecap_mod.mapping_template(cfg, gcfg.n_embd),
+                f"clip_hidden_size {cfg.clip_hidden_size}, clip_project_length "
+                f"{cfg.clip_project_length}, continuous_prompt_length "
+                f"{cfg.continuous_prompt_length}, {cfg.num_layers} layers of {gcfg.n_embd}")
+    if gpt is not None:
+        _check_tree("viecap.weight_path", path, gpt, gpt2.param_template(gcfg),
+                    f"GPT-2 n_layer {gcfg.n_layer}, n_embd {gcfg.n_embd}, vocab_size "
+                    f"{gcfg.vocab_size}, n_positions {gcfg.n_positions}")
+    return mapping, gpt
+
+
+def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
+                         allow_missing_weights: bool, gpt2_tokenizer, device,
+                         clock: _Clock) -> viecap_mod.VieCap:
+    """VieCap from the config's `viecap:` block (reference src/model.py:107-113,
+    viecap/entrypoint.py:61-96; twin of `patchioner.py:155-300` without
+    MeaCap): the mapping network and GPT-2 base (`gpt2.GPT2_BASE_CONFIG`)
+    from `weight_path`, the entity vocabulary and its embeddings from
+    `files_path/annotations/vocabulary`, else from the port's data folder.
+    A missing file falls back to random tensors only under
+    `allow_missing_weights`, else raises FileNotFoundError."""
+    clip_hidden = vd.get("clip_hidden_size") or (
+        640 if clip_model_name and "RN" in clip_model_name else 512)
+    cfg = viecap_mod.ViecapConfig(
+        continuous_prompt_length=vd.get("continuous_prompt_length", 10),
+        clip_project_length=vd.get("clip_project_length", 10),
+        clip_hidden_size=clip_hidden,
+        temperature=vd.get("temperature", 0.01),
+        top_k=vd.get("top_k", 3),
+        threshold=vd.get("threshold", 0.2),
+        using_hard_prompt=vd.get("using_hard_prompt", False),
+        soft_prompt_first=vd.get("soft_prompt_first", False),
+        only_hard_prompt=vd.get("only_hard_prompt", False),
+        using_greedy_search=vd.get("using_greedy_search", False),
+        beam_width=vd.get("beam_width", 5),
+        name_of_entities_text=vd.get("name_of_entities_text", "vinvl_vgoi_entities"),
+        prompt_ensemble=vd.get("prompt_ensemble", False))
+    gcfg = gpt2.GPT2_BASE_CONFIG
+
+    path = vd.get("weight_path")
+    if path and os.path.isdir(str(path)):
+        raise NotImplementedError(
+            f"viecap.weight_path={path!r} is a directory, an Orbax checkpoint of the JAX "
+            "package's mapper training: loading one waits for the port's training slice")
+    gpt = None
+    if path and os.path.exists(str(path)):
+        mapping, gpt = _load_viecap_file(str(path), cfg, gcfg, clock)
+    elif allow_missing_weights:
+        mapping = viecap_mod.init_mapping_network(cfg, gcfg.n_embd, generator, device)
+    else:
+        raise FileNotFoundError(f"ViECap weights not found: {path}")
+    if gpt is None:
+        if not allow_missing_weights:
+            raise FileNotFoundError("pretrained GPT-2 weights unavailable locally for ViECap")
+        gpt = gpt2.init_gpt2(gcfg, generator, device)
+    tokenizer = gpt2_tokenizer or _get_gpt2_tokenizer(allow_missing_weights)
+
+    suffix = (vd.get("suffix") or (clip_model_name or "ViT-B/32")).replace("/", "")
+    name = cfg.name_of_entities_text
+    text_file, stem = _ENTITY_FILES[name]
+    vocab_dir = os.path.join(vd.get("files_path", ""), "annotations/vocabulary")
+    if not os.path.exists(vocab_dir):
+        vocab_dir = viecap_mod.VOCAB_DIR
+    entities = viecap_mod.load_entities_text(name, os.path.join(vocab_dir, text_file))
+    ens = "_with_ensemble" if cfg.prompt_ensemble else ""
+    emb_path = os.path.join(vocab_dir, f"{stem}_{suffix}{ens}.pickle")
+    if os.path.exists(emb_path):
+        with clock("read"), open(emb_path, "rb") as f:
+            emb = pickle.load(f)
+        emb = torch.as_tensor(np.asarray(emb.detach().cpu() if torch.is_tensor(emb) else emb,
+                                         np.float32))
+    elif allow_missing_weights:
+        emb = torch.randn(len(entities), clip_hidden, generator=generator, device=device)
+    else:
+        raise FileNotFoundError(f"entity embeddings not found: {emb_path}")
+    if tuple(emb.shape) != (len(entities), clip_hidden):
+        raise ValueError(f"entity embeddings {emb_path!r} are {tuple(emb.shape)} where the "
+                         f"config gives {len(entities)} entities of clip_hidden_size "
+                         f"{clip_hidden}")
+    with clock("upload"):
+        return viecap_mod.VieCap(cfg, gcfg, gpt, mapping, entities, emb, tokenizer,
+                                 device=device)
+
+
+def _traces_to_arrays(traces, device):
+    """Traces in the reference's format (a list a image of {'x', 'y'} point
+    dicts, or of (x, y) pairs) -> (B, P, 2) points padded to the longest and
+    a (B, P) valid mask on `device`. Twin of `patchioner.py:303`."""
+    seqs = [[(float(p["x"]), float(p["y"])) if isinstance(p, dict)
+             else (float(p[0]), float(p[1])) for p in tr] for tr in traces]
+    p = max((len(s) for s in seqs), default=1) or 1
+    out = np.zeros((len(seqs), p, 2), np.float32)
+    valid = np.zeros((len(seqs), p), np.float32)
+    for i, s in enumerate(seqs):
+        if s:
+            out[i, : len(s)] = s
+            valid[i, : len(s)] = 1.0
+    return torch.from_numpy(out).to(device), torch.from_numpy(valid).to(device)
+
+
 class Patchioner:
     def __init__(self, *, vit_cfg: vit.ViTConfig, vit_params: dict,
                  gpt2_cfg: gpt2.GPT2Config, decoder: decap.DecapParams,
-                 bank, normalize: bool = True, bank_texts: Optional[list] = None,
+                 bank=None, normalize: bool = True, bank_texts: Optional[list] = None,
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
                  device="cuda", tokenizer=None,
-                 entry_length: int = decap.ENTRY_LENGTH):
+                 entry_length: int = decap.ENTRY_LENGTH,
+                 viecap: Optional[viecap_mod.VieCap] = None):
         self.vit_cfg = vit_cfg
         self.gpt2_cfg = gpt2_cfg
         self.device = entry.resolve_device(device)
@@ -288,13 +512,16 @@ class Patchioner:
         self.decoder = decap.DecapParams(
             *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
         self.decode = decap.GreedyDecoder(self.decoder, gpt2_cfg, entry_length)
-        # a PreparedBank, or a QuantizedBank (int8 rows, per-row scales)
-        self.bank = type(bank)(*(t.to(self.device).contiguous() for t in bank[:-1]),
-                               int(bank.num_real))
+        # a PreparedBank, a QuantizedBank (int8 rows, per-row scales), or
+        # None: no support memory, the features decode as they are
+        self.bank = None if bank is None else type(bank)(
+            *(t.to(self.device).contiguous() for t in bank[:-1]), int(bank.num_real))
         self.bank_texts = bank_texts
         self.normalize = normalize
         self.inversion = (None if inversion is None else
                           {k: v.to(self.device) for k, v in inversion.items()})
+        # the ViECap decoder family, which captions instead of DeCap
+        self.viecap = None if viecap is None else viecap.to(self.device)
         self.config = dict(config or {})
         self.entry_length = entry_length
         self.load_seconds: dict = {}
@@ -316,7 +543,7 @@ class Patchioner:
                     allow_missing_weights: bool = False,
                     random_bank_size: Optional[int] = None,
                     dtype: torch.dtype = torch.float32,
-                    device="cuda") -> "Patchioner":
+                    device="cuda", gpt2_tokenizer=None) -> "Patchioner":
         if isinstance(config, str):
             import yaml
 
@@ -375,12 +602,37 @@ class Patchioner:
         inversion = None
         if path and os.path.exists(str(path)):
             inversion = _load_inversion(str(path), prefix_size, clock)
+        bank, bank_texts = None, None
+        if int(config.get("support_memory_size", 0)) > 0:
+            bank, bank_texts = cls._build_bank(config, inversion, prefix_size, dtype,
+                                               device, allow_missing_weights,
+                                               random_bank_size, gen(2), clock)
+        viecap = None
+        if config.get("viecap") is not None:
+            viecap = _build_viecap_family(config["viecap"], config.get("clip_model_name"),
+                                          gen(3), allow_missing_weights, gpt2_tokenizer,
+                                          device, clock)
+        with clock("upload"):
+            model = cls(vit_cfg=vit_cfg, vit_params=vit_params, gpt2_cfg=gpt2_cfg,
+                        decoder=decoder, bank=bank, bank_texts=bank_texts,
+                        normalize=bool(config.get("normalize", True)),
+                        inversion=inversion, config=config, device=device, viecap=viecap)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        model.load_seconds = dict(clock)
+        return model
+
+    @staticmethod
+    def _build_bank(config, inversion, prefix_size, dtype, device, allow_missing_weights,
+                    random_bank_size, generator, clock):
+        """The support memory as (a PreparedBank or QuantizedBank on
+        `device`, its texts): the HDF5 file `_bank_path` names, else random
+        rows under `allow_missing_weights`."""
         width = prefix_size if inversion is None else int(inversion["A_pinv"].shape[1])
         if width > memproj.MAX_D:
             raise NotImplementedError(
                 f"a {width}-wide support memory is not ported yet: the projection "
                 f"kernels take D <= {memproj.MAX_D}")
-
         path, dataset = _bank_path(config)
         if os.path.exists(path):
             with clock("read"):
@@ -394,25 +646,15 @@ class Patchioner:
                 emb = torch.from_numpy(loaded.embeddings).to(device)
         elif allow_missing_weights:
             size = random_bank_size or int(config["support_memory_size"])
-            emb = torch.randn(size, width, generator=gen(2), device=device)
+            emb = torch.randn(size, width, generator=generator, device=device)
             bank_texts = [f"synthetic caption {i}" for i in range(size)]
         else:
             raise FileNotFoundError(f"memory bank not found at {path}")
         with clock("upload"):
             if config.get("memory_bank_int8"):
-                bank = memproj.quantize_bank(emb)
-            else:
-                bank = memproj.prepare_bank(
-                    emb, dtype=None if dtype == torch.float32 else dtype)
-            del emb
-            model = cls(vit_cfg=vit_cfg, vit_params=vit_params, gpt2_cfg=gpt2_cfg,
-                        decoder=decoder, bank=bank, bank_texts=bank_texts,
-                        normalize=bool(config.get("normalize", True)),
-                        inversion=inversion, config=config, device=device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        model.load_seconds = dict(clock)
-        return model
+                return memproj.quantize_bank(emb), bank_texts
+            return memproj.prepare_bank(
+                emb, dtype=None if dtype == torch.float32 else dtype), bank_texts
 
     def to(self, device) -> "Patchioner":
         """A copy of the model with every tensor on `device`."""
@@ -421,31 +663,40 @@ class Patchioner:
             gpt2_cfg=self.gpt2_cfg, decoder=self.decoder, bank=self.bank,
             bank_texts=self.bank_texts, normalize=self.normalize,
             inversion=self.inversion, config=self.config, device=device,
-            tokenizer=self.tokenizer, entry_length=self.entry_length)
+            tokenizer=self.tokenizer, entry_length=self.entry_length, viecap=self.viecap)
 
     def supports_fused_trace_path(self) -> bool:
-        """Always: the port holds only the DINO + DeCap subset with a bank."""
-        return True
+        """True for DeCap over a support memory; a ViECap model, or one
+        without a bank, captions through `forward` (`patchioner.py:1369`)."""
+        return self.viecap is None and self.bank is not None
 
     def state(self) -> dict:
         return entry.make_state(self.vit_params, self.decoder, self.bank,
                                 self.inversion, decode=self.decode)
 
-    def pixels_to_device(self, imgs) -> torch.Tensor:
-        """NHWC or NCHW uint8 / normalised float images -> normalised f32
-        NHWC on the model's device (uint8 is normalised on the device)."""
+    def _pixels(self, imgs) -> torch.Tensor:
+        """NHWC or NCHW images on the model's device as normalised f32 NHWC
+        (uint8 is normalised on the device)."""
         x = _as_nhwc(imgs).to(self.device)
-        if x.shape[1] != self.crop_dim or x.shape[2] != self.crop_dim:
-            raise ValueError(
-                f"the fused caption paths need {self.crop_dim}px images, got "
-                f"{x.shape[1]}x{x.shape[2]}")
         if x.dtype == torch.uint8:
             x = (x.float() / 255.0 - self._mean) / self._std
         return x.float()
 
+    def pixels_to_device(self, imgs) -> torch.Tensor:
+        """`_pixels`, for the fused paths, which take `crop_dim` images."""
+        x = _as_nhwc(imgs)
+        if x.shape[1] != self.crop_dim or x.shape[2] != self.crop_dim:
+            raise ValueError(
+                f"the fused caption paths need {self.crop_dim}px images, got "
+                f"{x.shape[1]}x{x.shape[2]}")
+        return self._pixels(x)
+
     def _caption_rows(self, pool, imgs, *pool_args) -> list:
         """One fused step with `pool` over the images and the pool's
         arrays (f32 on the model's device); a caption string per row."""
+        if not self.supports_fused_trace_path():
+            raise ValueError("this model has no fused caption path (a ViECap decoder or "
+                             "no support memory): caption through forward()")
         step = entry.make_caption_step(
             self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
             n_steps=self.entry_length, normalize=self.normalize, pool=pool)
@@ -495,3 +746,153 @@ class Patchioner:
             gaussian_bbox_variance=gaussian_bbox_variance,
             use_attn_map=use_attn_map_for_bboxes)
         return self._caption_rows(pool, imgs, bboxes)
+
+    # ------------------------------------------------- the generic path
+
+    @torch.no_grad()
+    def encode_images(self, imgs) -> dict:
+        """The encoder's outputs for images of any size (NHWC or NCHW,
+        uint8 normalised on the device), with `self_attn` (B, P), the
+        CLS->patch attention row, and `self_attn_maps` (B, H, P) softmaxed
+        per head. Twin of `patchioner.py:1085` (the DINO backbone)."""
+        cfg = self.vit_cfg
+        outs = vit.vit_forward(self.vit_params, self._pixels(imgs), cfg)
+        self_attn, maps = vit.process_self_attention(
+            outs["qkv_last"], num_heads=cfg.extract_heads,
+            num_global_tokens=cfg.num_global_tokens, scale=cfg.extract_scale)
+        outs["self_attn"] = self_attn
+        outs["self_attn_maps"] = torch.softmax(maps, dim=-1)
+        return outs
+
+    @torch.no_grad()
+    def project_features(self, feats: torch.Tensor, project: bool = True,
+                         normalize: Optional[bool] = None) -> torch.Tensor:
+        """The support-memory projection (kernel D, or H over an int8 bank),
+        then the Talk2DINO inversion when the model has one. Under the
+        inversion the projection runs whatever `project` says, as in the
+        reference (`patchioner.py:1282-1297`)."""
+        norm = self.normalize if normalize is None else normalize
+        if (project or self.inversion is not None) and self.bank is not None:
+            feats = entry.project(self.state(), feats, self.bank.num_real, normalize=norm)
+        if self.inversion is not None:
+            feats = talk2dino.revert_transformation(feats, self.inversion)
+        return feats
+
+    @torch.no_grad()
+    def caption_tokens(self, feats, project: bool = True,
+                       return_n_best_sims: Optional[int] = None,
+                       compute_scores: bool = False):
+        """(N, D) features -> N captions (with `compute_scores` also N
+        scores): ViECap's, before any projection, when the model has it;
+        else projected (when there is a bank) and decoded by DeCap.
+        Twin of `patchioner.py:1301-1363`; `return_n_best_sims` and the
+        argmax-text mode are not ported."""
+        feats = torch.as_tensor(feats).to(self.device)
+        if self.viecap is not None:
+            if return_n_best_sims:
+                raise ValueError("return_n_best_sims is not supported with viecap")
+            return self.viecap.forward(feats, compute_scores=compute_scores)
+        if return_n_best_sims is not None:
+            raise NotImplementedError("return_n_best_sims is not ported yet (it needs "
+                                      "memory_topk_sims)")
+        prefix = self.project_features(feats, project=project)
+        # DeCap's eager loop in the reference; the graph decoder replays its
+        # very launches on the card
+        tokens, scores = self.decode(prefix.float())
+        capts = [self.tokenizer.decode_caption(row) for row in tokens.cpu().numpy()]
+        if compute_scores:
+            return capts, scores.cpu().numpy().tolist()
+        return capts
+
+    @torch.no_grad()
+    def forward(self, imgs, get_cls_capt: bool = True, get_avg_self_attn_capt: bool = False,
+                get_attn_heads_capt: bool = False, get_patch_capts: bool = False,
+                get_register_capts: bool = False, bboxes=None, traces=None,
+                get_controllable_capts: bool = False, bs_factor: int = 4,
+                gaussian_avg: bool = False, gaussian_bbox_variance: float = 0.5,
+                get_avg_patch_capt: bool = False, gaussian_img_variance: float = 1,
+                use_attn_map_for_bboxes: bool = False, use_attention_tracing: bool = False,
+                double_DINO_for_bboxes: bool = False,
+                double_DINO_for_bboxes_return_type: str = "avg",
+                double_DINO_use_cls: bool = False, cleaning_type: Optional[str] = None,
+                clean_after_projection: bool = True, alpha: float = 1.0,
+                clean_from: str = "cls", caption_bboxes_type: Optional[str] = None,
+                return_n_best_sims: Optional[int] = None,
+                compute_scores: bool = False) -> dict:
+        """Every caption the flags ask for, in the reference's output keys
+        and per-image nesting (`patchioner.py:1959-2216`, the DINO
+        backbone): `cls_capt`, `avg_self_attn_capt`, `avg_patch_capt`,
+        `patch_tokens_capts`, `register_capts`, `bbox_capts` (pixel
+        `[x1, y1, w, h]` boxes; uniform, Gaussian or attention-map weights),
+        `set_controllable_capts` (one caption per box set) and `trace_capts`
+        (a list of traces, or padded (points, valid)); with `compute_scores`
+        each caption list but the last two has a `_scores` twin. Flags not
+        ported raise NotImplementedError naming themselves."""
+        assert clean_from in ("cls", "avg_self_attn")
+        assert cleaning_type in (None, "orthogonal_projection", "contrastive_mask")
+        refused = {"cleaning_type": cleaning_type is not None,
+                   "double_DINO_for_bboxes": double_DINO_for_bboxes,
+                   "caption_bboxes_type": caption_bboxes_type is not None,
+                   "get_attn_heads_capt": get_attn_heads_capt,
+                   "return_n_best_sims": return_n_best_sims is not None}
+        for flag, asked in refused.items():
+            if asked:
+                raise NotImplementedError(f"forward({flag}=...) is not ported yet")
+
+        outs: dict[str, Any] = {}
+        enc = self.encode_images(imgs)
+        patch_tokens = enc["x_norm_patchtokens"]
+        bs, n_patches, embed_dim = patch_tokens.shape
+        self_attn = enc["self_attn"]
+
+        def emit(key, feats):
+            ret = self.caption_tokens(feats, compute_scores=compute_scores)
+            if compute_scores:
+                outs[key], outs[f"{key}_scores"] = ret
+            else:
+                outs[key] = ret
+
+        def emit_per_image(key, score_key, feats, per):
+            ret = self.caption_tokens(feats.reshape(-1, embed_dim),
+                                      compute_scores=compute_scores)
+            capts, scores = ret if compute_scores else (ret, None)
+            outs[key] = [capts[i * per:(i + 1) * per] for i in range(bs)]
+            if compute_scores:
+                outs[score_key] = [scores[i * per:(i + 1) * per] for i in range(bs)]
+
+        if get_cls_capt:
+            emit("cls_capt", enc["x_norm_clstoken"])
+        if get_avg_self_attn_capt:
+            emit("avg_self_attn_capt", (self_attn[..., None] * patch_tokens).mean(dim=1))
+        if get_avg_patch_capt:
+            emit("avg_patch_capt", rp.compute_region_means(patch_tokens, gaussian_img_variance))
+        if get_patch_capts:
+            emit_per_image("patch_tokens_capts", "patch_tokens_scores", patch_tokens,
+                           n_patches)
+        if get_register_capts:
+            regs = enc["x_norm_regtokens"]
+            emit_per_image("register_capts", "register_scores", regs, regs.shape[1])
+
+        if bboxes is not None:
+            boxes = torch.as_tensor(np.asarray(bboxes, np.float32), device=self.device)
+            weight_kw = dict(patch_size=self.patch_size, gaussian_avg=gaussian_avg,
+                             gaussian_bbox_variance=float(gaussian_bbox_variance),
+                             attention_map=self_attn if use_attn_map_for_bboxes else None)
+            if get_controllable_capts:
+                outs["set_controllable_capts"] = self.caption_tokens(
+                    rp.extract_bbox_features_single(patch_tokens, boxes, **weight_kw))
+            else:
+                emit_per_image("bbox_capts", "bbox_scores",
+                               rp.extract_bbox_features(patch_tokens, boxes, **weight_kw),
+                               boxes.shape[1])
+
+        if traces is not None:
+            if isinstance(traces, (list, tuple)):
+                pts, valid = _traces_to_arrays(traces, self.device)
+            else:  # pre-padded (B, P, 2) points and (B, P) valid mask
+                pts, valid = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                              for a in traces)
+            grid = rp.traces_to_grid(pts, valid, int(round(n_patches ** 0.5)))
+            outs["trace_capts"] = self.caption_tokens(rp.trace_pool(
+                patch_tokens, grid, self_attn if use_attention_tracing else None))
+        return outs

@@ -209,7 +209,9 @@ def param_template(cfg: ViTConfig) -> dict:
 
 def cast_params(tree, dtype: torch.dtype, device=None):
     """Every floating tensor of a nested dict/list cast to `dtype` (and moved
-    to `device`), contiguous."""
+    to `device`), contiguous; None leaves (a linear without a bias) stay."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: cast_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

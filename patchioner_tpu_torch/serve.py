@@ -1,4 +1,4 @@
-"""Dynamic-batching caption server for the port's fused caption paths.
+"""Dynamic-batching caption server for the port's `Patchioner`.
 
 Twin of `patchioner_tpu/serve.py` (`CaptionServer`) on one device:
 trace, box, region-set and whole-image requests. Requests enqueue from any
@@ -8,15 +8,17 @@ splits each by request kind and then by pixel type, pads each group to the
 next size of a ladder of powers of two (so the device sees a few fixed
 batch shapes) and runs the model's fused path for that kind
 (`caption_traces_fused`, `caption_bboxes_fused`,
-`caption_region_sets_fused` or `caption_images_fused`). Padding rows and
+`caption_region_sets_fused` or `caption_images_fused`), or for a model
+without them (a ViECap decoder, or no support memory) `forward`, with the
+flags the JAX server passes (`patchioner_tpu/serve.py:547-605`). Padding rows and
 padding boxes are cut off before delivery, so a request's caption does not
 depend on its neighbours in the batch.
 
 `warmup` runs dummy batches of each bucket before traffic arrives, on the
 worker thread: CUDA libraries keep some state per host thread, which a
-warm-up on the caller's thread would leave cold, and the model's decoder
-captures its CUDA graph for each bucket's row count there, so that no
-served batch pays a capture. Serving over several
+warm-up on the caller's thread would leave cold, and a DeCap model's
+decoder captures its CUDA graph for each bucket's row count there, so that
+no served batch pays a capture (a ViECap model's searches run eagerly). Serving over several
 devices (`mesh`) and several worker threads (`workers`) is not ported.
 """
 
@@ -104,9 +106,10 @@ class CaptionServer:
     """Batched captioning over a built port `Patchioner`.
 
     Args:
-      model: has the fused caption paths (`caption_traces_fused`,
-        `caption_bboxes_fused`, `caption_region_sets_fused`,
-        `caption_images_fused`), `crop_dim` and `resize_dim`.
+      model: has `crop_dim`, `resize_dim` and either the fused caption
+        paths (`caption_traces_fused`, `caption_bboxes_fused`,
+        `caption_region_sets_fused`, `caption_images_fused`), when its
+        `supports_fused_trace_path()` is true, or `forward`.
       max_batch: largest micro-batch, and the top of the bucket ladder.
       max_delay_ms: how long the worker holding one request waits to fill a
         batch; the latency/throughput knob.
@@ -125,11 +128,6 @@ class CaptionServer:
             raise ValueError("max_batch must be >= 1")
         if max_queue is not None and max_queue < 1:
             raise ValueError("max_queue must be >= 1 (or None)")
-        if not (hasattr(model, "supports_fused_trace_path")
-                and model.supports_fused_trace_path()):
-            raise NotImplementedError(
-                f"{type(model).__name__} has no fused trace path; serving "
-                "through forward() is not ported yet")
         self.model = model
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
@@ -314,6 +312,10 @@ class CaptionServer:
             out.append((x1 * d, y1 * d, (x2 - x1) * d, (y2 - y1) * d))
         return out
 
+    def _fused_ok(self) -> bool:
+        return (hasattr(self.model, "supports_fused_trace_path")
+                and self.model.supports_fused_trace_path())
+
     def _bucket(self, n: int) -> int:
         return next((b for b in self.buckets if n <= b), self.max_batch)
 
@@ -401,7 +403,12 @@ class CaptionServer:
         imgs = np.stack([r.pixels for r in group])
         if nb > n:  # pad with copies of row 0, cut off below
             imgs = np.concatenate([imgs, np.repeat(imgs[:1], nb - n, axis=0)])
+        fused = self._fused_ok()
         if mode == "trace":
+            if not fused:
+                traces = [r.trace for r in group] + [group[0].trace] * (nb - n)
+                return list(self.model.forward(imgs, get_cls_capt=False,
+                                               traces=traces)["trace_capts"][:n])
             pts = np.zeros((nb, self.trace_points, 2), np.float32)
             valid = np.zeros((nb, self.trace_points), np.float32)
             for i, r in enumerate(group):
@@ -417,12 +424,18 @@ class CaptionServer:
             for i, r in enumerate(group):
                 if r.bboxes:
                     boxes[i, : len(r.bboxes)] = r.bboxes
-            rows = self.model.caption_bboxes_fused(imgs, boxes)
+            rows = (self.model.caption_bboxes_fused(imgs, boxes) if fused else
+                    self.model.forward(imgs, get_cls_capt=False, bboxes=boxes)["bbox_capts"])
             return [list(rows[i][: len(r.bboxes)]) for i, r in enumerate(group)]
         if mode == "region_set":
             # [-1] * 4 rows pad a set; the merged map skips them
             boxes = np.full((nb, self.max_boxes, 4), -1.0, np.float32)
             for i, r in enumerate(group):
                 boxes[i, : len(r.bboxes)] = r.bboxes
-            return list(self.model.caption_region_sets_fused(imgs, boxes)[:n])
-        return list(self.model.caption_images_fused(imgs)[:n])
+            caps = (self.model.caption_region_sets_fused(imgs, boxes) if fused else
+                    self.model.forward(imgs, get_cls_capt=False, bboxes=boxes,
+                                       get_controllable_capts=True)["set_controllable_capts"])
+            return list(caps[:n])
+        caps = (self.model.caption_images_fused(imgs) if fused else
+                self.model.forward(imgs, get_cls_capt=True)["cls_capt"])
+        return list(caps[:n])

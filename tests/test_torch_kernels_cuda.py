@@ -18,6 +18,11 @@ The DeCap decode's CUDA graph (`decap.GreedyDecoder`) is held against the
 eager loop, its plain version: the graph replays the loop's own launches,
 so the tokens must be equal and the scores within 1e-6 (f32) and 1e-3
 (bf16) relative.
+
+ViECap's searches (plain torch, no kernel) run on the card as on the CPU:
+on a small f32 GPT-2 whose wte is scaled so that no step is a near-tie,
+the batched beam search equals the per-image one, and every search's
+tokens equal the CPU's.
 """
 
 import dataclasses
@@ -28,7 +33,7 @@ import pytest
 import torch
 
 from patchioner_tpu_torch import entry
-from patchioner_tpu_torch.models import decap, gpt2, vit
+from patchioner_tpu_torch.models import decap, gpt2, viecap, vit
 from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
 pytestmark = pytest.mark.cuda
@@ -624,3 +629,37 @@ def test_loaded_model_on_the_card_matches_the_same_files_on_the_cpu(cuda, tmp_pa
     wrapper = mp.memory_project_int8 if bank == "int8" else mp.memory_project_streamed
     got = _counted(wrapper, lambda: step(gpu.state(), *(t.cuda() for t in inputs))).cpu()
     assert np.max(np.abs((got - ref).numpy())) <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def _sharp_lm(seed):
+    """A 2-layer, 32-wide GPT-2 over 263 tokens, wte scaled by 20 so that no
+    step of a search is a near-tie; f32 on the CPU."""
+    cfg = gpt2.GPT2Config(vocab_size=263, n_positions=128, n_embd=32, n_layer=2, n_head=2)
+    params = gpt2.init_gpt2(cfg, torch.Generator().manual_seed(seed))
+    params["wte"] *= 20
+    return cfg, params
+
+
+def test_viecap_batched_beam_search_on_the_card_equals_per_image(cuda):
+    cfg, params = _sharp_lm(0)
+    params = vit.cast_params(params, torch.float32, "cuda")
+    embeds = torch.randn(6, 5, 32, generator=torch.Generator().manual_seed(1)).cuda()
+    eos = torch.tensor([13, 27], device="cuda")
+    toks, lengths, norm = viecap.beam_tokens(params, embeds, eos, cfg, 12, 5)
+    for i in range(embeds.shape[0]):
+        one = viecap.beam_tokens(params, embeds[i:i + 1], eos, cfg, 12, 5)
+        assert torch.equal(toks[i], one[0][0]) and torch.equal(lengths[i], one[1][0])
+        torch.testing.assert_close(norm[i], one[2][0], rtol=1e-5, atol=0)
+
+
+def test_viecap_searches_on_the_card_equal_the_cpu(cuda):
+    cfg, params = _sharp_lm(2)
+    embeds = torch.randn(4, 7, 32, generator=torch.Generator().manual_seed(3))
+    eos = torch.tensor([13, 27])
+    on_card = vit.cast_params(params, torch.float32, "cuda")
+    for name, call in (
+            ("greedy", lambda p, e, q: viecap.greedy_tokens(p, e, cfg, 16)),
+            ("beam", lambda p, e, q: viecap.beam_tokens(p, e, q, cfg, 12, 5)[0]),
+            ("contrastive", lambda p, e, q: viecap.contrastive_tokens(p, e, cfg, 16, 8, 0.1))):
+        got = call(on_card, embeds.cuda(), eos.cuda()).cpu()
+        assert torch.equal(got, call(params, embeds, eos)), name

@@ -143,8 +143,30 @@ def test_shipped_flagship_configs_build(path):
     assert model.vit_cfg.num_tokens == 1374 and model.bank.num_real == 8
 
 
+def test_chip_smoke_viecap_config_is_configs_mlp_viecap_k_yaml():
+    with open(os.path.join(REPO, "configs", "mlp.viecap.k.yaml")) as f:
+        assert _chip_smoke_module().VIECAP_CONFIG == yaml.safe_load(f)
+
+
+def test_shipped_viecap_config_builds():
+    """configs/mlp.viecap.k.yaml at full width: the ViT-B/14-reg encoder,
+    no support memory, a VieCap with the 8-layer mapping network, GPT-2
+    base in f32 and the COCO entities with their vendored embeddings."""
+    model = Patchioner.from_config(os.path.join(REPO, "configs", "mlp.viecap.k.yaml"),
+                                   allow_missing_weights=True, device="cpu")
+    vc = model.viecap
+    assert model.bank is None and not model.supports_fused_trace_path()
+    assert model.vit_cfg.num_tokens == 1374 and vc.gpt2_cfg == gpt2.GPT2_BASE_CONFIG
+    assert (vc.cfg.num_layers, vc.cfg.clip_hidden_size, vc.cfg.threshold) == (8, 768, 0.4)
+    assert vc.gpt2_params["wte"].shape == (50257, 768) and len(vc.gpt2_params["blocks"]) == 12
+    assert vc.mapping_params["linear"]["w"].shape == (768, 7680)
+    assert len(vc.entities) == 80 and vc.texts_embeddings.shape == (80, 768)
+    assert vc.cfg.using_hard_prompt and vc.cfg.soft_prompt_first and vc.cfg.using_greedy_search
+
+
 @pytest.mark.parametrize("extra", [
-    {"viecap": {"project_length": 10}}, {"clipcap": {}},
+    {"viecap": {"meacap": {"memory_id": "coco"}}},
+    {"viecap": {"hard_prompt_pad_multiple": 8}}, {"clipcap": {}},
     {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
     {"dino_model": "vit_base_patch16_clip_224.openai"},
     {"calculate_argmax_text": True},
@@ -187,6 +209,16 @@ with CaptionServer(m, max_batch=2) as server:
         np.zeros((3, 28, 28, 3), np.uint8), [[(0.5, 0.5)]] * 3, timeout=60))
     assert len(server.submit(np.zeros((28, 28, 3), np.uint8),
                              bboxes=[(0, 0, 0.5, 0.5)] * 3).result(timeout=60)) == 3
+from patchioner_tpu_torch.models import gpt2
+gpt2.GPT2_BASE_CONFIG = gpt2.GPT2Config(n_layer=1, n_embd=64, n_head=1, vocab_size=1000,
+                                        n_positions=128)
+v = Patchioner.from_config(dict(cfg, support_memory_size=0, viecap={
+    "clip_hidden_size": 64, "using_hard_prompt": True, "using_greedy_search": True}),
+    allow_missing_weights=True, device="cpu")
+out = v.forward(np.zeros((2, 28, 28, 3), np.uint8), traces=[[(0.5, 0.5)]] * 2)
+assert len(out["cls_capt"]) == len(out["trace_capts"]) == 2
+with CaptionServer(v, max_batch=2) as server:
+    assert isinstance(server.submit(np.zeros((28, 28, 3), np.uint8)).result(timeout=120), str)
 print("jax loaded:", any(k == "jax" or k.startswith("jax.") for k in sys.modules))
 print("reference loaded:", sorted(k for k in sys.modules if k.split(".")[0] == "patchioner_tpu"))
 """
