@@ -29,7 +29,13 @@ then exits non-zero without the final result line:
    flagship MLP's for I (int8 weights), with CUDA-event timings,
    the least time the card could take for the same work, and torch's
    `scaled_dot_product_attention` on the same q, k, v as the attention
-   kernels' library yardstick; the projections (D and H, each also at
+   kernels' library yardstick, and as D's: softmax(f b^T / T) b is one
+   SDPA call with q the unit features, k the bank's unit rows (made once,
+   outside the timer, in the bank's type) and v its rows, held to D's
+   plain version after the output's L2 normalisation (left out of the
+   timed call), at 8 and 128 rows and at giant's width, each call's SDPA
+   backend printed (H has none: no PyTorch call reads an int8 bank); the
+   projections (D and H, each also at
    giant's width) also print the rate they read their bank at and its
    share of 3.35 TB/s. D and H also run at 128 batch rows (a served box
    batch: 8 images x 16 boxes) against the full flagship bank, printed
@@ -111,7 +117,31 @@ then exits non-zero without the final result line:
    through `forward` in bf16 after `warmup()`, each batch replaying a CUDA
    graph of the DeCap decoder that warm-up captured; then as 7b, the
    prefix DeCap decodes in place of the prompt embeddings, with one graph
-   replay asserted for each `caption_tokens` call on the card.
+   replay asserted for each `caption_tokens` call on the card;
+8. ClipCap on DINOv2: the flagship's encoder without a bank and an MLP
+   `clipcap` block at its defaults (prefix 10: 768 -> 3,840 -> 7,680;
+   top_p 0.8, temperature 1, 67 tokens, stop at '.'; GPT-2 base in f32),
+   loaded through `from_config` from phase 6's DINOv2 file and a seeded
+   ClipCap file in the published layout (`clip_project.model.{0,2}.*`,
+   `gpt.*`); 8 trace, 8 box and 8 whole-image requests served after each
+   kind's `warmup()`, with A, B and C 12 launches a batch and neither D nor
+   H nor the DeCap graph, captions/s, latency and a whole-image batch's
+   split (encoder, mapper, noise, sampling, inside the same `forward`
+   calls); the sampler's time, kernels and device ms a step; in f32 on the
+   card against the CPU, TF32 off, the mapper's output and the prefill's
+   logits under phase 5's gate and the tokens of 16 steps on the same
+   Gumbel noise, drawn on the CPU (reported); then one whole-image batch of
+   the transformer mapper (8 layers, `clip_project.*`), its output gated
+   the same way;
+9. MeaCap on DINOv2: `configs/mlp.meacap.k.yaml` (`MEACAP_CONFIG`) loaded
+   from phase 6's DINOv2 file, phase 7's ViECap file and a caption memory
+   written here in the published layout under `memory/coco_B16_t2d/`:
+   591,753 seeded captions from a small word list and their 1.82 GB of
+   f32 embeddings; 8 trace, 8 box and 8 whole-image requests served as in
+   phase 8, a whole-image batch's split (encoder, retrieval, concept
+   extraction on the host, search); in f32, card against CPU, the
+   retrieved indices and the concepts equal (asserted), the prompt
+   embeddings under the gate, greedy tokens of 16 steps (reported).
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -207,6 +237,41 @@ MAX_BOXES = 16  # the server's boxes a request: a box batch is B * 16 rows
 # once and each output written once. NVIDIA H100 SXM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
+
+# configs/mlp.meacap.k.yaml (MeaCap on DINOv2 features) as a dict;
+# tests/test_torch_slice.py holds it against the file
+MEACAP_CONFIG = {
+    "decap_weights": "weights/decap/talkingdino/talkingDINO.pt",
+    "prefix_size": 768,
+    "support_memory_size": 0,
+    "dino_model": "dinov2_vitb14_reg",
+    "normalize": False,
+    "use_talk2dino_project": False,
+    "clip_model_name": "ViT-B/16",
+    "viecap": {
+        "meacap": {
+            "memory_caption_num": 5,
+            "memory_id": "coco_B16_t2d",
+            "memory_base_path": "weights/meacap",
+        },
+        "clip_hidden_size": 768,
+        "suffix": "ViT-B16_t2d_",
+        "temperature": 0.01,
+        "top_k": 3,
+        "threshold": 0.4,
+        "name_of_entities_text": "coco_entities",
+        "prompt_ensemble": True,
+        "weight_path": "weights/viecap/train_coco_t2d_B16/coco_prefix-0014.pt",
+        "using_hard_prompt": True,
+        "soft_prompt_first": True,
+        "using_greedy_search": True,
+    },
+}
+# ClipCap on the flagship's encoder: no shipped config has a `clipcap`
+# block, so this one takes the block's defaults with the MLP mapper
+CLIPCAP_CONFIG = dict(FLAGSHIP_CONFIG, support_memory_size=0,
+                      clipcap={"mapping_type": "mlp"})
+MEMORY_ROWS = 591753  # the flagship's COCO support memory, as MeaCap's
 
 # each further attention configuration of the encoder (phase 4b, 5b)
 CONFIGS = {
@@ -331,6 +396,42 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _sdpa(q, k, v, scale: float):
+    """torch's scaled_dot_product_attention on (q, k, v), a library call; its
+    `backend` is the one the dispatcher picks for these inputs (a private
+    query of torch's, only printed)."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    def call():
+        return scaled_dot_product_attention(q, k, v, scale=scale)
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        call.backend = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
+    except Exception:
+        call.backend = "unknown"
+    return call
+
+
+def _bank_sdpa(feats, bank, unit, dtype):
+    """D's function, softmax(f b^T / T) b, as one SDPA call: q the unit
+    features, k the bank's unit rows `unit`, v its rows, all in `dtype`; the
+    output is not normalised (the plain version's L2 normalisation is left
+    out of the timed call)."""
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    q = (feats / feats.norm(dim=-1, keepdim=True)).to(dtype)
+    return _sdpa(q[None, None], unit[None, None], bank.rows[:bank.num_real][None, None],
+                 1.0 / mp.DEFAULT_TEMPERATURE)
+
+
+def _unit_rows(bank, dtype):
+    """The bank's real rows at unit norm in `dtype`: SDPA's keys for D."""
+    n = bank.num_real
+    return (bank.rows[:n].float() * bank.inv_norm[:n]).to(dtype)
+
+
 def _kernel_cases(dtype, gen):
     """(name, source, replaces, kernel call, plain call, library call or
     None, operations, bytes) at the shapes each kernel's path gives it;
@@ -381,9 +482,9 @@ def _kernel_cases(dtype, gen):
     qgbank = mp.quantize_bank(torch.randn(nb, GD, generator=gen, device=dev))
     # D and H at a served box batch's rows
     bfeats = torch.randn(B * MAX_BOXES, D, generator=gen, device=dev)
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+    sdpa = _sdpa(q, k, v, scale)
+    # D's library calls: the unit rows made once here, outside the timer
+    unit, gunit = _unit_rows(bank, dtype), _unit_rows(gbank, dtype)
 
     attn_flops = 4 * B * HEADS * N * N * HD  # QK^T and PV
     gattn_flops = 4 * B * GHEADS * N * N * HD
@@ -413,7 +514,8 @@ def _kernel_cases(dtype, gen):
         ("memory_project", "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:521",
          lambda: mp.memory_project_streamed(feats, bank, normalize=True),
-         lambda: mp.memory_project_plain(feats, bank, normalize=True), None,
+         lambda: mp.memory_project_plain(feats, bank, normalize=True),
+         _bank_sdpa(feats, bank, unit, dtype),
          4 * B * nb * D, _nbytes(feats, bank.rows[:nb], bank.inv_norm[:nb], feats)),
         ("dense_residual", "patchioner_tpu_torch/csrc/ln_dense.cu",
          "patchioner_tpu/ops/mlp.py:261",
@@ -455,7 +557,8 @@ def _kernel_cases(dtype, gen):
         ("memory_project_giant", "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:521",
          lambda: mp.memory_project_streamed(gfeats, gbank, normalize=True),
-         lambda: mp.memory_project_plain(gfeats, gbank, normalize=True), None,
+         lambda: mp.memory_project_plain(gfeats, gbank, normalize=True),
+         _bank_sdpa(gfeats, gbank, gunit, dtype),
          4 * B * nb * GD, _nbytes(gfeats, gbank.rows, gbank.inv_norm, gfeats)),
         ("ln_dense_giant", "patchioner_tpu_torch/csrc/ln_dense.cu",
          "patchioner_tpu/ops/mlp.py:188",
@@ -482,7 +585,8 @@ def _kernel_cases(dtype, gen):
         ("memory_project_128", "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:521",
          lambda: mp.memory_project_streamed(bfeats, bank, normalize=True),
-         lambda: mp.memory_project_plain(bfeats, bank, normalize=True), None,
+         lambda: mp.memory_project_plain(bfeats, bank, normalize=True),
+         _bank_sdpa(bfeats, bank, unit, dtype),
          4 * B * MAX_BOXES * nb * D,
          _nbytes(bfeats, bank.rows[:nb], bank.inv_norm[:nb], bfeats)),
         ("memory_project_int8_128", "patchioner_tpu_torch/csrc/memory_projection.cu",
@@ -494,10 +598,16 @@ def _kernel_cases(dtype, gen):
 
 
 def phase_kernels(seed: int) -> dict:
+    """Each kernel against its plain version, timed beside its bound and its
+    library call; the JSON summary's rows (bf16). A library call shared by
+    several kernels (SDPA on the attention's q, k, v) is timed once. D's
+    SDPA is held to D's plain version: within D's 1e-4 in f32; in bf16 its
+    q is rounded to bf16 as its k and v must be (D keeps f in f32), so it
+    takes the bf16 bound."""
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        sdpa_ms = None
+        library_cache = {}
         for (name, source, replaces, kern, plain, library, flops,
              nbytes) in _kernel_cases(dtype, gen):
             tol = TOLERANCE[torch.float32 if name in PROJECTIONS else dtype]
@@ -520,12 +630,35 @@ def phase_kernels(seed: int) -> dict:
             op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(op_ms, byte_ms)
             library_ms = None
+            if name == "memory_project_int8":
+                log(f"[kernels] {name}: no library call (no PyTorch call reads an int8 bank)")
             if library is not None:
-                if sdpa_ms is None:
-                    sdpa_ms = cuda_ms(library)
-                    log(f"[kernels] scaled_dot_product_attention {str(dtype)[6:]} "
-                        f"({B}, {HEADS}, {N}, {HD}): {sdpa_ms:.4f} ms")
-                library_ms = sdpa_ms
+                if library not in library_cache:
+                    # D's SDPA takes tens of ms (one block of queries): fewer timings
+                    reps = dict(warmup=1, iters=3) if name in PROJECTIONS else {}
+                    library_cache[library] = cuda_ms(library, **reps)
+                    log(f"[kernels] scaled_dot_product_attention {str(dtype)[6:]} for {name}, "
+                        f"backend {library.backend}: {library_cache[library]:.4f} ms")
+                library_ms = library_cache[library]
+                if name in PROJECTIONS:
+                    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                    with sdpa_kernel(SDPBackend.MATH):
+                        log(f"[kernels] the same call on the math backend (printed only): "
+                            f"{cuda_ms(library, warmup=1, iters=3):.4f} ms")
+                    out = library().float()
+                    out = out.reshape(ref.shape) / out.reshape(ref.shape).norm(dim=-1,
+                                                                              keepdim=True)
+                    lib_err = (out - ref).abs().max().item()
+                    lib_rel = lib_err / max(ref.abs().max().item(), 1e-30)
+                    lib_tol = TOLERANCE[dtype]
+                    log(f"[kernels] {name} {str(dtype)[6:]}: SDPA (output normalised outside "
+                        f"the timed call) vs plain max|d|={lib_err:.3e} rel={lib_rel:.3e} "
+                        f"(tol {lib_tol:.0e})")
+                    if not lib_rel <= lib_tol:
+                        raise AssertionError(f"{name} {dtype}: SDPA is not the projection's "
+                                             f"function: rel error {lib_rel:.3e}")
+                    del out
             log(f"[kernels] {name} {str(dtype)[6:]}: max|d|={err:.3e} "
                 f"rel={rel:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -642,9 +775,9 @@ def _serve(model, requests: list, tag: str,
     """Serve (image, submit keywords) requests of one kind through a new
     server: its `warmup()` of every bucket first, then every launch counter
     zeroed; assert the counts, and that each batch replayed a DeCap decode
-    graph that warm-up had captured (on a ViECap model: that the DeCap
-    decoder neither captured nor replayed one); (results, the server's
-    snapshot, batches, wall s, launch counts)."""
+    graph that warm-up had captured (on a ViECap, MeaCap or ClipCap model:
+    that the DeCap decoder neither captured nor replayed one); (results,
+    the server's snapshot, batches, wall s, launch counts)."""
     from patchioner_tpu_torch.serve import CaptionServer
 
     wrappers = _wrappers()
@@ -667,10 +800,11 @@ def _serve(model, requests: list, tag: str,
         f"launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
-    if model.viecap is None:
+    if model.viecap is None and model.clipcap is None:
         _check_graphs(model.decode, graphs, batches, tag)
     elif (model.decode.captures, model.decode.replays) != graphs:
-        raise AssertionError(f"{tag} the DeCap decoder ran on a ViECap model")
+        raise AssertionError(f"{tag} the DeCap decoder ran on a ViECap, MeaCap or ClipCap "
+                             "model")
     return results, snap, batches, wall, counts
 
 
@@ -1088,12 +1222,13 @@ def decap_state_dict(params) -> dict:
         "clip_project.model.0.bias": params.clip_project["b"]})
 
 
-def viecap_state_dict(mapping: dict, gpt: dict) -> dict:
+def viecap_state_dict(mapping: dict, gpt, p: str = "mapping_network.") -> dict:
     """A port mapping network and GPT-2 as a ViECap checkpoint, the inverse
-    of `models.viecap.port_mapping_network` and `port_hf_gpt2_lmhead`:
-    mapping_network.* (each `nn.Linear` (out, in); the attention's query
-    and key-value linears without bias) and gpt.*."""
-    p = "mapping_network."
+    of `models.viecap.port_mapping_network` and `port_hf_gpt2_lmhead`: the
+    mapping network under `p` (each `nn.Linear` (out, in); the attention's
+    query and key-value linears without bias) and, unless `gpt` is None,
+    gpt.*. ClipCap's transformer mapper is the same network under
+    clip_project.*."""
     sd = {f"{p}linear.weight": mapping["linear"]["w"].t(),
           f"{p}linear.bias": mapping["linear"]["b"],
           f"{p}prefix_const": mapping["prefix_const"]}
@@ -1108,6 +1243,17 @@ def viecap_state_dict(mapping: dict, gpt: dict) -> dict:
             sd[f"{q}.{name}.weight"] = w
             if b is not None:
                 sd[f"{q}.{name}.bias"] = b
+    return _cpu(sd if gpt is None else sd | gpt2_state_dict(gpt, "gpt."))
+
+
+def clipcap_state_dict(mapper: dict, gpt: dict) -> dict:
+    """A port MLP mapper and GPT-2 as a ClipCap checkpoint, the inverse of
+    `models.clipcap.port_clipcap`: clip_project.model.0 and .2 as
+    `nn.Linear`s (out, in), and gpt.*."""
+    sd = {}
+    for i, key in ((0, "fc1"), (2, "fc2")):
+        sd[f"clip_project.model.{i}.weight"] = mapper[key]["w"].t()
+        sd[f"clip_project.model.{i}.bias"] = mapper[key]["b"]
     return _cpu(sd | gpt2_state_dict(gpt, "gpt."))
 
 
@@ -1282,51 +1428,52 @@ def _serve_kinds(model, kinds: tuple, seed: int, label: str, smi: str) -> np.nda
     return imgs
 
 
-def _forward_split(model, imgs, smi: str, runs: int = 5) -> None:
-    """A whole-image ViECap batch's split, each part timed inside the same
+def _forward_split(model, imgs, smi: str, label: str, parts: dict, runs: int = 3) -> None:
+    """A whole-image batch's split, each part timed inside the same
     `forward` call as the whole (host clock, the card synchronised around
-    each part): the encoder, the prompts (mapping network, entity
-    retrieval, hard prompt) and the search; medians of `runs` calls, and
-    the search's share of each call's whole."""
-    from patchioner_tpu_torch.models import viecap
+    each part): `parts` maps a name to the (object, attribute) of a step
+    `forward` calls, none inside another; a part called several times a
+    forward (once a row) is summed. Medians of `runs` calls, and the last
+    part's share of each call's whole."""
+    totals = {name: [] for name in parts}
+    current = dict.fromkeys(parts, 0.0)
+    old = {name: obj.__dict__.get(attr) for name, (obj, attr) in parts.items()}
 
-    vc = model.viecap
-    parts = {"encode_images": (model, []), "prompt_embeds": (vc, []),
-             "run_search": (viecap, [])}
-    old = {name: obj.__dict__.get(name) for name, (obj, _) in parts.items()}
-
-    def timed(fn, acc):
+    def timed(fn, name):
         def call(*args, **kwargs):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            acc.append((time.perf_counter() - t1) * 1e3)
+            if name is not None:
+                current[name] += (time.perf_counter() - t1) * 1e3
             return out
         return call
 
-    for name, (obj, acc) in parts.items():
-        setattr(obj, name, timed(getattr(obj, name), acc))
+    for name, (obj, attr) in parts.items():
+        setattr(obj, attr, timed(getattr(obj, attr), name))
     try:
         whole = []
-        timed(lambda: model.forward(imgs, get_cls_capt=True), [])()  # first call set-up
-        for acc in [a for _, a in parts.values()]:
-            acc.clear()
+        model.forward(imgs, get_cls_capt=True)  # first call set-up
         for _ in range(runs):
-            timed(lambda: model.forward(imgs, get_cls_capt=True), whole)()
+            current.update(dict.fromkeys(parts, 0.0))
+            t1 = time.perf_counter()
+            timed(lambda: model.forward(imgs, get_cls_capt=True), None)()
+            whole.append((time.perf_counter() - t1) * 1e3)
+            for name in parts:
+                totals[name].append(current[name])
     finally:
-        for name, (obj, _) in parts.items():
+        for name, (obj, attr) in parts.items():
             if old[name] is None:
-                delattr(obj, name)
+                delattr(obj, attr)
             else:
-                setattr(obj, name, old[name])
-    ms = {name: statistics.median(acc) for name, (_, acc) in parts.items()}
-    share = statistics.median(s / w for s, w in zip(parts["run_search"][1], whole))
-    log(f"[viecap] a whole-image batch of {B}, inside the same forward calls: forward "
-        f"{statistics.median(whole):.1f} ms; encoder {ms['encode_images']:.1f}, prompts "
-        f"{ms['prompt_embeds']:.1f}, greedy search of {vc.cfg.max_len} tokens "
-        f"{ms['run_search']:.1f}; the search {share:.3f} of its forward (host clock, "
-        f"medians of {runs}); {smi}")
+                setattr(obj, attr, old[name])
+    last = list(parts)[-1]
+    share = statistics.median(t / w for t, w in zip(totals[last], whole))
+    split = ", ".join(f"{name} {statistics.median(totals[name]):.1f}" for name in parts)
+    log(f"[{label}] a whole-image batch of {B}, inside the same forward calls: forward "
+        f"{statistics.median(whole):.1f} ms; {split}; {last} {share:.3f} of its forward "
+        f"(host clock, medians of {runs}); {smi}")
 
 
 def _recording(model) -> dict:
@@ -1411,11 +1558,12 @@ def phase_decap_no_bank(config: dict, seed: int, smi: str) -> None:
     phase_served_f32_gate(config, seed, "f32 decap no bank", ("cls", "bbox"))
 
 
-def phase_viecap(seed: int, smi: str, directory: str, paths: dict) -> None:
+def phase_viecap(seed: int, smi: str, directory: str, paths: dict) -> str:
     """Phase 7: ViECap on DINOv2, configs/mlp.viecap.k.yaml loaded from phase
     6's hub DINOv2 and DeCap files and a full-width ViECap checkpoint written
     here, in bf16 on the card (ViECap's GPT-2 is f32 as the config's); served
-    through `forward`, the searches held to the CPU and timed."""
+    through `forward`, the searches held to the CPU and timed. Returns the
+    ViECap file's path, which phase 9 reads too."""
     from patchioner_tpu_torch.models import viecap
     from patchioner_tpu_torch.models.patchioner import uses_fallback_tokenizer
 
@@ -1443,7 +1591,9 @@ def phase_viecap(seed: int, smi: str, directory: str, paths: dict) -> None:
 
     imgs = _serve_kinds(model, ("trace", "bbox", "cls"), seed + 12, "viecap", smi)
 
-    _forward_split(model, imgs, smi)
+    _forward_split(model, imgs, smi, "viecap", {
+        "encoder": (model, "encode_images"), "prompts": (vc, "prompt_embeds"),
+        f"greedy search of {vc.cfg.max_len} tokens": (viecap, "run_search")})
     cls = model.encode_images(imgs)["x_norm_clstoken"]
     embeds = vc.prompt_embeds(cls)
 
@@ -1491,7 +1641,258 @@ def phase_viecap(seed: int, smi: str, directory: str, paths: dict) -> None:
     torch.cuda.empty_cache()
     phase_served_f32_gate(config, seed, "f32 viecap served", ("trace", "bbox"))
     phase_decap_no_bank(dict(config, viecap=None), seed, smi)
-    os.remove(pt)
+    return pt
+
+
+def write_clipcap_checkpoints(seed: int, directory: str) -> tuple[str, str]:
+    """Two ClipCap checkpoints at full width, seeded, in the published
+    layout: the MLP mapper (768 -> 3,840 -> 7,680, 10 prefix tokens) with
+    GPT-2 base, wte scaled by 10 as the ViECap file's is, and the
+    transformer mapper (8 layers under clip_project.*, 10 projected and 10
+    prefix tokens) alone; their paths."""
+    from patchioner_tpu_torch.models import clipcap, gpt2, viecap
+
+    gen = torch.Generator().manual_seed(seed + 20)
+    cfg, d_model = clipcap.ClipCapConfig(), gpt2.GPT2_BASE_CONFIG.n_embd
+    mlp = clipcap.init_mlp_mapper(D, cfg.prefix_length, d_model, gen, "cpu")
+    gpt = gpt2.init_gpt2(gpt2.GPT2_BASE_CONFIG, gen)
+    gpt["wte"] *= 10
+    mapping = viecap.init_mapping_network(clipcap.mapper_config(cfg, D), d_model, gen)
+    paths = (os.path.join(directory, "clipcap_mlp.pt"),
+             os.path.join(directory, "clipcap_transformer.pt"))
+    torch.save(clipcap_state_dict(mlp, gpt), paths[0])
+    torch.save(viecap_state_dict(mapping, None, "clip_project."), paths[1])
+    return paths
+
+
+def _family_loaded(model, label: str, smi: str) -> None:
+    """Print what `from_config` loaded for a decoder family and assert that
+    the model captions through `forward`, without a bank."""
+    from patchioner_tpu_torch.models.patchioner import uses_fallback_tokenizer
+
+    fam = model.viecap if model.viecap is not None else model.clipcap
+    secs = model.load_seconds
+    log(f"[{label}] from_config: torch.load {secs['read']:.3f} s, porting "
+        f"{secs.get('port', 0.0):.3f} s, cast and upload {secs['upload']:.3f} s; "
+        f"{type(fam).__name__}, GPT-2 {fam.gpt2_cfg.n_layer}L/{fam.gpt2_cfg.n_embd}/vocab "
+        f"{fam.gpt2_cfg.vocab_size} in {str(fam.gpt2_params['wte'].dtype)[6:]}; fallback "
+        f"tokenizer {uses_fallback_tokenizer(model)}; bank {model.bank}, fused path "
+        f"{model.supports_fused_trace_path()}; {smi}")
+    if model.bank is not None or model.supports_fused_trace_path():
+        raise AssertionError(f"[{label}] the model must caption through forward, without a bank")
+
+
+def phase_clipcap(seed: int, smi: str, directory: str, paths: dict) -> None:
+    """Phase 8: ClipCap on the flagship's DINOv2 encoder (no bank), loaded
+    from phase 6's hub DINOv2 file and an MLP ClipCap file written here, the
+    encoder in bf16 and GPT-2 in f32; served, split, the sampler timed and
+    held to the CPU in f32; then one batch of the transformer mapper."""
+    from patchioner_tpu_torch.models import clipcap, gpt2
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 8 holds the f32 GPT-2 to the CPU: TF32 must be off")
+    t0 = time.perf_counter()
+    mlp_pt, transformer_pt = write_clipcap_checkpoints(seed, directory)
+    log(f"[clipcap] wrote {os.path.basename(mlp_pt)} {os.path.getsize(mlp_pt) / 1e9:.3f} GB, "
+        f"{os.path.basename(transformer_pt)} {os.path.getsize(transformer_pt) / 1e9:.3f} GB "
+        f"in {time.perf_counter() - t0:.1f} s")
+    config = dict(CLIPCAP_CONFIG, dino_weights=paths["dinov2_vitb14_reg4_pretrain.pth"],
+                  clipcap=dict(CLIPCAP_CONFIG["clipcap"], weight_path=mlp_pt))
+    model = build_model(config, seed, "[clipcap]")
+    cc = model.clipcap
+    _family_loaded(model, "clipcap", smi)
+    log(f"[clipcap] {cc.cfg.mapping_type} mapper {cc.prefix_size} -> "
+        f"{cc.mapper_params['fc1']['w'].shape[1]} -> {cc.mapper_params['fc2']['w'].shape[1]}, "
+        f"{cc.cfg.prefix_length} prefix tokens; top_p {cc.cfg.top_p}, temperature "
+        f"{cc.cfg.temperature}, {cc.cfg.entry_length} tokens, stop {cc.cfg.stop_token!r}")
+    if cc.prefix_size != D or cc.cfg.entry_length != 67:
+        raise AssertionError(f"[clipcap] the block's defaults: width {cc.prefix_size}")
+
+    imgs = _serve_kinds(model, ("trace", "bbox", "cls"), seed + 20, "clipcap", smi)
+    _forward_split(model, imgs, smi, "clipcap", {
+        "encoder": (model, "encode_images"), "mapper": (cc, "project"),
+        "noise": (cc, "noise"),
+        f"sampling of {cc.cfg.entry_length} tokens": (clipcap, "generate_batched")})
+    cls = model.encode_images(imgs)["x_norm_clstoken"].float()
+    prefix = cc.project(cls)
+    stop = cc.tokenizer.encode(cc.cfg.stop_token)[0]
+
+    def sample(params, pre, noise, cfg=cc.gpt2_cfg):
+        return lambda: clipcap.sample_tokens(params, pre, noise, cfg, stop, cc.cfg.top_p,
+                                             cc.cfg.temperature)
+
+    full = sample(cc.gpt2_params, prefix, cc.noise(B))
+    full()
+    ms = _host_ms(full)
+    toks = full()
+    log(f"[clipcap] sampled tokens {tuple(toks.shape)}: {len(torch.unique(toks))} distinct, "
+        f"row 0 begins {toks[0, :8].tolist()}")
+    noise = cc.noise(B)
+    (n16, dev16), (n32, dev32) = (_kernel_count(sample(cc.gpt2_params, prefix, noise[:n]))
+                                  for n in (16, 32))
+    log(f"[clipcap] sampler, {B} prefixes x {cc.cfg.entry_length} tokens: {ms:.1f} ms (host "
+        f"clock, median of 3); {(n32 - n16) / 16:.1f} kernels and {(dev32 - dev16) / 16:.3f} "
+        f"ms of device time a step; {smi}")
+
+    # card vs CPU on the same weights, features and noise, f32 (TF32 off)
+    cpu = cc.to("cpu")
+    _gate("clipcap", prefix.cpu(), cpu.project(cls.cpu()), "card vs CPU", "mapper output")
+    t_all = prefix.shape[1] + 1
+    logits, _ = gpt2.gpt2_prefill(cc.gpt2_params, prefix, cc.gpt2_cfg, t_all)
+    logits_ref, _ = gpt2.gpt2_prefill(cpu.gpt2_params, prefix.cpu(), cpu.gpt2_cfg, t_all)
+    _gate("clipcap", logits.cpu(), logits_ref, "card vs CPU", "prefill logits")
+    noise = clipcap.gumbel_noise((16, B, cc.gpt2_cfg.vocab_size),
+                                 torch.Generator().manual_seed(seed + 21), "cpu")
+    # the config's temperature, and 10, which undoes the file's wte x 10 so
+    # that each step keeps many tokens and the noise picks among them
+    for temperature in (cc.cfg.temperature, 10.0):
+        def sample_at(params, pre, nz):
+            return clipcap.sample_tokens(params, pre, nz, cc.gpt2_cfg, stop, cc.cfg.top_p,
+                                         temperature)
+
+        got = sample_at(cc.gpt2_params, prefix, noise.cuda()).cpu()
+        want = sample_at(cpu.gpt2_params, prefix.cpu(), noise)
+        log(f"[clipcap] sampled tokens over 16 steps on the same Gumbel noise at temperature "
+            f"{temperature}, card vs CPU (reported, not asserted): "
+            f"{int((got == want).sum())}/{want.numel()} equal, "
+            f"{int((got == want).all(-1).sum())}/{B} rows; {len(torch.unique(want))} distinct")
+    del model, cc, cpu, logits, logits_ref
+    torch.cuda.empty_cache()
+
+    # one whole-image batch of the transformer mapper, from its own file
+    tconfig = dict(config, clipcap={"mapping_type": "transformer",
+                                    "weight_path": transformer_pt})
+    model = build_model(tconfig, seed, "[clipcap transformer]")
+    ct = model.clipcap
+    model.forward(imgs, get_cls_capt=True)  # first call set-up
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caps = model.forward(imgs, get_cls_capt=True)["cls_capt"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    want = expected_launches(tconfig, model.vit_cfg.depth, 1)
+    log(f"[clipcap transformer] {len(ct.mapper_params['layers'])}-layer mapper, "
+        f"{ct.cfg.clip_length} + {ct.cfg.prefix_length} tokens: a whole-image batch of {B} "
+        f"through forward {ms:.1f} ms (host clock), {len(caps)} captions; launches {counts}; "
+        f"{smi}")
+    if counts != want:
+        raise AssertionError(f"[clipcap transformer] launches {counts} != {want}")
+    out = ct.project(cls)
+    _gate("clipcap transformer", out.cpu(), ct.to("cpu").project(cls.cpu()), "card vs CPU",
+          "mapper output")
+    del model, ct
+    torch.cuda.empty_cache()
+    for path in (mlp_pt, transformer_pt):
+        os.remove(path)
+
+
+# the memory's words: each caption is "a <adjective> <noun> in the <place>"
+MEMORY_WORDS = (
+    ("red", "small", "young", "white", "black", "wooden", "large", "old", "happy", "green"),
+    ("dog", "cat", "man", "woman", "child", "horse", "bus", "train", "kite", "boat",
+     "pizza", "bird", "car", "sheep", "bench", "clock", "surfer", "giraffe", "table", "bike"),
+    ("park", "street", "kitchen", "beach", "field", "room", "city", "snow", "water", "yard"),
+)
+
+
+def write_meacap_memory(seed: int, directory: str) -> str:
+    """MeaCap's caption memory at the flagship memory's size, seeded, in the
+    published layout, written by `MeaCap.build_memory`: 591,753 captions
+    drawn from `MEMORY_WORDS` (so that the frequency extractor finds
+    concepts) and their (591,753, 768) f32 embeddings; the memory's base
+    path."""
+    from patchioner_tpu_torch.models import meacap
+
+    rng = np.random.default_rng(seed + 30)
+    adj, noun, place = MEMORY_WORDS
+    picks = zip(*(rng.integers(0, len(w), MEMORY_ROWS).tolist() for w in MEMORY_WORDS))
+    captions = [f"a {adj[i]} {noun[j]} in the {place[k]}" for i, j, k in picks]
+    base = os.path.join(directory, "meacap")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)  # drawn on the card: faster
+    meacap.MeaCap.build_memory(
+        captions, lambda texts: torch.randn(len(texts), D, generator=gen, device="cuda").cpu(),
+        os.path.join(base, "memory", MEACAP_CONFIG["viecap"]["meacap"]["memory_id"]),
+        batch_size=1 << 16)
+    return base
+
+
+def phase_meacap(seed: int, smi: str, directory: str, paths: dict) -> None:
+    """Phase 9: MeaCap on DINOv2, configs/mlp.meacap.k.yaml loaded from phase
+    6's DINOv2 and DeCap files, phase 7's ViECap file and a caption memory
+    written here at the flagship memory's size; served, split, and held to
+    the CPU in f32."""
+    import shutil
+
+    from patchioner_tpu_torch.models import meacap, viecap
+
+    t0 = time.perf_counter()
+    base = write_meacap_memory(seed, directory)
+    mem_dir = os.path.join(base, "memory", MEACAP_CONFIG["viecap"]["meacap"]["memory_id"])
+    sizes = ", ".join(f"{name} {os.path.getsize(os.path.join(mem_dir, name)) / 1e9:.3f} GB"
+                      for name in sorted(os.listdir(mem_dir)))
+    log(f"[meacap] wrote {sizes} in {time.perf_counter() - t0:.1f} s")
+    vd = MEACAP_CONFIG["viecap"]
+    config = dict(MEACAP_CONFIG, dino_weights=paths["dinov2_vitb14_reg4_pretrain.pth"],
+                  decap_weights=paths["decap.pt"],
+                  viecap=dict(vd, weight_path=paths["viecap"],
+                              meacap=dict(vd["meacap"], memory_base_path=base)))
+    model = build_model(config, seed, "[meacap]")
+    mc = model.viecap
+    _family_loaded(model, "meacap", smi)
+    log(f"[meacap] memory {len(mc.memory_captions)} captions x "
+        f"{mc.memory_clip_embeddings.shape[1]} on {mc.memory_clip_embeddings.device}, top "
+        f"{mc.memory_caption_num}; extractor {mc.concept_extractor.__name__}; greedy "
+        f"{mc.cfg.using_greedy_search}, {mc.cfg.max_len} tokens")
+    if not isinstance(mc, meacap.MeaCap) or len(mc.memory_captions) != MEMORY_ROWS:
+        raise AssertionError("[meacap] the model must be a MeaCap over the written memory")
+
+    imgs = _serve_kinds(model, ("trace", "bbox", "cls"), seed + 30, "meacap", smi)
+    _forward_split(model, imgs, smi, "meacap", {
+        "encoder": (model, "encode_images"),
+        "retrieval": (meacap, "retrieve_memory_captions"),
+        "concept extraction (host)": (mc, "concept_extractor"),
+        f"greedy search of {mc.cfg.max_len} tokens": (viecap, "run_search")})
+    cls = model.encode_images(imgs)["x_norm_clstoken"].float()
+    f = cls / cls.norm(dim=-1, keepdim=True)
+    k = mc.memory_caption_num
+    for rows in (B, B * MAX_BOXES):
+        fr = f.repeat(rows // B, 1)
+        ms = _host_ms(lambda: meacap.retrieve_memory_captions(fr, mc.memory_clip_embeddings, k))
+        log(f"[meacap] retrieval of the top {k} of {MEMORY_ROWS} rows for {rows} features: "
+            f"{ms:.2f} ms (host clock, median of 3; one copy to the host); {smi}")
+
+    # card vs CPU on the same features, f32 (TF32 off)
+    cpu = mc.to("cpu")
+    idx = meacap.retrieve_memory_captions(f, mc.memory_clip_embeddings, k)
+    idx_ref = meacap.retrieve_memory_captions(f.cpu(), cpu.memory_clip_embeddings, k)
+    log(f"[meacap] retrieved indices card vs CPU: {int((idx == idx_ref).sum())}/{idx.size} "
+        f"equal")
+    if not (idx == idx_ref).all():
+        raise AssertionError("[meacap] the card retrieved other memory rows than the CPU")
+
+    def concepts(m, idx, feats):
+        return [m.concept_extractor([m.memory_captions[j] for j in row], image_embeds=feats[i])
+                for i, row in enumerate(idx)]
+
+    got, want = concepts(mc, idx, f), concepts(cpu, idx_ref, f.cpu())
+    log(f"[meacap] concepts card vs CPU: {sum(a == b for a, b in zip(got, want))}/{B} rows "
+        f"equal; row 0 {got[0]}")
+    if got != want:
+        raise AssertionError("[meacap] the card's concepts differ from the CPU's")
+    embeds, ref = mc.prompt_embeds(cls), cpu.prompt_embeds(cls.cpu())
+    _gate("meacap", embeds.cpu(), ref, "card vs CPU", "prompt embeddings")
+    tok = viecap.greedy_tokens(mc.gpt2_params, embeds, mc.gpt2_cfg, 16).cpu()
+    tok_ref = viecap.greedy_tokens(cpu.gpt2_params, embeds.cpu(), cpu.gpt2_cfg, 16)
+    log(f"[meacap] greedy tokens over 16 steps, card vs CPU (reported, not asserted): "
+        f"{int((tok == tok_ref).sum())}/{tok_ref.numel()} equal, "
+        f"{int((tok == tok_ref).all(-1).sum())}/{B} rows")
+    del model, mc, cpu, embeds, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(base)
 
 
 def main() -> None:
@@ -1516,12 +1917,18 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-7; the kernels' rows of the JSON summary."""
+    """Phases 2-9; the kernels' rows of the JSON summary."""
+    t0 = time.perf_counter()
+
+    def elapsed(phase):
+        log(f"[time] {time.perf_counter() - t0:.1f} s when {phase} ended")
+
     phase_build()
     from patchioner_tpu_torch.ops import mlp
 
     mlp.fused_ln_mlp_w8.launches = 0
     summary = phase_kernels(seed)
+    elapsed("phase 3")
     # (count, the run it was read from) for every kernel
     launches = {"ln_mlp_w8": (mlp.fused_ln_mlp_w8.launches,
                               "kernels (no model path reaches I)")}
@@ -1564,8 +1971,15 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     phase_f32_crosscheck(seed, dict(giant4, **CONFIGS["fusedqkv_proj"]),
                          "f32 giant fusedqkv_proj",
                          {"fusedqkv_proj": CONFIGS["fusedqkv_proj"]})
+    elapsed("phase 5")
     paths = phase_loaded(seed, smi, scratch)
-    phase_viecap(seed, smi, scratch, paths)
+    elapsed("phase 6")
+    paths["viecap"] = phase_viecap(seed, smi, scratch, paths)
+    elapsed("phase 7")
+    phase_clipcap(seed, smi, scratch, paths)
+    elapsed("phase 8")
+    phase_meacap(seed, smi, scratch, paths)
+    elapsed("phase 9")
     for path in paths.values():
         os.remove(path)
     reference = sorted(m for m in sys.modules

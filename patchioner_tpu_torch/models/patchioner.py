@@ -1,4 +1,4 @@
-"""Patchioner: the DINOv2 captioning subset, with DeCap or ViECap, in PyTorch.
+"""Patchioner: the DINOv2 captioning subset, with DeCap, ViECap, MeaCap or ClipCap, in PyTorch.
 
 Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone:
 `from_config`, `supports_fused_trace_path`, the fused caption paths
@@ -12,8 +12,9 @@ drives. Each fused path is `entry.make_caption_step` with its own pool;
 all share the encoder, the projection and the decode, which the model's
 `decap.GreedyDecoder` (`decode`) runs: on the card one CUDA graph a
 batch's row count. A DeCap model over a support memory has the fused
-paths; a ViECap model, or one without a bank, captions through `forward`
-(`supports_fused_trace_path()` is False), as in the reference.
+paths; a ViECap, MeaCap or ClipCap model, or one without a bank, captions
+through `forward` (`supports_fused_trace_path()` is False), as in the
+reference.
 
 `forward` takes the reference's flags: `get_cls_capt`,
 `get_avg_self_attn_capt`, `get_avg_patch_capt`, `get_patch_capts`,
@@ -49,8 +50,15 @@ loads what the reference's `from_config` loads for this subset
   and the Talk2DINO-space COCO embeddings are there; the CLIP-space
   pickles are read from `files_path`), and the GPT-2 tokenizer
   (`text.gpt2_bpe` over $GPT2_BPE_DIR or the Hugging Face cache, else the
-  whitespace fallback under `allow_missing_weights`). A `meacap` block
-  raises NotImplementedError.
+  whitespace fallback under `allow_missing_weights`). A `meacap` block in
+  it gives MeaCap instead: no entity vocabulary, the caption memory
+  `memory_base_path/memory/memory_id/` (`memory_captions.json`,
+  `memory_clip_embeddings.pt`) and `from_config`'s `concept_extractor`;
+- a `clipcap` block: the ClipCap `.pt` at `weight_path`
+  (`clip_project.model.{0,2}.*` for the MLP mapper, `clip_project.*` for
+  the transformer one, `gpt.*`), GPT-2 base in f32, the mapper taking the
+  DINOv2 backbone's width (`clipcap.feature_width`). ViECap wins where a
+  config has both.
 A file that is missing falls back to seeded random tensors, drawn with
 `torch.Generator`, only under `allow_missing_weights=True`, and otherwise
 raises FileNotFoundError, as the reference does; a missing Talk2DINO file
@@ -69,9 +77,11 @@ are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and ViT-g,
 bank are 1536-wide as the config gives them; every `attn_impl` runs on
 each. Any key that leaves this subset raises NotImplementedError: other
 backbones (ViT-L among them, until C's f32 kernel takes D = 1024, and
-DINO.txt), MeaCap / ClipCap, argmax-text, int8 (W8A8) encoders,
-the compute-dtype softmax (`softmax_f32: false`) and a non-qkv
-attention_type. A config given as a Hugging Face model id is not ported
+DINO.txt), argmax-text, int8 (W8A8) encoders, the compute-dtype softmax
+(`softmax_f32: false`) and a non-qkv attention_type. The README's
+`kkv_attention` key is read by neither the reference's loader nor the
+JAX package: it is ignored, with a UserWarning where `attention_type` is
+absent. A config given as a Hugging Face model id is not ported
 (it must be a path or a dict), nor are the reference's
 `save_pretrained` / `load_pretrained` snapshots.
 
@@ -93,6 +103,7 @@ import torch
 
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.io import checkpoints, memory_bank, torch_port
+from patchioner_tpu_torch.models import clipcap as clipcap_mod
 from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit, viecap as viecap_mod
 from patchioner_tpu_torch.ops import memory_projection as memproj
 from patchioner_tpu_torch.ops import region_pooling as rp
@@ -107,7 +118,8 @@ _KEYS = {
     "dino_model", "crop_dim", "resize_dim", "image_mean", "image_std",
     "dino_geometry", "attention_type", "prefix_size", "decap_arch",
     "normalize", "support_memory_size", "decap_weights", "dino_weights",
-    "talk2dino_weights", "memory_bank_int8", "memory_bank_path", "viecap",
+    "talk2dino_weights", "memory_bank_int8", "memory_bank_path", "viecap", "clipcap",
+    "kkv_attention",
 }
 # keys that name the bank file under $IM2TXT_MEMORY_PATH
 # (`io.memory_bank.bank_filename`) when `memory_bank_path` is not given
@@ -122,8 +134,7 @@ _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
 _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {
-    "calculate_argmax_text", "clipcap",
-    "encoder_w8a8", "regionclip_config",
+    "calculate_argmax_text", "encoder_w8a8", "regionclip_config",
     "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
     "use_open_clip", "invite_config",
 }
@@ -155,8 +166,6 @@ def _check_config(config: dict) -> None:
     if config.get("attention_type", "qkv") != "qkv":
         raise NotImplementedError(
             f"attention_type={config['attention_type']!r} is not ported yet")
-    if (config.get("viecap") or {}).get("meacap") is not None:
-        raise NotImplementedError("MeaCap (a `meacap` block in `viecap`) is not ported yet")
     if (config.get("viecap") or {}).get("hard_prompt_pad_multiple"):
         # the JAX package's shape buckets for its per-shape compiles; the
         # port's searches run eagerly and pad to the batch's longest
@@ -358,11 +367,12 @@ def _get_gpt2_tokenizer(allow_fallback: bool):
 
 
 def uses_fallback_tokenizer(model) -> bool:
-    """True when the model's GPT-2 decoder (ViECap) detokenises through the
-    whitespace fallback, so its strings are not the reference's. DeCap's
-    CLIP BPE never does."""
-    comp = getattr(model, "viecap", None)
-    return isinstance(getattr(comp, "tokenizer", None), _FallbackWordTokenizer)
+    """True when a GPT-2 decoder of the model (ViECap, MeaCap or ClipCap)
+    detokenises through the whitespace fallback, so its strings are not
+    the reference's (`patchioner.py:128-136`). DeCap's CLIP BPE never
+    does."""
+    return any(isinstance(getattr(getattr(model, name, None), "tokenizer", None),
+                          _FallbackWordTokenizer) for name in ("viecap", "clipcap"))
 
 
 # the entity vocabularies: the text file and the stem of the embedding
@@ -383,38 +393,77 @@ def _load_viecap_file(path: str, cfg: viecap_mod.ViecapConfig, gcfg: gpt2.GPT2Co
     naming when it carries the GPT-2) as f32 CPU trees, checked against
     the config: (mapping, gpt2 or None)."""
     sd = _torch_load(path, clock)
-    layers = _num_blocks(sd, "mapping_network.transformer.layers.")
+    mapping = _port_mapping(sd, "viecap.weight_path", path, "mapping_network.", cfg,
+                            gcfg.n_embd, clock)
+    return mapping, _port_gpt(sd, "viecap.weight_path", path, gcfg, clock)
+
+
+def _port_mapping(sd, key: str, path: str, prefix: str, cfg: viecap_mod.ViecapConfig,
+                  d_model: int, clock: _Clock) -> dict:
+    """The transformer mapping network under `prefix` of a state dict,
+    checked against `cfg`."""
+    layers = _num_blocks(sd, f"{prefix}transformer.layers.")
     if layers != cfg.num_layers:
-        raise ValueError(f"viecap.weight_path={path!r} holds a mapping network of {layers} "
-                         f"layers where the config gives {cfg.num_layers}")
+        raise ValueError(f"{key}={path!r} holds a mapping network of {layers} layers where "
+                         f"the config gives {cfg.num_layers}")
     with clock("port"):
-        mapping = viecap_mod.port_mapping_network(sd, num_layers=layers)
-        gpt = None
-        if any(k.startswith("gpt.") for k in sd):
-            gpt = torch_port.port_hf_gpt2_lmhead(
-                {k[4:]: v for k, v in sd.items() if k.startswith("gpt.")},
-                _num_blocks(sd, "gpt.transformer.h."))
-    _check_tree("viecap.weight_path", path, mapping,
-                viecap_mod.mapping_template(cfg, gcfg.n_embd),
+        mapping = viecap_mod.port_mapping_network(sd, prefix=prefix, num_layers=layers)
+    _check_tree(key, path, mapping, viecap_mod.mapping_template(cfg, d_model),
                 f"clip_hidden_size {cfg.clip_hidden_size}, clip_project_length "
                 f"{cfg.clip_project_length}, continuous_prompt_length "
-                f"{cfg.continuous_prompt_length}, {cfg.num_layers} layers of {gcfg.n_embd}")
-    if gpt is not None:
-        _check_tree("viecap.weight_path", path, gpt, gpt2.param_template(gcfg),
-                    f"GPT-2 n_layer {gcfg.n_layer}, n_embd {gcfg.n_embd}, vocab_size "
-                    f"{gcfg.vocab_size}, n_positions {gcfg.n_positions}")
-    return mapping, gpt
+                f"{cfg.continuous_prompt_length}, {cfg.num_layers} layers of {d_model}")
+    return mapping
+
+
+def _port_gpt(sd, key: str, path: str, gcfg: gpt2.GPT2Config, clock: _Clock) -> Optional[dict]:
+    """The GPT-2 under `gpt.` of a state dict (GPT2LMHeadModel naming),
+    checked against `gcfg`; None when the file carries none."""
+    if not any(k.startswith("gpt.") for k in sd):
+        return None
+    with clock("port"):
+        gpt = torch_port.port_hf_gpt2_lmhead(sd, _num_blocks(sd, "gpt.transformer.h."),
+                                             prefix="gpt.")
+    _check_tree(key, path, gpt, gpt2.param_template(gcfg),
+                f"GPT-2 n_layer {gcfg.n_layer}, n_embd {gcfg.n_embd}, vocab_size "
+                f"{gcfg.vocab_size}, n_positions {gcfg.n_positions}")
+    return gpt
+
+
+def _load_memory(mea: dict, clip_hidden: int, generator: torch.Generator,
+                 allow_missing_weights: bool, device, clock: _Clock):
+    """MeaCap's caption memory (captions, (N, clip_hidden) embeddings) from
+    `memory_base_path/memory/memory_id/`, else 64 synthetic captions and
+    seeded rows under `allow_missing_weights` (`patchioner.py:230-241`)."""
+    from patchioner_tpu_torch.models import meacap as meacap_mod
+
+    base, mem_id = mea.get("memory_base_path", ""), mea.get("memory_id", "")
+    mem_dir = os.path.join(base, "memory", mem_id)
+    if os.path.exists(mem_dir):
+        with clock("read"):
+            captions, emb = meacap_mod.MeaCap.load_memory(base, mem_id)
+    elif allow_missing_weights:
+        return ([f"synthetic memory caption {i}" for i in range(64)],
+                torch.randn(64, clip_hidden, generator=generator, device=device))
+    else:
+        raise FileNotFoundError(f"MeaCap memory bank not found: {mem_dir}")
+    if emb.dim() != 2 or emb.shape[1] != clip_hidden or emb.shape[0] != len(captions):
+        raise ValueError(f"the MeaCap memory {mem_dir!r} holds {len(captions)} captions and "
+                         f"embeddings {tuple(emb.shape)} where the config gives "
+                         f"clip_hidden_size {clip_hidden}, a row a caption")
+    return captions, emb
 
 
 def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
                          allow_missing_weights: bool, gpt2_tokenizer, device,
-                         clock: _Clock) -> viecap_mod.VieCap:
-    """VieCap from the config's `viecap:` block (reference src/model.py:107-113,
-    viecap/entrypoint.py:61-96; twin of `patchioner.py:155-300` without
-    MeaCap): the mapping network and GPT-2 base (`gpt2.GPT2_BASE_CONFIG`)
-    from `weight_path`, the entity vocabulary and its embeddings from
-    `files_path/annotations/vocabulary`, else from the port's data folder.
-    A missing file falls back to random tensors only under
+                         clock: _Clock, concept_extractor=None) -> viecap_mod.VieCap:
+    """VieCap or MeaCap from the config's `viecap:` block (reference
+    src/model.py:107-113, viecap/entrypoint.py:61-96; twin of
+    `patchioner.py:155-300`): the mapping network and GPT-2 base
+    (`gpt2.GPT2_BASE_CONFIG`) from `weight_path`; then, under a `meacap`
+    block, the caption memory and `concept_extractor` (MeaCap), else the
+    entity vocabulary and its embeddings from
+    `files_path/annotations/vocabulary` or the port's data folder. A
+    missing file falls back to random tensors only under
     `allow_missing_weights`, else raises FileNotFoundError."""
     clip_hidden = vd.get("clip_hidden_size") or (
         640 if clip_model_name and "RN" in clip_model_name else 512)
@@ -452,6 +501,17 @@ def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
         gpt = gpt2.init_gpt2(gcfg, generator, device)
     tokenizer = gpt2_tokenizer or _get_gpt2_tokenizer(allow_missing_weights)
 
+    mea = vd.get("meacap")
+    if mea is not None:
+        from patchioner_tpu_torch.models import meacap as meacap_mod
+
+        captions, memory = _load_memory(mea, clip_hidden, generator, allow_missing_weights,
+                                        device, clock)
+        with clock("upload"):
+            return meacap_mod.MeaCap(cfg, gcfg, gpt, mapping, captions, memory, tokenizer,
+                                     device, memory_caption_num=mea.get("memory_caption_num", 5),
+                                     concept_extractor=concept_extractor)
+
     suffix = (vd.get("suffix") or (clip_model_name or "ViT-B/32")).replace("/", "")
     name = cfg.name_of_entities_text
     text_file, stem = _ENTITY_FILES[name]
@@ -479,6 +539,62 @@ def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
                                  device=device)
 
 
+def _build_clipcap(cd: dict, dino_model, prefix_size: int, generator: torch.Generator,
+                   allow_missing_weights: bool, gpt2_tokenizer, device,
+                   clock: _Clock) -> clipcap_mod.ClipCap:
+    """ClipCap from the config's `clipcap:` block (reference
+    src/model.py:114-127; twin of `patchioner.py:973-1064`): the mapper
+    (`mapping_type` mlp or transformer) and GPT-2 base from the `.pt` at
+    `weight_path`, the mapper taking `clipcap.feature_width` (the DINOv2
+    backbone's width, not `prefix_size`). A missing file falls back to
+    random tensors only under `allow_missing_weights`, else raises
+    FileNotFoundError; a directory (an Orbax checkpoint of the JAX
+    package's mapper training) raises NotImplementedError."""
+    cfg = clipcap_mod.ClipCapConfig(
+        prefix_length=cd.get("prefix_length", 10), clip_length=cd.get("clip_length", 10),
+        num_layers=cd.get("num_layers", 8), mapping_type=cd.get("mapping_type", "mlp").lower(),
+        temperature=cd.get("temperature", 1.0), top_p=cd.get("top_p", 0.8),
+        entry_length=cd.get("entry_length", 67), stop_token=cd.get("stop_token", "."),
+        normalize_prefix=cd.get("normalize_prefix", False))
+    width = clipcap_mod.feature_width(dino_model, prefix_size)
+    gcfg = gpt2.GPT2_BASE_CONFIG
+    path = cd.get("weight_path")
+    if path and os.path.isdir(str(path)):
+        raise NotImplementedError(
+            f"clipcap.weight_path={path!r} is a directory, an Orbax checkpoint of the JAX "
+            "package's mapper training: loading one waits for the port's training slice")
+    gpt = None
+    if path and os.path.exists(str(path)):
+        sd = _torch_load(str(path), clock)
+        if cfg.mapping_type == "mlp":
+            with clock("port"):
+                mapper = clipcap_mod.port_clipcap(
+                    {k: v for k, v in sd.items() if k.startswith("clip_project.")}, cfg)["mapper"]
+            _check_tree("clipcap.weight_path", str(path), mapper,
+                        clipcap_mod.mlp_template(width, cfg.prefix_length, gcfg.n_embd),
+                        f"an MLP mapper {width} -> {cfg.prefix_length} x {gcfg.n_embd}")
+        else:
+            mapper = _port_mapping(sd, "clipcap.weight_path", str(path), "clip_project.",
+                                   clipcap_mod.mapper_config(cfg, width), gcfg.n_embd, clock)
+        gpt = _port_gpt(sd, "clipcap.weight_path", str(path), gcfg, clock)
+    elif allow_missing_weights:
+        if cfg.mapping_type == "mlp":
+            mapper = clipcap_mod.init_mlp_mapper(width, cfg.prefix_length, gcfg.n_embd,
+                                                 generator, device)
+        else:
+            mapper = viecap_mod.init_mapping_network(clipcap_mod.mapper_config(cfg, width),
+                                                     gcfg.n_embd, generator, device)
+    else:
+        raise FileNotFoundError(f"ClipCap weights not found: {path}")
+    if gpt is None:
+        if not allow_missing_weights:
+            raise FileNotFoundError("pretrained GPT-2 weights unavailable for ClipCap")
+        gpt = gpt2.init_gpt2(gcfg, generator, device)
+    tokenizer = gpt2_tokenizer or _get_gpt2_tokenizer(allow_missing_weights)
+    with clock("upload"):
+        return clipcap_mod.ClipCap(cfg, gcfg, gpt, mapper, tokenizer, width, device)
+
+
 def _traces_to_arrays(traces, device):
     """Traces in the reference's format (a list a image of {'x', 'y'} point
     dicts, or of (x, y) pairs) -> (B, P, 2) points padded to the longest and
@@ -502,7 +618,8 @@ class Patchioner:
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
                  device="cuda", tokenizer=None,
                  entry_length: int = decap.ENTRY_LENGTH,
-                 viecap: Optional[viecap_mod.VieCap] = None):
+                 viecap: Optional[viecap_mod.VieCap] = None,
+                 clipcap: Optional[clipcap_mod.ClipCap] = None):
         self.vit_cfg = vit_cfg
         self.gpt2_cfg = gpt2_cfg
         self.device = entry.resolve_device(device)
@@ -520,8 +637,10 @@ class Patchioner:
         self.normalize = normalize
         self.inversion = (None if inversion is None else
                           {k: v.to(self.device) for k, v in inversion.items()})
-        # the ViECap decoder family, which captions instead of DeCap
+        # the decoder families that caption instead of DeCap: ViECap (or
+        # its subclass MeaCap), and ClipCap
         self.viecap = None if viecap is None else viecap.to(self.device)
+        self.clipcap = None if clipcap is None else clipcap.to(self.device)
         self.config = dict(config or {})
         self.entry_length = entry_length
         self.load_seconds: dict = {}
@@ -543,7 +662,8 @@ class Patchioner:
                     allow_missing_weights: bool = False,
                     random_bank_size: Optional[int] = None,
                     dtype: torch.dtype = torch.float32,
-                    device="cuda", gpt2_tokenizer=None) -> "Patchioner":
+                    device="cuda", gpt2_tokenizer=None,
+                    concept_extractor=None) -> "Patchioner":
         if isinstance(config, str):
             import yaml
 
@@ -551,6 +671,11 @@ class Patchioner:
                 config = yaml.safe_load(f)
         config = dict(config)
         _check_config(config)
+        if "kkv_attention" in config and "attention_type" not in config:
+            # the reference's loader reads attention_type only (src/model.py:696):
+            # the README's kkv_attention key is ignored (`patchioner.py:450-457`)
+            warnings.warn("config key 'kkv_attention' is ignored (reference parity); "
+                          "use attention_type: 'kkv'")
         device = entry.resolve_device(device)
         clock = _Clock()
 
@@ -611,12 +736,18 @@ class Patchioner:
         if config.get("viecap") is not None:
             viecap = _build_viecap_family(config["viecap"], config.get("clip_model_name"),
                                           gen(3), allow_missing_weights, gpt2_tokenizer,
-                                          device, clock)
+                                          device, clock, concept_extractor)
+        clipcap = None
+        if config.get("clipcap") is not None:
+            clipcap = _build_clipcap(config["clipcap"], config["dino_model"], prefix_size,
+                                     gen(4), allow_missing_weights, gpt2_tokenizer, device,
+                                     clock)
         with clock("upload"):
             model = cls(vit_cfg=vit_cfg, vit_params=vit_params, gpt2_cfg=gpt2_cfg,
                         decoder=decoder, bank=bank, bank_texts=bank_texts,
                         normalize=bool(config.get("normalize", True)),
-                        inversion=inversion, config=config, device=device, viecap=viecap)
+                        inversion=inversion, config=config, device=device, viecap=viecap,
+                        clipcap=clipcap)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         model.load_seconds = dict(clock)
@@ -663,12 +794,14 @@ class Patchioner:
             gpt2_cfg=self.gpt2_cfg, decoder=self.decoder, bank=self.bank,
             bank_texts=self.bank_texts, normalize=self.normalize,
             inversion=self.inversion, config=self.config, device=device,
-            tokenizer=self.tokenizer, entry_length=self.entry_length, viecap=self.viecap)
+            tokenizer=self.tokenizer, entry_length=self.entry_length, viecap=self.viecap,
+            clipcap=self.clipcap)
 
     def supports_fused_trace_path(self) -> bool:
-        """True for DeCap over a support memory; a ViECap model, or one
-        without a bank, captions through `forward` (`patchioner.py:1369`)."""
-        return self.viecap is None and self.bank is not None
+        """True for DeCap over a support memory; a ViECap, MeaCap or ClipCap
+        model, or one without a bank, captions through `forward`
+        (`patchioner.py:1369-1381`)."""
+        return self.viecap is None and self.clipcap is None and self.bank is not None
 
     def state(self) -> dict:
         return entry.make_state(self.vit_params, self.decoder, self.bank,
@@ -695,8 +828,9 @@ class Patchioner:
         """One fused step with `pool` over the images and the pool's
         arrays (f32 on the model's device); a caption string per row."""
         if not self.supports_fused_trace_path():
-            raise ValueError("this model has no fused caption path (a ViECap decoder or "
-                             "no support memory): caption through forward()")
+            raise ValueError("this model has no fused caption path (a ViECap, MeaCap or "
+                             "ClipCap decoder, or no support memory): caption through "
+                             "forward()")
         step = entry.make_caption_step(
             self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
             n_steps=self.entry_length, normalize=self.normalize, pool=pool)
@@ -783,15 +917,16 @@ class Patchioner:
                        return_n_best_sims: Optional[int] = None,
                        compute_scores: bool = False):
         """(N, D) features -> N captions (with `compute_scores` also N
-        scores): ViECap's, before any projection, when the model has it;
-        else projected (when there is a bank) and decoded by DeCap.
-        Twin of `patchioner.py:1301-1363`; `return_n_best_sims` and the
-        argmax-text mode are not ported."""
+        scores): ViECap's (or MeaCap's), else ClipCap's, before any
+        projection, when the model has one; else projected (when there is a
+        bank) and decoded by DeCap. Twin of `patchioner.py:1301-1363`;
+        `return_n_best_sims` and the argmax-text mode are not ported."""
         feats = torch.as_tensor(feats).to(self.device)
-        if self.viecap is not None:
-            if return_n_best_sims:
-                raise ValueError("return_n_best_sims is not supported with viecap")
-            return self.viecap.forward(feats, compute_scores=compute_scores)
+        for name, family in (("viecap", self.viecap), ("clipcap", self.clipcap)):
+            if family is not None:
+                if return_n_best_sims:
+                    raise ValueError(f"return_n_best_sims is not supported with {name}")
+                return family.forward(feats, compute_scores=compute_scores)
         if return_n_best_sims is not None:
             raise NotImplementedError("return_n_best_sims is not ported yet (it needs "
                                       "memory_topk_sims)")

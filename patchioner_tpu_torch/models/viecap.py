@@ -566,7 +566,7 @@ class VieCap:
 
     def __init__(self, cfg: ViecapConfig, gpt2_cfg: gpt2.GPT2Config, gpt2_params: dict,
                  mapping_params: dict, entities: Sequence[str], texts_embeddings,
-                 tokenizer, device="cpu"):
+                 tokenizer, device):
         self.cfg = cfg
         self.gpt2_cfg = gpt2_cfg
         self.device = torch.device(device)

@@ -15,6 +15,7 @@ and box captions must be equal string for string, their prefixes within
 import importlib.util
 import itertools
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import yaml
 
 from patchioner_tpu.io import checkpoints as jckpt
 from patchioner_tpu.io import memory_bank as jmb
@@ -33,7 +35,7 @@ from patchioner_tpu.models import vit as jvit
 from patchioner_tpu.models.patchioner import Patchioner as JaxPatchioner
 from patchioner_tpu.ops import region_pooling as jrp
 from patchioner_tpu_torch import entry
-from patchioner_tpu_torch.io import checkpoints, memory_bank, torch_port
+from patchioner_tpu_torch.io import bridge, checkpoints, memory_bank, torch_port
 from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
 
@@ -608,3 +610,33 @@ def test_chip_smoke_writes_the_layouts_the_port_reads():
     linear = {"w": torch.randn(CLIP, D, generator=gen), "b": torch.randn(D, generator=gen)}
     _assert_trees_equal(torch_port.port_talk2dino(cs.talk2dino_state_dict(linear)),
                         {"linear": linear, "hidden": []})
+
+
+def test_kkv_attention_warns_and_builds_as_in_jax(files):
+    """configs/mlp_noise.k.yaml carries the README's `kkv_attention: false`,
+    which the reference's loader never reads: both packages warn (no
+    `attention_type` beside it) and build the model; on the same DeCap file
+    at the reduced geometry (140 px crop) their captions are equal."""
+    with open(os.path.join(REPO, "configs", "mlp_noise.k.yaml")) as f:
+        config = yaml.safe_load(f)
+    assert config["kkv_attention"] is False and "attention_type" not in config
+    config.update(crop_dim=140, prefix_size=D, decap_weights=files["decap_dino"],
+                  dino_geometry=dict(_config()["dino_geometry"], pos_grid=10),
+                  decap_arch=_config()["decap_arch"])
+    with pytest.warns(UserWarning, match="kkv_attention"):
+        jm = JaxPatchioner.from_config(config, allow_missing_weights=True, dtype=jnp.float32)
+    with pytest.warns(UserWarning, match="kkv_attention"):
+        pm = Patchioner.from_config(config, allow_missing_weights=True, device="cpu")
+    assert pm.bank is None and not pm.supports_fused_trace_path()
+    pm.vit_params = bridge.vit_from_jax(jm.vit_params, pm.vit_cfg)
+    imgs = np.random.default_rng(26).integers(0, 256, (2, 140, 140, 3), dtype=np.uint8)
+    flags = dict(get_cls_capt=True, traces=[[(0.1, 0.2), (0.7, 0.4)], [(0.5, 0.5)]],
+                 bboxes=np.asarray([[[0, 0, 70, 70]], [[20, 30, 100, 90]]], np.float32))
+    got, want = pm.forward(imgs, **flags), jm.forward(imgs, **flags)
+    assert got == want and len(got["cls_capt"]) == 2
+    # beside attention_type the key is ignored without a word
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        Patchioner.from_config(dict(config, attention_type="qkv"), allow_missing_weights=True,
+                               device="cpu")
+    assert not [w for w in caught if "kkv_attention" in str(w.message)]

@@ -72,7 +72,7 @@ def _jax_viecap(vcfg=VCFG, beam=False):
     emb = np.random.default_rng(23).standard_normal((len(ENTITIES), 128)).astype(np.float32)
     ref = jviecap.VieCap(jcfg, lm_cfg, lm, mapping, ENTITIES, emb, WordTokenizer())
     port = viecap.VieCap(pcfg, gpt2.GPT2Config(**LM_GEOM), bridge.to_torch(lm), _tree(mapping),
-                         ENTITIES, emb, WordTokenizer())
+                         ENTITIES, emb, WordTokenizer(), "cpu")
     return ref, port
 
 

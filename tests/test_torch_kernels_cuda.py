@@ -22,7 +22,9 @@ so the tokens must be equal and the scores within 1e-6 (f32) and 1e-3
 ViECap's searches (plain torch, no kernel) run on the card as on the CPU:
 on a small f32 GPT-2 whose wte is scaled so that no step is a near-tie,
 the batched beam search equals the per-image one, and every search's
-tokens equal the CPU's.
+tokens equal the CPU's. So do ClipCap's sampler, given the same Gumbel
+noise drawn on the CPU, and MeaCap's retrieval, hard prompts and greedy
+sentences.
 """
 
 import dataclasses
@@ -33,7 +35,7 @@ import pytest
 import torch
 
 from patchioner_tpu_torch import entry
-from patchioner_tpu_torch.models import decap, gpt2, viecap, vit
+from patchioner_tpu_torch.models import clipcap, decap, gpt2, meacap, viecap, vit
 from patchioner_tpu_torch.ops import attention, memory_projection as mp, mlp
 
 pytestmark = pytest.mark.cuda
@@ -663,3 +665,56 @@ def test_viecap_searches_on_the_card_equal_the_cpu(cuda):
             ("contrastive", lambda p, e, q: viecap.contrastive_tokens(p, e, cfg, 16, 8, 0.1))):
         got = call(on_card, embeds.cuda(), eos.cuda()).cpu()
         assert torch.equal(got, call(params, embeds, eos)), name
+
+
+def test_clipcap_sampler_on_the_card_equals_the_cpu(cuda):
+    cfg, params = _sharp_lm(4)
+    params["wte"] /= 5  # wte x 4: top_p 0.8 keeps many tokens a step
+    gen = torch.Generator().manual_seed(5)
+    prefix = torch.randn(6, 10, 32, generator=gen)
+    prefix[4] = float("nan")  # the stop id at every step
+    noise = clipcap.gumbel_noise((16, 6, cfg.vocab_size), gen, "cpu")
+    for top_p, temperature in ((0.8, 1.0), (0.0, 1.0), (0.3, 0.7)):
+        want = clipcap.sample_tokens(params, prefix, noise, cfg, 13, top_p, temperature)
+        got = clipcap.sample_tokens(vit.cast_params(params, torch.float32, "cuda"),
+                                    prefix.cuda(), noise.cuda(), cfg, 13, top_p, temperature)
+        assert torch.equal(got.cpu(), want) and (want[4] == 13).all()
+
+
+def test_meacap_on_the_card_equals_the_cpu(cuda):
+    cfg, params = _sharp_lm(6)
+    vcfg = viecap.ViecapConfig(continuous_prompt_length=3, clip_project_length=2,
+                               clip_hidden_size=64, num_layers=2, num_heads=2,
+                               using_hard_prompt=True, soft_prompt_first=True,
+                               using_greedy_search=True, max_len=12)
+    gen = torch.Generator().manual_seed(7)
+    words = ["dog", "cat", "park", "ball", "tree", "kite", "beach", "car"]
+    idx = torch.randint(0, len(words), (20_000, 3), generator=gen).tolist()
+    captions = [" ".join(["a"] + [words[j] for j in row]) for row in idx]
+
+    class Words:
+        pad_token_id = 0
+
+        def __init__(self):
+            self.vocab = {}
+
+        def encode(self, text):
+            return [self.vocab.setdefault(w, 10 + len(self.vocab) % 250) for w in text.split()]
+
+        def decode(self, ids):
+            return " ".join(str(i) for i in ids)
+
+    cpu = meacap.MeaCap(vcfg, cfg, params, viecap.init_mapping_network(vcfg, 32, gen),
+                        captions, torch.randn(20_000, 64, generator=gen), Words(), "cpu",
+                        memory_caption_num=5)
+    card = cpu.to("cuda")
+    assert isinstance(card, meacap.MeaCap) and card.memory_clip_embeddings.is_cuda
+    feats = torch.randn(8, 64, generator=gen)
+    f = feats / feats.norm(dim=-1, keepdim=True)
+    np.testing.assert_array_equal(
+        meacap.retrieve_memory_captions(f.cuda(), card.memory_clip_embeddings, 5),
+        meacap.retrieve_memory_captions(f, cpu.memory_clip_embeddings, 5))
+    assert card._hard_prompt_token_rows(f.cuda()) == cpu._hard_prompt_token_rows(f)
+    emb, ref = card.prompt_embeds(feats), cpu.prompt_embeds(feats)
+    assert (emb.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert card.forward(feats) == cpu.forward(feats)

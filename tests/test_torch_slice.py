@@ -24,7 +24,7 @@ from patchioner_tpu.serve import CaptionServer
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch import serve
 from patchioner_tpu_torch.io import bridge
-from patchioner_tpu_torch.models import gpt2, talk2dino, vit
+from patchioner_tpu_torch.models import gpt2, patchioner, talk2dino, vit
 from patchioner_tpu_torch.models.patchioner import Patchioner
 from patchioner_tpu_torch.ops import memory_projection as mp
 
@@ -148,6 +148,11 @@ def test_chip_smoke_viecap_config_is_configs_mlp_viecap_k_yaml():
         assert _chip_smoke_module().VIECAP_CONFIG == yaml.safe_load(f)
 
 
+def test_chip_smoke_meacap_config_is_configs_mlp_meacap_k_yaml():
+    with open(os.path.join(REPO, "configs", "mlp.meacap.k.yaml")) as f:
+        assert _chip_smoke_module().MEACAP_CONFIG == yaml.safe_load(f)
+
+
 def test_shipped_viecap_config_builds():
     """configs/mlp.viecap.k.yaml at full width: the ViT-B/14-reg encoder,
     no support memory, a VieCap with the 8-layer mapping network, GPT-2
@@ -165,8 +170,8 @@ def test_shipped_viecap_config_builds():
 
 
 @pytest.mark.parametrize("extra", [
-    {"viecap": {"meacap": {"memory_id": "coco"}}},
-    {"viecap": {"hard_prompt_pad_multiple": 8}}, {"clipcap": {}},
+    {"regionclip_config": {"config": "RN50"}},
+    {"viecap": {"hard_prompt_pad_multiple": 8}}, {"denseclip_config": {}},
     {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
     {"dino_model": "vit_base_patch16_clip_224.openai"},
     {"calculate_argmax_text": True},
@@ -178,6 +183,20 @@ def test_keys_outside_the_subset_raise(extra):
         Patchioner.from_config(dict(SERVER_CONFIG, **extra),
                                allow_missing_weights=True, random_bank_size=8,
                                device="cpu")
+
+
+@pytest.mark.parametrize("path", ["mlp.k.yaml", "mlp.k.tpu-serving.yaml", "mlp.viecap.k.yaml",
+                                  "mlp_noise.k.yaml", "mlp.meacap.k.yaml"])
+def test_the_port_takes_five_shipped_configs(path):
+    """The shipped configs whose keys the port takes: the flagship and its
+    int8 serving twin, ViECap, the noisy DeCap (`kkv_attention`, ignored)
+    and MeaCap. Each builds on the CPU here or in test_torch_meacap.py /
+    test_torch_checkpoints.py."""
+    with open(os.path.join(REPO, "configs", path)) as f:
+        config = yaml.safe_load(f)
+    patchioner._check_config(config)
+    assert ("kkv_attention" in config) == (path == "mlp_noise.k.yaml")
+    assert ("meacap" in (config.get("viecap") or {})) == (path == "mlp.meacap.k.yaml")
 
 
 def test_missing_weights_need_the_explicit_opt_in():
@@ -219,6 +238,14 @@ out = v.forward(np.zeros((2, 28, 28, 3), np.uint8), traces=[[(0.5, 0.5)]] * 2)
 assert len(out["cls_capt"]) == len(out["trace_capts"]) == 2
 with CaptionServer(v, max_batch=2) as server:
     assert isinstance(server.submit(np.zeros((28, 28, 3), np.uint8)).result(timeout=120), str)
+mea = Patchioner.from_config(dict(cfg, support_memory_size=0, viecap={
+    "clip_hidden_size": 64, "using_hard_prompt": True, "using_greedy_search": True,
+    "meacap": {"memory_caption_num": 3}}), allow_missing_weights=True, device="cpu")
+assert len(mea.forward(np.zeros((2, 28, 28, 3), np.uint8))["cls_capt"]) == 2
+cc = Patchioner.from_config(dict(cfg, support_memory_size=0, dino_geometry={"depth": 1},
+                                 clipcap={"prefix_length": 2, "entry_length": 4}),
+                            allow_missing_weights=True, device="cpu")
+assert len(cc.forward(np.zeros((2, 28, 28, 3), np.uint8))["cls_capt"]) == 2
 print("jax loaded:", any(k == "jax" or k.startswith("jax.") for k in sys.modules))
 print("reference loaded:", sorted(k for k in sys.modules if k.split(".")[0] == "patchioner_tpu"))
 """

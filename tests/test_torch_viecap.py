@@ -418,7 +418,8 @@ def test_golden_end_to_end_reproduced(lm):
     mapping = _tree(jviecap.init_mapping_network(jax.random.PRNGKey(5), jcfg, 32))
     rng = np.random.default_rng(4)
     model = viecap.VieCap(cfg, pcfg, pparams, mapping, ["dog", "cat", "car"],
-                          rng.standard_normal((3, 16)).astype(np.float32), _word_tokenizer())
+                          rng.standard_normal((3, 16)).astype(np.float32), _word_tokenizer(),
+                          "cpu")
     sents, ppl = model.forward(rng.standard_normal((2, 16)).astype(np.float32),
                                compute_scores=True)
     with open(os.path.join(GOLDENS, "viecap_end_to_end.json")) as f:
@@ -452,7 +453,7 @@ def test_viecap_forward_equals_jax(sharp_lm, bpe_tokenizer, layout):
     feats = rng.standard_normal((3, 16)).astype(np.float32) * 3
     ptok, jtok = bpe_tokenizer
     ref = jviecap.VieCap(jcfg, jcfg_lm, jparams, jmap, ents, emb, jtok)
-    port = viecap.VieCap(cfg, pcfg, pparams, _tree(jmap), ents, emb, ptok)
+    port = viecap.VieCap(cfg, pcfg, pparams, _tree(jmap), ents, emb, ptok, "cpu")
     if cfg.using_hard_prompt:
         f = torch.from_numpy(feats)
         assert (port._hard_prompt_token_rows(f / f.norm(dim=-1, keepdim=True))
