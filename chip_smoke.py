@@ -70,6 +70,13 @@ then exits non-zero without the final result line:
    eager loop on the same prefixes: tokens equal, scores within
    `SCORE_TOLERANCE`, and a clean batch after one with NaN rows still
    equal; each decode's time, launches a step and the graphs' memory;
+4g. the decode graphs kept, one a power-of-two row bucket: one flagship
+   `forward` of 8 images' patch captions (8 x 1369 = 10,952 rows), box
+   batches of three distinct totals and one total again, then a sweep of
+   16 box totals; each call's graph captures (one only for a new bucket,
+   asserted), time and the card's reserved memory printed; then 100 rows
+   on the 128-row graph against the eager loop on the zero-padded batch
+   (tokens equal, asserted) and on the 100 rows alone (reported);
 5. f32 cross-check: the projected prefix on the card (kernels) against the
    CPU (plain versions) within 1e-4 * max(1, max|ref|), with layerscale
    drawn near 1 so that the kernels move the residual stream, for the
@@ -141,7 +148,26 @@ then exits non-zero without the final result line:
    phase 8, a whole-image batch's split (encoder, retrieval, concept
    extraction on the host, search); in f32, card against CPU, the
    retrieved indices and the concepts equal (asserted), the prompt
-   embeddings under the gate, greedy tokens of 16 steps (reported).
+   embeddings under the gate, greedy tokens of 16 steps (reported);
+10. training, f32 with TF32 off, seeded weights and corpus
+   (`TrainShapes`): the DeCap decoder at the reference CLI's defaults (4
+   layers, 4 heads, 768 wide, vocab 50,257, prefix 768, 20 tokens, batch
+   64) trained plain and with `--im_proj` through a seeded 591,753 x 768
+   f32 bank, kernel D launched once a step (counted from 0 before the
+   timed steps) and timed at the step's 64 rows against its plain version
+   and bound; a packed run (1024 rows of 64, `loss_chunk` 8, `grad_accum`
+   2); steps/s, captions/s trained and peak memory of each; the
+   `--im_proj` step with CapDec noise on the card against the CPU, same
+   init, batches and noise, under phase 5's gate: loss and accuracy, every
+   gradient leaf after one step, the params after three; ViECap's 8-layer
+   mapping network and ClipCap's MLP mapper (prefix 10) on a frozen seeded
+   GPT-2 base at batch 80 and 40 tokens, timed, and one step at 8 rows
+   gated card vs CPU (loss, accuracy, every mapper gradient leaf); then
+   the decoder CLI trains 20 steps on a `--features` file, a `--resume`
+   continues it, and `from_config(decap_weights: <out_dir>)` serves 8
+   trace requests on the flagship (A-D and the decode graph asserted); the
+   prefix CLI trains a ViECap and a ClipCap mapper, and each directory is
+   served once through `weight_path`.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -160,6 +186,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1895,6 +1922,439 @@ def phase_meacap(seed: int, smi: str, directory: str, paths: dict) -> None:
     shutil.rmtree(base)
 
 
+# ------------------------------------------------------- phase 4g and 10
+
+
+def phase_decode_rows(model, seed: int, smi: str) -> None:
+    """Phase 4g: the decode graphs `GreedyDecoder` keeps, one a power-of-two
+    row bucket (`decap.row_bucket`), at the row counts `forward` gives:
+    one flagship batch's patch captions (B x 1369 rows), box batches of
+    three distinct totals and one total again, then a sweep of 16 box
+    totals (B x 1..16 rows); after each call the graphs captured, the
+    call's time and the card's reserved memory. A call captures a graph
+    only for a bucket not seen before."""
+    from patchioner_tpu_torch.models import decap
+
+    dec = model.decode
+    imgs, _ = _requests(B, seed + 50)
+    rng = np.random.default_rng(seed + 51)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_reserved()
+
+    def boxes(per):
+        xy = rng.uniform(0, IMG / 2, (B, per, 2))
+        wh = rng.uniform(14, IMG / 2, (B, per, 2))
+        return {"get_cls_capt": False, "bboxes": np.concatenate([xy, wh], -1)}
+
+    calls = [("patch captions", {"get_cls_capt": False, "get_patch_capts": True})]
+    calls += [(f"{B * per} box rows", boxes(per)) for per in (5, 9, 13, 9)]
+    for label, kw in calls + [("sweep", None)]:
+        before = dec.captures, dec.replays, {k[0] for k in dec._graphs}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kw is None:  # box totals B x 1..16
+            rows = [sum(len(c) for c in model.forward(imgs, **boxes(per))["bbox_capts"])
+                    for per in range(1, MAX_BOXES + 1)]
+            torch.cuda.synchronize()
+            first, again = time.perf_counter() - t0, float("nan")
+        else:
+            out = model.forward(imgs, **kw)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            again = _host_ms(lambda: model.forward(imgs, **kw))
+            rows = [sum(len(c) for c in next(iter(out.values())))]
+        new = {decap.row_bucket(r) for r in rows} - before[2]
+        captured = dec.captures - before[0]
+        log(f"[decode rows] {label}: {rows[0] if len(rows) == 1 else rows} rows, buckets "
+            f"{sorted({decap.row_bucket(r) for r in rows})}, {captured} graph(s) captured "
+            f"({dec.captures} kept), first call {first:.3f} s, then {again:.1f} ms (median "
+            f"of 3), reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+            f"(+{(torch.cuda.memory_reserved() - start) / 2**30:.2f} since 4g began); {smi}")
+        if dec.replays == before[1] or captured != len(new):
+            raise AssertionError(f"[decode rows] {label}: {captured} captures for the new "
+                                 f"buckets {sorted(new)}")
+    # 100 rows replay the 128-row bucket's graph: its real rows must be the
+    # eager loop's on the zero-padded batch; against the eager loop on the
+    # 100 rows alone (another GEMM shape) the agreement is reported
+    gen = torch.Generator(device="cuda").manual_seed(seed + 52)
+    prefix = torch.nn.functional.normalize(
+        torch.randn(100, model.decoder.clip_project["w"].shape[0], generator=gen,
+                    device="cuda"), dim=-1)
+    tokens, _ = dec(prefix)
+    padded = torch.cat([prefix, prefix.new_zeros(28, prefix.shape[1])])
+    want = decap.greedy_decode(model.decoder, padded, dec.cfg)[0][:100]
+    alone = decap.greedy_decode(model.decoder, prefix, dec.cfg)[0]
+    log(f"[decode rows] 100 rows on the 128-row graph, {str(dec.cfg.dtype)[6:]}: tokens equal "
+        f"to the eager loop's on the padded batch {torch.equal(tokens, want)}; on the 100 rows "
+        f"alone {int((tokens == alone).sum())}/{tokens.numel()} tokens, "
+        f"{int((tokens == alone).all(1).sum())}/100 rows (reported, not asserted)")
+    if not torch.equal(tokens, want):
+        raise AssertionError("[decode rows] the bucket's graph differs from the eager loop")
+
+
+class TrainShapes(NamedTuple):
+    """Phase 10's sizes: the reference training CLI's decoder and batch at
+    full width (4 layers, 4 heads, 768 wide, vocab 50,257, prefix 768,
+    max_seq_len 20, batch 64), the flagship's bank, a packed run of 1024
+    rows of 64 positions, and the mappers on the frozen GPT-2 base at the
+    ViECap CLI's batch 80 and max_seq_len 40."""
+
+    decoder: tuple = (4, 4, D, 50257)  # n_layer, n_head, n_embd, vocab
+    max_seq_len: int = 20
+    batch: int = 64
+    bank_rows: int = MEMORY_ROWS
+    packed_rows: int = 1024
+    pack_len: int = 64
+    loss_chunk: int = 8
+    grad_accum: int = 2
+    base: tuple = (12, 12, D, 50257)
+    prefix_batch: int = 80
+    prefix_len: int = 40
+    gate_rows: int = 8  # the mappers' card-vs-CPU gate: GPT-2 base on the CPU
+    timed_steps: int = 10
+    cli_captions: int = 1280  # 20 steps of 64 an epoch
+
+
+TRAIN = TrainShapes()
+
+
+def _train_captions(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    adj, noun, place = MEMORY_WORDS
+    picks = zip(*(rng.integers(0, len(w), n).tolist() for w in MEMORY_WORDS))
+    return [f"a {adj[i]} {noun[j]} in the {place[k]}" for i, j, k in picks]
+
+
+def _tree_copy(tree, device):
+    """A copy of a tree of tensors on `device` (None leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_copy(v, device) for v in tree)
+    return None if tree is None else tree.detach().to(device, copy=True)
+
+
+def _gate_leaves(label: str, got: dict, ref: dict, what: str) -> None:
+    """Phase 5's gate, max|got - ref| <= 1e-4 * max(1, max|ref|), on every
+    leaf of two {path: tensor} trees; prints the leaf nearest its bound."""
+    if got.keys() != ref.keys():
+        raise AssertionError(f"[{label}] {what}: leaves {sorted(got)} vs {sorted(ref)}")
+    worst = None
+    for name, g in got.items():
+        r = ref[name].float()
+        err = (g.detach().cpu().float() - r).abs().max().item()
+        tol = 1e-4 * max(1.0, r.abs().max().item())
+        rel = err / max(r.abs().max().item(), 1e-30)
+        if not err <= tol:
+            raise AssertionError(f"[{label}] {what} {name}: {err:.3e} > {tol:.3e}")
+        if worst is None or err / tol > worst[1] / worst[2]:
+            worst = (name, err, tol, rel)
+    log(f"[{label}] {what}: {len(got)} leaves within the gate; nearest its bound "
+        f"{worst[0]} max|d|={worst[1]:.3e} (tol {worst[2]:.3e}, {worst[3]:.2e} of its max)")
+
+
+def _grads(leaves: list) -> dict:
+    return {str(i): p.grad for i, p in enumerate(leaves)}
+
+
+def _timed_steps(run, batches: list, label: str, rows_per_step: int, smi: str,
+                 captions_per_step=None) -> tuple[float, int]:
+    """Two warm steps, then the rest timed by the host clock with the card
+    synchronised, D's launches counted from 0 and the peak memory from the
+    first timed step; (steps/s, D's launches)."""
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    for b in batches[:2]:
+        run(*b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mp.memory_project_streamed.launches = 0
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        run(*b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = mp.memory_project_streamed.launches
+    steps = len(batches) - 2
+    caps = (captions_per_step or rows_per_step) * steps
+    log(f"[train {label}] {steps} steps in {secs:.3f} s: {steps / secs:.3f} steps/s, "
+        f"{caps / secs:.1f} captions/s trained ({rows_per_step} rows a step), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, kernel D "
+        f"{launches} launches; {smi}")
+    return steps / secs, launches
+
+
+def _decoder_gates(gcfg, features, tokens, bank, seed: int) -> None:
+    """The --im_proj step with CapDec noise on the card against the same
+    step on the CPU (the plain projection), same init, batches and noise:
+    loss and accuracy each step, every gradient leaf after the first, the
+    params after the third."""
+    from patchioner_tpu_torch.models import decap
+    from patchioner_tpu_torch.ops import memory_projection as mp
+    from patchioner_tpu_torch.train import decoder_train as dt
+
+    tcfg = dt.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10, gaussian_noise=0.016)
+    params = decap.init_decap(gcfg, features.shape[1],
+                              torch.Generator(device="cuda").manual_seed(seed + 41), "cuda")
+    ref = decap.DecapParams(*(_tree_copy(t, "cpu") for t in params))
+    cpu_bank = mp.PreparedBank(bank.rows.cpu(), bank.inv_norm.cpu(), bank.num_real)
+    sides = [(params, dt.make_optimizer(tcfg).init(params), bank),
+             (ref, dt.make_optimizer(tcfg).init(ref), cpu_bank)]
+    step = dt.make_train_step(gcfg, tcfg)
+    gen = torch.Generator().manual_seed(seed + 42)
+    n = TRAIN.batch
+    for i in range(3):
+        idx = slice(i * n, (i + 1) * n)
+        noise = torch.randn(n, features.shape[1], generator=gen)
+        metrics = []
+        for (p, state, b), where in zip(sides, ("cuda", "cpu")):
+            _, _, m = step(p, state, features[idx].to(where), tokens[idx].to(where),
+                           bank=b, noise=noise.to(where))
+            metrics.append(m)
+        for k in ("loss", "acc"):
+            _gate("train gate", metrics[0][k].reshape(1).cpu(), metrics[1][k].reshape(1),
+                  f"step {i}, card vs CPU", k)
+        if i == 0:
+            _gate_leaves("train gate", _grads(sides[0][1].leaves), _grads(sides[1][1].leaves),
+                         "every gradient leaf after one step, card vs CPU")
+    _gate_leaves("train gate", dict(enumerate(sides[0][1].leaves)),
+                 dict(enumerate(sides[1][1].leaves)), "the params after three steps")
+
+
+def _prefix_phase(seed: int, smi: str) -> None:
+    """ViECap's 8-layer mapping network and ClipCap's MLP mapper (prefix 10)
+    trained on a frozen seeded GPT-2 base: steps timed at batch 80, then one
+    step at `gate_rows` rows on the card against the CPU (loss, accuracy,
+    every mapper gradient leaf)."""
+    from patchioner_tpu_torch.io import checkpoints
+    from patchioner_tpu_torch.models import clipcap, gpt2, patchioner, viecap
+    from patchioner_tpu_torch.train import decoder_train as dt, prefix_cli, prefix_train as pt
+
+    nl, nh, width, vocab = TRAIN.base
+    base = gpt2.GPT2Config(n_layer=nl, n_head=nh, n_embd=width, vocab_size=vocab)
+    gpt = gpt2.init_gpt2(base, torch.Generator(device="cuda").manual_seed(seed + 43), "cuda")
+    gpt_cpu = _tree_copy(gpt, "cpu")
+    n = TRAIN.prefix_batch * (TRAIN.timed_steps + 2)
+    tok, mask = prefix_cli._tokenize(_train_captions(seed + 44, n),
+                                     patchioner._get_gpt2_tokenizer(True), TRAIN.prefix_len)
+    tokens, mask = torch.from_numpy(tok.astype(np.int64)), torch.from_numpy(mask)
+    feats = torch.randn(n, D, generator=torch.Generator().manual_seed(seed + 45))
+    vcfg = viecap.ViecapConfig(clip_hidden_size=D)
+    mappers = {
+        "viecap": (lambda g, where: viecap.init_mapping_network(vcfg, width, g, where),
+                   lambda p, f: viecap.mapping_network_forward(p, f, vcfg, width), 0.016),
+        "clipcap": (lambda g, where: clipcap.init_mlp_mapper(D, 10, width, g, where),
+                    lambda p, f: clipcap.mlp_mapper_forward(p, f, 10, width), 0.0)}
+    for name, (init, fn, noise) in mappers.items():
+        tcfg = pt.PrefixTrainConfig(noise_variance=noise)
+        tx = dt.AdamW(dt.linear_warmup_decay(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps),
+                      tcfg.weight_decay)
+        step = pt.make_prefix_train_step(fn, base, tcfg)
+        mapper = init(torch.Generator(device="cuda").manual_seed(seed + 46), "cuda")
+        state = tx.init(mapper)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 47)
+        b = TRAIN.prefix_batch
+        batches = [tuple(t[i * b:(i + 1) * b].to("cuda") for t in (feats, tokens, mask))
+                   for i in range(TRAIN.timed_steps + 2)]
+        _timed_steps(lambda f, t, m: step(mapper, state, gpt, f, t, m, gen), batches,
+                     f"{name} mapper", b, smi)
+        # the gate: one step from the same init at gate_rows rows
+        g = TRAIN.gate_rows
+        noise_draw = torch.randn(g, D, generator=torch.Generator().manual_seed(seed + 48))
+        metrics, grads = [], []
+        fresh = init(torch.Generator(device="cuda").manual_seed(seed + 49), "cuda")
+        for where, lm, mp_ in (("cuda", gpt, fresh), ("cpu", gpt_cpu, _tree_copy(fresh, "cpu"))):
+            st = tx.init(mp_)
+            _, st, m = step(mp_, st, lm, feats[:g].to(where), tokens[:g].to(where),
+                            mask[:g].to(where), noise=noise_draw.to(where))
+            metrics.append(m)
+            grads.append(_grads(st.leaves))
+        for k in ("loss", "acc"):
+            _gate(f"{name} gate", metrics[0][k].reshape(1).cpu(), metrics[1][k].reshape(1),
+                  f"{g} rows, card vs CPU", k)
+        _gate_leaves(f"{name} gate", grads[0], grads[1],
+                     f"every mapper gradient leaf after one step at {g} rows, card vs CPU")
+        if any(leaf.grad is not None or leaf.requires_grad
+               for _, leaf in checkpoints.flatten_tree(gpt)):
+            raise AssertionError(f"[{name}] a gradient reached the frozen GPT-2")
+
+
+def _train_then_serve(seed: int, smi: str, directory: str) -> None:
+    """The decoder CLI trains 20 steps on a `--features` file and resumes;
+    `from_config(decap_weights: <out_dir>)` serves 8 trace requests on the
+    flagship (A, B, C, D and the decode graph asserted); the prefix CLI
+    trains a ViECap and a ClipCap mapper, and each directory is served once
+    through `weight_path`."""
+    from patchioner_tpu_torch.io import checkpoints
+    from patchioner_tpu_torch.train import cli, prefix_cli
+
+    work = os.path.join(directory, "train")
+    os.makedirs(work, exist_ok=True)
+    corpus = os.path.join(work, "captions.json")
+    with open(corpus, "w") as f:
+        json.dump([{"image_id": i // 5, "caption": c} for i, c in
+                   enumerate(_train_captions(seed + 52, TRAIN.cli_captions))], f)
+    feats = os.path.join(work, "features.npy")
+    np.save(feats, np.random.default_rng(seed + 53).standard_normal(
+        (TRAIN.cli_captions, D)).astype(np.float32))
+    out = os.path.join(work, "decap")
+    nl, nh, width, vocab = TRAIN.decoder
+    argv = ["--data", corpus, "--features", feats, "--out_dir", out, "--epochs", "2",
+            "--bs", str(TRAIN.batch), "--seed", str(seed), "--device", "cuda",
+            "--n_layer", str(nl), "--n_head", str(nh), "--n_embd", str(width),
+            "--vocab_size", str(vocab), "--max_seq_len", str(TRAIN.max_seq_len)]
+    epoch = TRAIN.cli_captions // TRAIN.batch  # an epoch's steps, 5 or more
+    t0 = time.perf_counter()
+    cli.main(argv + ["--limit_steps", str(epoch)])
+    t1 = time.perf_counter()
+    cli.main(argv + ["--resume", "--limit_steps", str(epoch + 5)])
+    t2 = time.perf_counter()
+    mgr = checkpoints.CheckpointManager(out)
+    log(f"[train cli] {epoch} steps in {t1 - t0:.2f} s, then a resume to step "
+        f"{mgr.latest_step()} in {t2 - t1:.2f} s (CLI wall, setup included); {smi}")
+    if mgr.latest_step() != epoch + 5:
+        raise AssertionError(f"[train cli] the resumed run ended at {mgr.latest_step()}")
+    trained = mgr.restore()["params"]
+    model = build_model(dict(FLAGSHIP_CONFIG, decap_weights=out), seed, "[trained]")
+    if not torch.equal(model.decoder.clip_project["w"].cpu(), trained["clip_project"]["w"]):
+        raise AssertionError("[trained] from_config did not load the trained decoder")
+    phase_main_path(seed, smi, "trained", n_requests=B, model=model)
+    del model
+    torch.cuda.empty_cache()
+
+    imgs, _ = _requests(B, seed + 54)
+    for name, config, extra in (
+            ("viecap", VIECAP_CONFIG, ["--num_layers", "8"]),
+            ("clipcap", CLIPCAP_CONFIG, ["--prefix_length", "10"])):
+        pdir = os.path.join(work, name)
+        t0 = time.perf_counter()
+        bl, bh, bw, bv = TRAIN.base
+        prefix_cli.main(["--model", name, "--data", corpus, "--features", feats,
+                         "--out_dir", pdir, "--bs", str(TRAIN.prefix_batch),
+                         "--max_seq_len", str(TRAIN.prefix_len), "--n_layer", str(bl),
+                         "--n_head", str(bh), "--n_embd", str(bw), "--vocab_size", str(bv),
+                         "--limit_steps", "3", "--allow_random", "--device", "cuda", *extra])
+        log(f"[train {name} cli] 3 steps in {time.perf_counter() - t0:.2f} s (CLI wall, "
+            f"setup included)")
+        block = dict(config[name], weight_path=pdir)
+        model = build_model(dict(config, **{name: block}), seed, f"[trained {name}]")
+        fam = model.viecap if name == "viecap" else model.clipcap
+        key, leaf = ("linear", "w") if name == "viecap" else ("fc1", "w")
+        params = fam.mapping_params if name == "viecap" else fam.mapper_params
+        saved = checkpoints.CheckpointManager(pdir).restore()["params"]
+        if not torch.equal(params[key][leaf].cpu(), saved[key][leaf]):
+            raise AssertionError(f"[trained {name}] from_config did not load the trained mapper")
+        caps = model.forward(imgs, get_cls_capt=True)["cls_capt"]
+        log(f"[trained {name}] served through weight_path=<dir>: {len(caps)} whole-image "
+            f"captions, caption 0 {caps[0][:60]!r}")
+        if len(caps) != B or not all(isinstance(c, str) for c in caps):
+            raise AssertionError(f"[trained {name}] the served captions are malformed")
+        del model
+        torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(work)
+
+
+def phase_training(seed: int, smi: str, directory: str) -> int:
+    """Phase 10: decoder and prefix-mapper training on the card, f32 (TF32
+    off), seeded weights and corpus. Returns kernel D's launches in the
+    timed `--im_proj` steps."""
+    from patchioner_tpu_torch.models import decap, gpt2
+    from patchioner_tpu_torch.ops import memory_projection as mp
+    from patchioner_tpu_torch.train import cli, data, decoder_train as dt, packing
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 10 holds the card to the CPU in f32: TF32 must be off")
+    nl, nh, width, vocab = TRAIN.decoder
+    gcfg = gpt2.GPT2Config(n_layer=nl, n_head=nh, n_embd=width, vocab_size=vocab)
+    steps = TRAIN.timed_steps + 2
+    t0 = time.perf_counter()
+    unique = _train_captions(seed + 40, 2000)
+    toks = data.CaptionDataset(unique, max_len=TRAIN.max_seq_len).tokens
+    log(f"[train] {len(unique)} seeded captions tokenized in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed + 40)
+    n = TRAIN.batch * max(steps, 3)
+    tokens = torch.from_numpy(toks[rng.integers(0, len(toks), n)].astype(np.int64))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    features = torch.randn(n, D, generator=torch.Generator().manual_seed(seed + 40))
+    rows = torch.randn(TRAIN.bank_rows, D, generator=gen, device="cuda")
+    bank = mp.prepare_bank(rows)
+    del rows
+    log(f"[train] decoder {nl}L/{nh}H/{width}, vocab {vocab}, prefix {D}, max_seq_len "
+        f"{TRAIN.max_seq_len}, batch {TRAIN.batch}, f32; bank {bank.num_real} x "
+        f"{bank.rows.shape[1]} f32 ({bank.rows.numel() * 4 / 1e9:.2f} GB)")
+
+    # 10a: the reference CLI's step, plain and through the bank (kernel D)
+    tcfg = dt.TrainConfig()
+    step = dt.make_train_step(gcfg, tcfg)
+    b = TRAIN.batch
+    batches = [(features[i * b:(i + 1) * b].to("cuda"), tokens[i * b:(i + 1) * b].to("cuda"))
+               for i in range(steps)]
+    launches = {}
+    for label, use in (("plain", None), ("--im_proj", bank)):
+        params = decap.init_decap(gcfg, D, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        state = dt.make_optimizer(tcfg).init(params)
+        _, launches[label] = _timed_steps(
+            lambda f, t: step(params, state, f, t, gen, use), batches, label, b, smi)
+        del params, state
+    if launches["plain"] or launches["--im_proj"] != TRAIN.timed_steps:
+        raise AssertionError(f"[train] kernel D's launches {launches}: one a --im_proj step "
+                             "and none without it expected")
+    f64 = batches[0][0]
+    d_ms = cuda_ms(lambda: mp.memory_project_streamed(f64, bank, normalize=True))
+    plain_ms = cuda_ms(lambda: mp.memory_project_plain(f64, bank, normalize=True))
+    got = mp.memory_project_streamed(f64, bank, normalize=True)
+    want = mp.memory_project_plain(f64, bank, normalize=True)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    ops = 4 * b * bank.num_real * D
+    nbytes = bank.rows.numel() * 4 + bank.inv_norm.numel() * 4 + 2 * f64.numel() * 4
+    bound = max(ops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S) * 1e3
+    log(f"[train] kernel D at the step's {b} rows, f32 bank: {d_ms:.3f} ms (CUDA events, "
+        f"median of 10), plain {plain_ms:.3f} ms, bound {bound:.3f} ms (f32 ops); "
+        f"max|D - plain| / max|plain| = {err:.2e} (tol {TOLERANCE[torch.float32]:.0e}); {smi}")
+    if not err <= TOLERANCE[torch.float32]:
+        raise AssertionError(f"[train] kernel D differs from its plain version: {err:.2e}")
+    d_launches = launches["--im_proj"]
+
+    # 10b: packed rows, the chunked head and two micro-batches a step
+    pool = _train_captions(seed + 55, 2000)
+    ptoks = data.CaptionDataset(pool, max_len=TRAIN.max_seq_len).tokens
+    # a caption is 8 tokens ([SOT] a <adj> <noun> in the <place> [EOT]), so
+    # a row of 64 holds 8: enough captions for steps // 2 + 2 steps
+    need = TRAIN.packed_rows * (steps // 2 + 2) * (TRAIN.pack_len // 8)
+    all_toks = ptoks[np.random.default_rng(seed + 55).integers(0, len(ptoks), need)]
+    pack = packing.pack_captions(all_toks, TRAIN.pack_len)
+    pfeats = torch.randn(len(all_toks), D, generator=gen, device="cuda")
+    pcfg = dt.TrainConfig(loss_chunk=TRAIN.loss_chunk, grad_accum=TRAIN.grad_accum)
+    pstep = dt.make_packed_train_step(gcfg, pcfg)
+    params = decap.init_decap(gcfg, D, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    state = dt.make_optimizer(pcfg).init(params)
+    r = TRAIN.packed_rows
+    pbatches = [(dt.pack_to_device(packing.PackedBatch(
+        *(cli.microbatch(a[i * r:(i + 1) * r], TRAIN.grad_accum) for a in pack)), "cuda"),)
+        for i in range(min(steps // 2 + 2, pack.targets.shape[0] // r))]
+    per_step = int(pack.prefix_mask[:r].sum())
+    log(f"[train packed] {len(all_toks)} captions packed into {pack.targets.shape[0]} rows of "
+        f"{TRAIN.pack_len} ({packing.packing_efficiency(pack):.1%} of the slots score, "
+        f"{pack.seg_feature_idx.shape[1]} segments at most a row), {per_step} captions in "
+        f"a step's {r} rows; loss_chunk {TRAIN.loss_chunk}, grad_accum {TRAIN.grad_accum}")
+    _timed_steps(lambda pk: pstep(params, state, pfeats, pk, gen), pbatches,
+                 "packed", r, smi, captions_per_step=per_step)
+    del params, state, pbatches, pfeats
+
+    # 10c: card vs CPU on the --im_proj step
+    _decoder_gates(gcfg, features, tokens, bank, seed)
+    del bank
+    torch.cuda.empty_cache()
+    # 10d: the mappers; 10e: the CLIs, then serving what they trained
+    _prefix_phase(seed, smi)
+    torch.cuda.empty_cache()
+    _train_then_serve(seed, smi, directory)
+    return d_launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1917,7 +2377,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-9; the kernels' rows of the JSON summary."""
+    """Phases 2-10; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -1940,6 +2400,7 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     # launches were asserted batch by batch, the table keeps the trace run's
     phase_other_queries(flagship, seed, smi)
     phase_decode_graph(flagship, seed, smi)
+    phase_decode_rows(flagship, seed, smi)
     del flagship
     torch.cuda.empty_cache()
     # phase 4b: the kernel each further configuration adds is read from its
@@ -1982,6 +2443,11 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 9")
     for path in paths.values():
         os.remove(path)
+    launches["memory_project"] = (
+        launches["memory_project"][0],
+        f"main; training --im_proj: {phase_training(seed, smi, scratch)} launches in its "
+        "timed steps")
+    elapsed("phase 10")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -26,7 +26,11 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def to_torch(tree, device="cpu"):
-    """A nested dict / list / tuple of arrays as the same tree of tensors."""
+    """A nested dict / list / tuple of arrays as the same tree of tensors;
+    None leaves (a linear without a bias, as in ViECap's mapping network)
+    stay None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

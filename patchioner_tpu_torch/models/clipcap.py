@@ -92,7 +92,6 @@ def mlp_template(prefix_size: int, prefix_length: int, d_model: int) -> dict:
     return {"fc1": dense(prefix_size, hidden), "fc2": dense(hidden, d_model * prefix_length)}
 
 
-@torch.no_grad()
 def mlp_mapper_forward(params: dict, x: torch.Tensor, prefix_length: int,
                        d_model: int) -> torch.Tensor:
     """(B, D) -> (B, prefix_length, d_model) (JAX clipcap.py:90)."""

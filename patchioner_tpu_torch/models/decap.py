@@ -22,7 +22,7 @@ import torch
 from patchioner_tpu_torch.models import gpt2
 
 __all__ = ["ENTRY_LENGTH", "DecapParams", "init_decap", "decap_project_prefix",
-           "greedy_decode", "GreedyDecoder"]
+           "greedy_decode", "row_bucket", "GreedyDecoder"]
 
 ENTRY_LENGTH = 30  # reference: src/decap/decap.py:127
 
@@ -84,6 +84,12 @@ def greedy_decode(params: DecapParams, prefix: torch.Tensor, cfg: gpt2.GPT2Confi
                    prefix, cfg, n_steps)
 
 
+def row_bucket(rows: int) -> int:
+    """The rows a decode graph is captured for: the power of two at or
+    above `rows`."""
+    return 1 << max(rows - 1, 0).bit_length()
+
+
 class GreedyDecoder:
     """`greedy_decode` with its weights cast once, at construction: the
     GPT-2 tree in cfg.dtype, the prefix linear in f32, on the weights'
@@ -92,11 +98,18 @@ class GreedyDecoder:
     `decoder(prefix) -> (tokens, scores)` follows the kernels' device rule.
     On CPU tensors it runs the eager loop. On CUDA tensors it replays a
     CUDA graph of all `n_steps` steps, captured on first use for each
-    (rows, prefix dtype, TF32 setting): cuBLAS keeps the GEMM kernels a
-    graph was captured with, so a TF32 flip needs a graph of its own. The
-    prefix is copied into the graph's static input before each replay and
-    the tokens and scores are cloned out after it. A capture or a replay
-    that fails raises; nothing falls back to the eager loop on the card.
+    (row bucket, prefix dtype, TF32 setting): cuBLAS keeps the GEMM kernels
+    a graph was captured with, so a TF32 flip needs a graph of its own.
+    The row bucket is the power of two at or above the row count
+    (`row_bucket`): the graphs are never dropped, so one a distinct count
+    would grow the card's memory with every new box total `forward` sees,
+    while buckets keep at most one graph per power of two. The prefix is
+    copied into the graph's static input before each replay, the rows
+    past it zeroed (rows decode independently: a real row gets the eager
+    loop's tokens on the padded batch, though in bf16 the GEMMs of another
+    row count may round a near-tie the other way), and the real rows'
+    tokens and scores are cloned out after it. A capture or a replay that fails raises; nothing falls
+    back to the eager loop on the card.
 
     The graphs share one memory pool: they never run at once, since every
     replay holds the object's lock and waits for the previous one, and a
@@ -126,23 +139,25 @@ class GreedyDecoder:
             return _decode(self.params, prefix, self.cfg, self.n_steps)
         if prefix.device != self.device:
             raise ValueError(f"prefix on {prefix.device}, decoder on {self.device}")
-        key = (prefix.shape[0], prefix.dtype, torch.backends.cuda.matmul.allow_tf32)
+        rows = prefix.shape[0]
+        key = (row_bucket(rows), prefix.dtype, torch.backends.cuda.matmul.allow_tf32)
         with self._lock:
             stream = torch.cuda.current_stream(self.device)
             if self._done is not None:
                 stream.wait_event(self._done)
             graph, static_in, tokens, scores = (self._graphs.get(key)
                                                 or self._capture(key, prefix))
-            static_in.copy_(prefix)
+            static_in[:rows].copy_(prefix)
+            static_in[rows:].zero_()
             graph.replay()
             self.replays += 1
-            out = tokens.clone(), scores.clone()
+            out = tokens[:rows].clone(), scores[:rows].clone()
             self._done = torch.cuda.Event()
             self._done.record(stream)
         return out
 
     def _capture(self, key, prefix: torch.Tensor):
-        static_in = torch.zeros_like(prefix, memory_format=torch.contiguous_format)
+        static_in = prefix.new_zeros((key[0], prefix.shape[1]))
         # one eager run on a side stream first, so that cuBLAS has its handle
         # and workspace before the capture
         main = torch.cuda.current_stream(self.device)

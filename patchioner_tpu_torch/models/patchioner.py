@@ -32,8 +32,10 @@ loads what the reference's `from_config` loads for this subset
 - `dino_weights`: a torch.hub DINOv2 `.pth` (a `state_dict` key is
   unwrapped) through `io.torch_port.port_dinov2`, or an `.npz` of
   `io.checkpoints.save_params_npz`;
-- `decap_weights`: a DeCap `.pt` through `port_decap` (an Orbax directory
-  of the JAX package's decoder training raises NotImplementedError);
+- `decap_weights`: a DeCap `.pt` through `port_decap`, or a directory the
+  port's `train/cli.py` wrote (its latest step, through
+  `io.checkpoints.load_decap_from_train_dir`; an Orbax directory of the
+  JAX package's trainers raises NotImplementedError);
 - `talk2dino_weights`: Talk2DINO's projection through `port_talk2dino`,
   whose `talk2dino.build_inversion` takes the projected prefix back to
   CLIP space; the bank then lives in DINO space, the prefix in CLIP space;
@@ -44,7 +46,8 @@ loads what the reference's `from_config` loads for this subset
   `bank` is None and DeCap decodes the features as they are;
 - a `viecap` block: the ViECap `.pt` at `weight_path` (`mapping_network.*`
   through `viecap.port_mapping_network`, `gpt.*` through
-  `port_hf_gpt2_lmhead` into GPT-2 base, f32), the entity vocabulary and
+  `port_hf_gpt2_lmhead` into GPT-2 base, f32) or a directory of the
+  port's `train/prefix_cli.py --model viecap` (the mapper alone), the entity vocabulary and
   its embedding pickle from `files_path/annotations/vocabulary` or else
   the port's data folder (the COCO, VG/OI and Open Images vocabularies
   and the Talk2DINO-space COCO embeddings are there; the CLIP-space
@@ -56,9 +59,10 @@ loads what the reference's `from_config` loads for this subset
   `memory_clip_embeddings.pt`) and `from_config`'s `concept_extractor`;
 - a `clipcap` block: the ClipCap `.pt` at `weight_path`
   (`clip_project.model.{0,2}.*` for the MLP mapper, `clip_project.*` for
-  the transformer one, `gpt.*`), GPT-2 base in f32, the mapper taking the
-  DINOv2 backbone's width (`clipcap.feature_width`). ViECap wins where a
-  config has both.
+  the transformer one, `gpt.*`) or a directory of the port's
+  `train/prefix_cli.py --model clipcap` (the MLP mapper alone), GPT-2
+  base in f32, the mapper taking the DINOv2 backbone's width
+  (`clipcap.feature_width`). ViECap wins where a config has both.
 A file that is missing falls back to seeded random tensors, drawn with
 `torch.Generator`, only under `allow_missing_weights=True`, and otherwise
 raises FileNotFoundError, as the reference does; a missing Talk2DINO file
@@ -92,6 +96,8 @@ without a card, asking for "cuda" raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import os
 import pickle
 import time
@@ -202,39 +208,6 @@ class _Clock(dict):
             self[stage] = self.get(stage, 0.0) + time.perf_counter() - t0
 
 
-def _check_tree(key: str, path: str, tree, template, config: str) -> None:
-    """ValueError unless `tree` has the structure and shapes of `template`,
-    the tree the config gives; the message names both."""
-
-    def walk(got, want, at):
-        if isinstance(want, dict):
-            if not isinstance(got, dict) or sorted(got) != sorted(want):
-                raise ValueError(
-                    f"{key}={path!r}: {at or 'the tree'} holds "
-                    f"{sorted(got) if isinstance(got, dict) else type(got).__name__} "
-                    f"where the config ({config}) gives {sorted(want)}")
-            for k in want:
-                walk(got[k], want[k], f"{at}[{k!r}]")
-        elif isinstance(want, (list, tuple)):
-            if not isinstance(got, (list, tuple)) or len(got) != len(want):
-                raise ValueError(
-                    f"{key}={path!r}: {at} has "
-                    f"{len(got) if isinstance(got, (list, tuple)) else 'no'} entries "
-                    f"where the config ({config}) gives {len(want)}")
-            for i, (g, w) in enumerate(zip(got, want)):
-                walk(g, w, f"{at}[{i}]")
-        elif want is None:  # a linear without a bias
-            if got is not None:
-                raise ValueError(f"{key}={path!r}: {at} is a tensor where the config "
-                                 f"({config}) gives none")
-        elif not torch.is_tensor(got) or got.shape != want.shape:
-            shape = tuple(got.shape) if torch.is_tensor(got) else type(got).__name__
-            raise ValueError(f"{key}={path!r}: {at} is {shape} where the "
-                             f"config ({config}) gives {tuple(want.shape)}")
-
-    walk(tree, template, "")
-
-
 def _num_blocks(sd, prefix: str) -> int:
     """How many `{prefix}N.` blocks a state dict holds."""
     idx = {k[len(prefix):].split(".", 1)[0] for k in sd if k.startswith(prefix)}
@@ -262,10 +235,10 @@ def _load_dino(path: str, cfg: vit.ViTConfig, clock: _Clock) -> dict:
     if cfg.embed_dim % cfg.num_heads:
         raise ValueError(f"dino_weights={path!r}: the config's {cfg.num_heads} heads "
                          f"do not split its width {cfg.embed_dim}")
-    _check_tree("dino_weights", path, tree, vit.param_template(cfg),
-                f"depth {cfg.depth}, width {cfg.embed_dim}, {cfg.num_heads} heads, "
-                f"{cfg.num_registers} registers, {cfg.ffn} FFN {cfg.ffn_hidden}, "
-                f"patch {cfg.patch_size}, position grid {cfg.stored_pos_grid}")
+    checkpoints.check_tree("dino_weights", path, tree, vit.param_template(cfg),
+                           f"depth {cfg.depth}, width {cfg.embed_dim}, {cfg.num_heads} heads, "
+                           f"{cfg.num_registers} registers, {cfg.ffn} FFN {cfg.ffn_hidden}, "
+                           f"patch {cfg.patch_size}, position grid {cfg.stored_pos_grid}")
     return tree
 
 
@@ -282,10 +255,10 @@ def _load_decap(path: str, cfg: gpt2.GPT2Config, prefix_size: int,
     template = {"gpt2": gpt2.param_template(cfg),
                 "clip_project": {"w": torch.empty(prefix_size, cfg.n_embd, device="meta"),
                                  "b": torch.empty(cfg.n_embd, device="meta")}}
-    _check_tree("decap_weights", path, tree, template,
-                f"n_layer {cfg.n_layer}, n_embd {cfg.n_embd}, {cfg.n_head} heads, "
-                f"vocab_size {cfg.vocab_size}, n_positions {cfg.n_positions}, "
-                f"prefix_size {prefix_size}")
+    checkpoints.check_tree("decap_weights", path, tree, template,
+                           f"n_layer {cfg.n_layer}, n_embd {cfg.n_embd}, {cfg.n_head} heads, "
+                           f"vocab_size {cfg.vocab_size}, n_positions {cfg.n_positions}, "
+                           f"prefix_size {prefix_size}")
     return decap.DecapParams(**tree)
 
 
@@ -408,11 +381,15 @@ def _port_mapping(sd, key: str, path: str, prefix: str, cfg: viecap_mod.ViecapCo
                          f"the config gives {cfg.num_layers}")
     with clock("port"):
         mapping = viecap_mod.port_mapping_network(sd, prefix=prefix, num_layers=layers)
-    _check_tree(key, path, mapping, viecap_mod.mapping_template(cfg, d_model),
-                f"clip_hidden_size {cfg.clip_hidden_size}, clip_project_length "
-                f"{cfg.clip_project_length}, continuous_prompt_length "
-                f"{cfg.continuous_prompt_length}, {cfg.num_layers} layers of {d_model}")
+    checkpoints.check_tree(key, path, mapping, viecap_mod.mapping_template(cfg, d_model),
+                           _mapping_description(cfg, d_model))
     return mapping
+
+
+def _mapping_description(cfg: viecap_mod.ViecapConfig, d_model: int) -> str:
+    return (f"clip_hidden_size {cfg.clip_hidden_size}, clip_project_length "
+            f"{cfg.clip_project_length}, continuous_prompt_length "
+            f"{cfg.continuous_prompt_length}, {cfg.num_layers} layers of {d_model}")
 
 
 def _port_gpt(sd, key: str, path: str, gcfg: gpt2.GPT2Config, clock: _Clock) -> Optional[dict]:
@@ -423,9 +400,9 @@ def _port_gpt(sd, key: str, path: str, gcfg: gpt2.GPT2Config, clock: _Clock) -> 
     with clock("port"):
         gpt = torch_port.port_hf_gpt2_lmhead(sd, _num_blocks(sd, "gpt.transformer.h."),
                                              prefix="gpt.")
-    _check_tree(key, path, gpt, gpt2.param_template(gcfg),
-                f"GPT-2 n_layer {gcfg.n_layer}, n_embd {gcfg.n_embd}, vocab_size "
-                f"{gcfg.vocab_size}, n_positions {gcfg.n_positions}")
+    checkpoints.check_tree(key, path, gpt, gpt2.param_template(gcfg),
+                           f"GPT-2 n_layer {gcfg.n_layer}, n_embd {gcfg.n_embd}, vocab_size "
+                           f"{gcfg.vocab_size}, n_positions {gcfg.n_positions}")
     return gpt
 
 
@@ -459,7 +436,8 @@ def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
     """VieCap or MeaCap from the config's `viecap:` block (reference
     src/model.py:107-113, viecap/entrypoint.py:61-96; twin of
     `patchioner.py:155-300`): the mapping network and GPT-2 base
-    (`gpt2.GPT2_BASE_CONFIG`) from `weight_path`; then, under a `meacap`
+    (`gpt2.GPT2_BASE_CONFIG`) from `weight_path`, a `.pt` or a training
+    directory (the mapper alone); then, under a `meacap`
     block, the caption memory and `concept_extractor` (MeaCap), else the
     entity vocabulary and its embeddings from
     `files_path/annotations/vocabulary` or the port's data folder. A
@@ -484,12 +462,21 @@ def _build_viecap_family(vd: dict, clip_model_name, generator: torch.Generator,
     gcfg = gpt2.GPT2_BASE_CONFIG
 
     path = vd.get("weight_path")
-    if path and os.path.isdir(str(path)):
-        raise NotImplementedError(
-            f"viecap.weight_path={path!r} is a directory, an Orbax checkpoint of the JAX "
-            "package's mapper training: loading one waits for the port's training slice")
     gpt = None
-    if path and os.path.exists(str(path)):
+    if path and os.path.isdir(str(path)):
+        # a directory of the port's `train/prefix_cli.py --model viecap`:
+        # the mapper alone, of the depth its mapper_meta.json gives (the
+        # block has no depth key), GPT-2 as for a file without one
+        meta = os.path.join(str(path), "mapper_meta.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                cfg = dataclasses.replace(cfg, num_layers=int(json.load(f).get(
+                    "num_layers", cfg.num_layers)))
+        with clock("read"):
+            mapping = checkpoints.load_mapper_from_train_dir(
+                str(path), "viecap.weight_path", viecap_mod.mapping_template(cfg, gcfg.n_embd),
+                _mapping_description(cfg, gcfg.n_embd))
+    elif path and os.path.exists(str(path)):
         mapping, gpt = _load_viecap_file(str(path), cfg, gcfg, clock)
     elif allow_missing_weights:
         mapping = viecap_mod.init_mapping_network(cfg, gcfg.n_embd, generator, device)
@@ -548,8 +535,8 @@ def _build_clipcap(cd: dict, dino_model, prefix_size: int, generator: torch.Gene
     `weight_path`, the mapper taking `clipcap.feature_width` (the DINOv2
     backbone's width, not `prefix_size`). A missing file falls back to
     random tensors only under `allow_missing_weights`, else raises
-    FileNotFoundError; a directory (an Orbax checkpoint of the JAX
-    package's mapper training) raises NotImplementedError."""
+    FileNotFoundError. A training directory of the port's
+    `train/prefix_cli.py --model clipcap` gives the MLP mapper alone."""
     cfg = clipcap_mod.ClipCapConfig(
         prefix_length=cd.get("prefix_length", 10), clip_length=cd.get("clip_length", 10),
         num_layers=cd.get("num_layers", 8), mapping_type=cd.get("mapping_type", "mlp").lower(),
@@ -559,20 +546,28 @@ def _build_clipcap(cd: dict, dino_model, prefix_size: int, generator: torch.Gene
     width = clipcap_mod.feature_width(dino_model, prefix_size)
     gcfg = gpt2.GPT2_BASE_CONFIG
     path = cd.get("weight_path")
-    if path and os.path.isdir(str(path)):
-        raise NotImplementedError(
-            f"clipcap.weight_path={path!r} is a directory, an Orbax checkpoint of the JAX "
-            "package's mapper training: loading one waits for the port's training slice")
     gpt = None
-    if path and os.path.exists(str(path)):
+    if path and os.path.isdir(str(path)):
+        # a directory of the port's `train/prefix_cli.py --model clipcap`,
+        # which trains the MLP mapper: the mapper alone
+        if cfg.mapping_type != "mlp":
+            raise ValueError(f"clipcap.weight_path={path!r} is a training directory, which "
+                             "holds an MLP mapper; the config gives mapping_type "
+                             f"{cfg.mapping_type!r}")
+        with clock("read"):
+            mapper = checkpoints.load_mapper_from_train_dir(
+                str(path), "clipcap.weight_path",
+                clipcap_mod.mlp_template(width, cfg.prefix_length, gcfg.n_embd),
+                f"an MLP mapper {width} -> {cfg.prefix_length} x {gcfg.n_embd}")
+    elif path and os.path.exists(str(path)):
         sd = _torch_load(str(path), clock)
         if cfg.mapping_type == "mlp":
             with clock("port"):
                 mapper = clipcap_mod.port_clipcap(
                     {k: v for k, v in sd.items() if k.startswith("clip_project.")}, cfg)["mapper"]
-            _check_tree("clipcap.weight_path", str(path), mapper,
-                        clipcap_mod.mlp_template(width, cfg.prefix_length, gcfg.n_embd),
-                        f"an MLP mapper {width} -> {cfg.prefix_length} x {gcfg.n_embd}")
+            checkpoints.check_tree("clipcap.weight_path", str(path), mapper,
+                                   clipcap_mod.mlp_template(width, cfg.prefix_length, gcfg.n_embd),
+                                   f"an MLP mapper {width} -> {cfg.prefix_length} x {gcfg.n_embd}")
         else:
             mapper = _port_mapping(sd, "clipcap.weight_path", str(path), "clip_project.",
                                    clipcap_mod.mapper_config(cfg, width), gcfg.n_embd, clock)
@@ -709,11 +704,11 @@ class Patchioner:
             dtype=dtype)
         path = config.get("decap_weights")
         if path and os.path.isdir(str(path)):
-            raise NotImplementedError(
-                f"decap_weights={path!r} is a directory, an Orbax checkpoint of the JAX "
-                "package's decoder training: loading one waits for the port's training "
-                "slice")
-        if path and os.path.exists(str(path)):
+            # a directory of the port's `train/cli.py`: its latest step
+            with clock("read"):
+                decoder = checkpoints.load_decap_from_train_dir(str(path), gpt2_cfg,
+                                                                prefix_size)
+        elif path and os.path.exists(str(path)):
             decoder = _load_decap(str(path), gpt2_cfg, prefix_size, clock)
         elif allow_missing_weights:
             decoder = decap.init_decap(gpt2_cfg, prefix_size, gen(1), device)

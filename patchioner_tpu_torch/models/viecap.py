@@ -185,7 +185,6 @@ def _ln(x, p, eps):
     return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
 
 
-@torch.no_grad()
 def mapping_network_forward(params: dict, x: torch.Tensor, cfg: ViecapConfig,
                             d_model: int) -> torch.Tensor:
     """(B, clip_hidden) -> (B, continuous_prompt_length, d_model): the

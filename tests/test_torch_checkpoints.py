@@ -494,9 +494,13 @@ def test_inversion_sets_the_random_bank_width(files, tmp_path, monkeypatch):
 
 
 def test_a_decap_directory_is_not_ported(files, tmp_path):
+    """A directory of the JAX package's decoder training (Orbax) is
+    refused; the port reads the directories its own trainer writes
+    (tests/test_torch_train.py)."""
+    jckpt.CheckpointManager(str(tmp_path)).save(1, {"params": {"w": jnp.ones(3)}, "step": 1})
     config = _config(prefix_size=D, dino_weights=files["pth"], decap_weights=str(tmp_path),
                      memory_bank_path=files["bank"])
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="Orbax"):
         Patchioner.from_config(config, device="cpu")
 
 
@@ -573,7 +577,7 @@ def test_a_missing_file_needs_the_explicit_opt_in(files, tmp_path, missing):
 def test_param_templates_have_the_shapes_of_the_inits(geometry):
     # the load check compares a file's tree with these templates
     def shapes(tree):
-        return [(p, tuple(t.shape)) for p, t in checkpoints._flatten(tree)]
+        return [(p, tuple(t.shape)) for p, t in checkpoints.flatten_tree(tree)]
 
     cfg = vit.ViTConfig(**dict(dict(img_size=56, embed_dim=D, depth=DEPTH, num_heads=2,
                                     pos_grid=GRID), **geometry))
@@ -581,7 +585,7 @@ def test_param_templates_have_the_shapes_of_the_inits(geometry):
     assert shapes(vit.param_template(cfg)) == shapes(vit.init_vit(cfg, gen))
     gcfg = gpt2.GPT2Config(vocab_size=VOCAB, n_layer=cfg.depth, n_head=4, n_embd=N_EMBD)
     assert shapes(gpt2.param_template(gcfg)) == shapes(gpt2.init_gpt2(gcfg, gen))
-    assert all(t.device.type == "meta" for _, t in checkpoints._flatten(
+    assert all(t.device.type == "meta" for _, t in checkpoints.flatten_tree(
         [vit.param_template(cfg), gpt2.param_template(gcfg)]))
 
 

@@ -298,7 +298,11 @@ def test_clipcap_weights_missing_disagreeing_or_a_directory(clipcap_pt, tiny_bas
     with pytest.raises(FileNotFoundError, match="nope.pt"):
         patchioner._build_clipcap(block, "dinov2_vits14_reg", 384, torch.Generator(), False,
                                   WordTokenizer(), torch.device("cpu"), patchioner._Clock())
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # a directory of the JAX package's mapper training (Orbax) is refused
+    from patchioner_tpu.io.checkpoints import CheckpointManager
+
+    CheckpointManager(str(tmp_path)).save(1, {"params": {"w": jnp.ones(3)}, "step": 1})
+    with pytest.raises(NotImplementedError, match="Orbax"):
         Patchioner.from_config(_config(str(tmp_path), False), allow_missing_weights=True,
                                device="cpu", gpt2_tokenizer=WordTokenizer())
     torch.save(_clipcap_state_dict("mlp", width=128), tmp_path / "narrow.pt")

@@ -33,6 +33,7 @@ from patchioner_tpu.models import decap as jdecap
 from patchioner_tpu.models import patchioner as jpatchioner
 from patchioner_tpu.models import viecap as jviecap
 from patchioner_tpu.models import vit as jvit
+from patchioner_tpu.io.checkpoints import CheckpointManager as JaxCheckpointManager
 from patchioner_tpu.models.patchioner import Patchioner as JaxPatchioner
 from patchioner_tpu.ops import memory_projection as jmp
 from patchioner_tpu.serve import CaptionServer as JaxServer
@@ -353,8 +354,11 @@ def test_viecap_files_missing_directory_and_mapping_only(viecap_files, tiny_base
         patchioner._build_viecap_family(missing, None, torch.Generator(), False,
                                         WordTokenizer(), torch.device("cpu"),
                                         patchioner._Clock())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Patchioner.from_config(_viecap_config(dict(viecap_files, pt=str(tmp_path))),
+    # a directory of the JAX package's mapper training (Orbax) is refused
+    orbax = tmp_path / "orbax"
+    JaxCheckpointManager(str(orbax)).save(1, {"params": {"w": jnp.ones(3)}, "step": 1})
+    with pytest.raises(NotImplementedError, match="Orbax"):
+        Patchioner.from_config(_viecap_config(dict(viecap_files, pt=str(orbax))),
                                allow_missing_weights=True, device="cpu",
                                gpt2_tokenizer=WordTokenizer())
     # a file with the mapping network alone takes a random GPT-2, only

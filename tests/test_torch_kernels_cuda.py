@@ -17,7 +17,10 @@ output by about amax / 127 * |w|.
 The DeCap decode's CUDA graph (`decap.GreedyDecoder`) is held against the
 eager loop, its plain version: the graph replays the loop's own launches,
 so the tokens must be equal and the scores within 1e-6 (f32) and 1e-3
-(bf16) relative.
+(bf16) relative; a row count shares its power-of-two bucket's graph, and
+the graphs kept stay one a bucket. One decoder training step on the card
+(kernel D's --im_proj step, and the packed step) is held against the
+same step on the CPU under chip_smoke's f32 gate.
 
 ViECap's searches (plain torch, no kernel) run on the card as on the CPU:
 on a small f32 GPT-2 whose wte is scaled so that no step is a near-tie,
@@ -534,6 +537,38 @@ def test_decode_graph_after_a_nan_batch(cuda, dtype):
     torch.testing.assert_close(scores, want_scores, rtol=SCORE_RTOL[dtype], atol=0)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_graphs_are_kept_per_power_of_two_rows(cuda, dtype):
+    """Row counts share the graph of their power-of-two bucket: its real
+    rows' tokens and scores are the eager loop's on the prefix padded with
+    zero rows to the bucket (the graph's own batch); in f32 the tokens also
+    equal the eager loop's on the real rows alone (rows decode
+    independently; in bf16 the GEMMs cuBLAS picks for another row count
+    can round a near-tie the other way, so that is not asserted there);
+    and a sweep of every count in a bucket captures nothing more and
+    reserves no more memory (at most 8 MiB of small-block slack)."""
+    params, cfg, gen = _sharp_decoder(dtype, 23)
+    decoder = decap.GreedyDecoder(params, cfg)
+    for rows in (40, 3, 100, 64, 33, 128, 4, 65):
+        prefix = _unit_prefix(gen, rows)
+        tokens, scores = decoder(prefix)
+        padded = torch.cat([prefix, prefix.new_zeros(decap.row_bucket(rows) - rows, 768)])
+        want_tokens, want_scores = decap.greedy_decode(params, padded, cfg)
+        assert tokens.shape == (rows, decoder.n_steps)
+        assert torch.equal(tokens, want_tokens[:rows])
+        torch.testing.assert_close(scores, want_scores[:rows], rtol=SCORE_RTOL[dtype], atol=0)
+        if dtype == torch.float32:
+            assert torch.equal(tokens, decap.greedy_decode(params, prefix, cfg)[0])
+    assert decoder.captures == 3 and sorted(k[0] for k in decoder._graphs) == [4, 64, 128]
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for rows in range(33, 65):
+        decoder(_unit_prefix(gen, rows))
+    torch.cuda.synchronize()
+    assert decoder.captures == 3
+    assert torch.cuda.memory_reserved() - reserved <= 8 << 20
+
+
 def test_decode_graph_keys_on_the_tf32_setting(cuda):
     params, cfg, gen = _sharp_decoder(torch.float32, 22)
     decoder = decap.GreedyDecoder(params, cfg)
@@ -718,3 +753,66 @@ def test_meacap_on_the_card_equals_the_cpu(cuda):
     emb, ref = card.prompt_embeds(feats), cpu.prompt_embeds(feats)
     assert (emb.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
     assert card.forward(feats) == cpu.forward(feats)
+
+
+def _f32_gate(got, ref):
+    """chip_smoke's f32 gate: max|got - ref| <= 1e-4 * max(1, max|ref|)."""
+    ref = ref.detach().float()
+    err = (got.detach().cpu().float() - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_decoder_train_step_on_the_card_matches_the_cpu(cuda, packed):
+    """One decoder step on the card against the same step on the CPU, same
+    init, batch and CapDec noise: the --im_proj step through kernel D over
+    a 4096-row f32 bank (its plain version on the CPU), or the packed step
+    with the chunked head and two micro-batches; loss, accuracy and every
+    gradient leaf after one step, the params after a second, under
+    chip_smoke's f32 gate."""
+    from patchioner_tpu_torch.train import decoder_train as dt, packing
+
+    gcfg = gpt2.GPT2Config(vocab_size=1000, n_positions=64, n_embd=128, n_layer=2, n_head=4)
+    gen = torch.Generator().manual_seed(0)
+    params = decap.init_decap(gcfg, 128, gen)
+    sides = {"cuda": decap.DecapParams(*(vit.cast_params(t, torch.float32, "cuda")
+                                         for t in params)), "cpu": params}
+    tcfg = dt.TrainConfig(lr=1e-3, warmup_steps=0, total_steps=10, gaussian_noise=0.016,
+                          loss_chunk=4 if packed else 0, grad_accum=2 if packed else 1)
+    states = {k: dt.make_optimizer(tcfg).init(p) for k, p in sides.items()}
+    feats = torch.randn(32, 128, generator=gen)
+    if packed:
+        toks = torch.randint(1, 999, (32, 10), generator=gen).numpy()
+        for i in range(32):  # EOT marks each caption's end for the packer
+            cut = int(torch.randint(2, 11, (), generator=gen))
+            toks[i, cut - 1], toks[i, cut:] = 49407, 0
+        pack = packing.pack_captions(toks, 24)
+        rows = pack.targets.shape[0] // 2 * 2
+        pack = packing.PackedBatch(*(a[:rows].reshape(2, rows // 2, *a.shape[1:])
+                                     for a in pack))
+        pack = pack._replace(targets=np.where(pack.targets == 49407, 999, pack.targets),
+                             input_tokens=np.where(pack.input_tokens == 49407, 999,
+                                                   pack.input_tokens))
+        step = dt.make_packed_train_step(gcfg, tcfg)
+        noise = torch.randn(2, pack.seg_feature_idx[0].size, 128, generator=gen)
+        args = {k: (feats.to(k), dt.pack_to_device(pack, k)) for k in sides}
+        bank = {k: None for k in sides}
+    else:
+        toks = torch.randint(0, 1000, (32, 12), generator=gen)
+        step = dt.make_train_step(gcfg, tcfg)
+        noise = torch.randn(32, 128, generator=gen)
+        args = {k: (feats.to(k), toks.to(k)) for k in sides}
+        rows = torch.randn(4096, 128, generator=gen)
+        bank = {k: mp.prepare_bank(rows.to(k)) for k in sides}
+    before = mp.memory_project_streamed.launches
+    for i in range(2):
+        out = {k: step(sides[k], states[k], *args[k], bank=bank[k], noise=noise.to(k))[2]
+               for k in sides}
+        for key in ("loss", "acc"):
+            _f32_gate(out["cuda"][key], out["cpu"][key])
+        if i == 0:
+            for g, r in zip(states["cuda"].leaves, states["cpu"].leaves):
+                _f32_gate(g.grad, r.grad)
+    for g, r in zip(states["cuda"].leaves, states["cpu"].leaves):
+        _f32_gate(g, r)
+    assert mp.memory_project_streamed.launches - before == (0 if packed else 2)
