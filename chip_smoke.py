@@ -38,8 +38,11 @@ then exits non-zero without the final result line:
    projections (D and H, each also at
    giant's width) also print the rate they read their bank at and its
    share of 3.35 TB/s. D and H also run at 128 batch rows (a served box
-   batch: 8 images x 16 boxes) against the full flagship bank, printed
-   with their bank rate, not rows of the JSON summary.
+   batch: 8 images x 16 boxes) against the full flagship bank, and D at 8
+   and 128 rows against the CLIP DeCap configs' 500,000 x 512 bank
+   (`memory_project_clip`, `memory_project_clip_128`), each with its bound
+   and SDPA's time, printed with their bank rate, not rows of the JSON
+   summary.
    No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
@@ -167,7 +170,27 @@ then exits non-zero without the final result line:
    continues it, and `from_config(decap_weights: <out_dir>)` serves 8
    trace requests on the flagship (A-D and the decode graph asserted); the
    prefix CLI trains a ViECap and a ClipCap mapper, and each directory is
-   served once through `weight_path`.
+   served once through `weight_path`;
+11. the CLIP ViT backbone family (plain PyTorch towers, as in the JAX
+   package): 11a, DeCap on CLIP ViT-B/16 at 592 px
+   (`configs/decap_B16_resize.k.yaml`: 37 x 37 + 1 = 1370 tokens, 12
+   layers, D = 768, projection 512; DeCap 4L/4H/768 with prefix 512; a
+   random 500,000 x 512 bank; bf16): 8 trace, 8 box (16 boxes, 128 rows)
+   and 8 whole-image requests served through `forward` after each kind's
+   `warmup()`, D once a batch and a decode graph replayed each batch, none
+   captured, asserted; captions/s, mean latency, a whole-image batch's
+   encoder, projection and decode by CUDA events, and the encoder's
+   kernels by device time and its idle share (torch.profiler); 11b, f32 card against
+   CPU on the same weights (two images), under phase 5's gate, the
+   encoder's CLS and patch tokens and the projected prefix of CLIP B/16
+   and B/32 at 224 px, INViTE at 592 (the position grid resized, the last
+   block diagonal), OpenCLIP, DenseCLIP at 640 (1601 tokens) and
+   AlphaCLIP, whose box path (2 images x 4 boxes, a pass each) is gated
+   too, captions compared (reported); 11c, ViECap
+   (`configs/viecap.k.yaml`, the copied CLIP-space entity embeddings) and
+   MeaCap (`configs/meacap_invlm.k.yaml`, a seeded 591,753 x 512 memory)
+   on CLIP ViT-B/32: a whole-image batch of 8 each, its encoder and search
+   ms inside the same `forward` calls, no kernel launched.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -244,7 +267,8 @@ VIECAP_CONFIG = {
 # so it takes 1e-3 in float32.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant",
-               "memory_project_int8_giant", "memory_project_128", "memory_project_int8_128"}
+               "memory_project_int8_giant", "memory_project_128", "memory_project_int8_128",
+               "memory_project_clip", "memory_project_clip_128"}
 W8_F32_TOLERANCE = 1e-3
 # The decode graph replays the very launches of the eager loop, so its
 # scores should equal the loop's; any difference is a bug, and these
@@ -299,6 +323,58 @@ MEACAP_CONFIG = {
 CLIPCAP_CONFIG = dict(FLAGSHIP_CONFIG, support_memory_size=0,
                       clipcap={"mapping_type": "mlp"})
 MEMORY_ROWS = 591753  # the flagship's COCO support memory, as MeaCap's
+
+# the shipped CLIP-backbone configs phase 11 drives, as dicts (the card's
+# machine has no PyYAML); tests/test_torch_clip.py holds each against its
+# configs/<name>.k.yaml
+_CLIP_DECAP = {"prefix_size": 512, "support_memory_size": 500000, "normalize": False,
+               "resize_dim": 224, "crop_dim": 224, "use_talk2dino_project": False,
+               "projection_type": "coco"}
+_B16 = {"decap_weights": "weights/decap/clip-b16-ksplits/coco_karpathy-009.pt",
+        "clip_model_name": "ViT-B/16"}
+_B32_FAMILY = {"decap_weights": "weights/decap/clip-b32-ksplits/coco_karpathy-009.pt",
+               "prefix_size": 512, "support_memory_size": 0,
+               "dino_model": "vit_base_patch32_clip_224.openai", "normalize": False,
+               "resize_dim": 224, "crop_dim": 224, "clip_model_name": "ViT-B/32",
+               "use_talk2dino_project": False}
+_VIECAP_BLOCK = {"weight_path": "weights/viecap/train_coco/coco_prefix-0014.pt",
+                 "project_length": 10, "temperature": 0.01, "top_k": 3, "threshold": 0.4,
+                 "language_model": "gpt2", "name_of_entities_text": "coco_entities",
+                 "prompt_ensemble": True, "using_hard_prompt": True, "soft_prompt_first": True,
+                 "only_hard_prompt": False, "using_greedy_search": True, "beam_width": 5}
+CLIP_CONFIGS = {
+    "decap_B16": dict(_CLIP_DECAP, **_B16, clip_weights="weights/clip/vit-b16-hf.pt",
+                      dino_model="vit_base_patch16_clip_224.openai"),
+    "decap_B32": dict(_CLIP_DECAP, decap_weights=_B32_FAMILY["decap_weights"],
+                      clip_weights="weights/clip/vit-b32-hf.pt",
+                      dino_model=_B32_FAMILY["dino_model"], clip_model_name="ViT-B/32"),
+    "INViTE_B16_1layer_bigResize": dict(
+        _CLIP_DECAP, **_B16, dino_model="INViTE_B16", resize_dim=592, crop_dim=592,
+        linear_talk2dino=False, invite_config={
+            "name": "ViT-B/16", "checkpoint": "weights/clip/vit-b16-openai.pt", "jit": False,
+            "extract_last_k_th_token": 1, "viz": False, "resolution": 592}),
+    "alphaclip_B16_CLS": dict(_CLIP_DECAP, **_B16, dino_model="alphaclip_vitb16",
+                              alphaclip_config={
+                                  "name": "ViT-B/16",
+                                  "checkpoint": "weights/alphaclip/clip_b16_grit_1m.pth",
+                                  "use_cls_for_localized_captions": True}),
+    "denseclip_B16_seg_40patches": dict(
+        _CLIP_DECAP, decap_weights="weights/decap/denseclip/coco_karpathy-009.pt",
+        dino_model="denseclip_vitb16", denseclip_config="denseclip_segmentation_vitb16",
+        denseclip_weights="weights/denseclip/ViT-B-DenseCLIP.pth", resize_dim=640,
+        crop_dim=640, clip_model_name="DenseClip"),
+    "viecap": dict(_B32_FAMILY, viecap=_VIECAP_BLOCK),
+    "meacap_invlm": dict(_B32_FAMILY, viecap=dict(_VIECAP_BLOCK, meacap={
+        "memory_caption_num": 5, "vl_model": "openai/clip-vit-base-patch32",
+        "wte_model_path": "sentence-transformers/all-MiniLM-L6-v2",
+        "parser_checkpoint": "lizhuang144/flan-t5-base-VG-factual-sg", "memory_id": "coco",
+        "memory_base_path": "data/meacap_files/"})),
+}
+CLIP_CONFIGS["decap_B16_resize"] = dict(CLIP_CONFIGS["decap_B16"], resize_dim=592, crop_dim=592)
+# OpenCLIP: no shipped config; the DeCap B/16 one with the branch's keys
+OPENCLIP_CONFIG = dict(CLIP_CONFIGS["decap_B16"], use_open_clip=True, dino_model="ViT-B/16")
+CLIP_BANK_ROWS, CLIP_D = 500000, 512  # the CLIP DeCap configs' support memory
+CLIP_TOKENS = (592 // 16) ** 2 + 1  # ViT-B/16 at 592 px
 
 # each further attention configuration of the encoder (phase 4b, 5b)
 CONFIGS = {
@@ -510,8 +586,14 @@ def _kernel_cases(dtype, gen):
     # D and H at a served box batch's rows
     bfeats = torch.randn(B * MAX_BOXES, D, generator=gen, device=dev)
     sdpa = _sdpa(q, k, v, scale)
+    # D over the CLIP DeCap configs' 500,000 x 512 bank, at 8 and 128 rows
+    cbank = mp.prepare_bank(torch.randn(CLIP_BANK_ROWS, CLIP_D, generator=gen, device=dev),
+                            dtype=dtype)
+    cfeats = torch.randn(B, CLIP_D, generator=gen, device=dev)
+    cbfeats = torch.randn(B * MAX_BOXES, CLIP_D, generator=gen, device=dev)
     # D's library calls: the unit rows made once here, outside the timer
     unit, gunit = _unit_rows(bank, dtype), _unit_rows(gbank, dtype)
+    cunit = _unit_rows(cbank, dtype)
 
     attn_flops = 4 * B * HEADS * N * N * HD  # QK^T and PV
     gattn_flops = 4 * B * GHEADS * N * N * HD
@@ -621,7 +703,14 @@ def _kernel_cases(dtype, gen):
          lambda: mp.memory_project_int8(bfeats, qbank, normalize=True),
          lambda: mp.memory_project_int8_plain(bfeats, qbank, normalize=True), None,
          4 * B * MAX_BOXES * nb * D, _nbytes(bfeats, *qbank[:-1], bfeats)),
-    ]
+    ] + [
+        (name, "patchioner_tpu_torch/csrc/memory_projection.cu",
+         "patchioner_tpu/ops/memory_projection.py:521",
+         lambda f=f: mp.memory_project_streamed(f, cbank, normalize=True),
+         lambda f=f: mp.memory_project_plain(f, cbank, normalize=True),
+         _bank_sdpa(f, cbank, cunit, dtype), 4 * f.shape[0] * CLIP_BANK_ROWS * CLIP_D,
+         _nbytes(f, cbank.rows[:CLIP_BANK_ROWS], cbank.inv_norm[:CLIP_BANK_ROWS], f))
+        for name, f in (("memory_project_clip", cfeats), ("memory_project_clip_128", cbfeats))]
 
 
 def phase_kernels(seed: int) -> dict:
@@ -725,12 +814,14 @@ def _wrappers() -> dict:
             "flash_attention": attention.flash_attention}
 
 
-def expected_launches(config: dict, depth: int, batches: int) -> dict:
-    """Launches of every kernel for `batches` batches of a configuration:
-    A each layer, C (G for ViT-g's SwiGLU FFN) each layer, the attention
-    kernel `attn_impl` selects each layer, D (H over an int8 bank) once a
-    batch when the configuration has a support memory, every other kernel
-    never."""
+def expected_launches(model, batches: int) -> dict:
+    """Launches of every kernel for `batches` batches of `model`: on the
+    DINOv2 tower A each layer, C (G for ViT-g's SwiGLU FFN) each layer, the
+    attention kernel `attn_impl` selects each layer (a CLIP tower is plain
+    PyTorch: none); D (H over an int8 bank) once a batch when the
+    configuration has a support memory; every other kernel never."""
+    config, depth = model.config, model.vit_cfg.depth
+    dino = model.backbone_type == "DINO"
     impl = config.get("attn_impl", "xla")
     layer = {"ln_dense", "ln_swiglu" if "vitg" in config["dino_model"] else "ln_mlp"}
     if impl in ("xla", "fusedqkv"):
@@ -739,17 +830,17 @@ def expected_launches(config: dict, depth: int, batches: int) -> dict:
             layer.add("dense_residual")
     layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
               "flash1p": {"flash_attention_1pass"}}.get(impl, set())
-    counts = {name: depth * batches if name in layer else 0 for name in _wrappers()}
+    counts = {name: depth * batches if dino and name in layer else 0 for name in _wrappers()}
     if int(config.get("support_memory_size", 0)) > 0:  # a ViECap model has no bank
         counts["memory_project_int8" if config.get("memory_bank_int8")
                else "memory_project"] = batches
     return counts
 
 
-def _requests(n: int, seed: int):
-    """n seeded uint8 images and traces of 2..64 points in [0, 1]."""
+def _requests(n: int, seed: int, img: int = IMG):
+    """n seeded uint8 images of img px and traces of 2..64 points in [0, 1]."""
     rng = np.random.default_rng(seed)
-    imgs = rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+    imgs = rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8)
     traces = [rng.uniform(0, 1, (int(rng.integers(2, 65)), 2)).tolist()
               for _ in range(n)]
     return imgs, traces
@@ -776,11 +867,14 @@ def build_model(config: dict, seed: int, tag: str):
     torch.cuda.synchronize()
     bank = ("none" if model.bank is None else f"{model.bank.num_real} x "
             f"{model.bank.rows.shape[1]} {str(model.bank.rows.dtype)[6:]}")
-    log(f"{tag} {config['dino_model']}: model built in "
-        f"{time.perf_counter() - t0:.1f} s: "
-        f"{model.vit_cfg.depth} layers x D={model.vit_cfg.embed_dim} "
-        f"({model.vit_cfg.ffn} FFN {model.vit_cfg.ffn_hidden}) at "
-        f"{model.crop_dim} px ({model.vit_cfg.num_tokens} tokens), bank {bank}, decoder "
+    cfg = model.vit_cfg
+    tower = (f"{cfg.depth} layers x D={cfg.embed_dim} ({cfg.ffn} FFN {cfg.ffn_hidden})"
+             if model.backbone_type == "DINO" else
+             f"{model.backbone_type} tower, {cfg.depth} layers x D={cfg.width}, {cfg.heads} "
+             f"heads, patch {cfg.patch_size}, projection {cfg.proj_dim}")
+    log(f"{tag} {config.get('dino_model')}: model built in "
+        f"{time.perf_counter() - t0:.1f} s: {tower} at "
+        f"{model.crop_dim} px ({cfg.num_tokens} tokens), bank {bank}, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
     return model
@@ -822,7 +916,7 @@ def _serve(model, requests: list, tag: str,
         snap = server.snapshot()
         batches = server.stats.batches
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    expected = expected_launches(model.config, model.vit_cfg.depth, batches)
+    expected = expected_launches(model, batches)
     log(f"{tag} {len(results)} requests answered in {batches} batches; "
         f"launches {counts}, expected {expected}")
     if counts != expected:
@@ -935,13 +1029,14 @@ def _query_boxes(n: int, seed: int) -> list:
     return out
 
 
-def _pixel_boxes(sets: list, pad) -> np.ndarray:
+def _pixel_boxes(sets: list, pad, img: int = IMG, max_boxes: int = MAX_BOXES) -> np.ndarray:
     """Normalised xyxy box sets as the server hands them to the model:
-    (n, 16, 4) pixel [x1, y1, w, h], padded with `pad`."""
-    boxes = np.tile(np.asarray(pad, np.float32), (len(sets), MAX_BOXES, 1))
+    (n, max_boxes, 4) pixel [x1, y1, w, h] of an img px image, padded with
+    `pad`."""
+    boxes = np.tile(np.asarray(pad, np.float32), (len(sets), max_boxes, 1))
     for i, bs in enumerate(sets):
-        b = np.asarray(bs, np.float32) * IMG
-        boxes[i, : len(bs)] = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], -1)
+        b = np.asarray(bs, np.float32)[:max_boxes] * img
+        boxes[i, : len(b)] = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], -1)
     return boxes
 
 
@@ -1346,7 +1441,7 @@ def _loaded_f32_gate(config: dict, seed: int, label: str) -> None:
         prefix[where] = step(m.state(), m.pixels_to_device(imgs),
                              *(torch.from_numpy(a).to(m.device) for a in (pts, valid)))
     launched = {name: fn.launches - before[name] for name, fn in wrappers.items()}
-    want = expected_launches(config, gpu.vit_cfg.depth, 1)
+    want = expected_launches(gpu, 1)
     log(f"[{label}] card prefix {tuple(prefix['card'].shape)} (inversion "
         f"{'on' if gpu.inversion is not None else 'off'}, bank "
         f"{tuple(gpu.bank.rows.shape)} {str(gpu.bank.rows.dtype)[6:]}); launches {launched}")
@@ -1423,11 +1518,11 @@ def _search_calls(params, cfg, embeds, eos, max_len: int) -> dict:
                                                              48, 0.1)}
 
 
-def _kind_requests(n: int, seed: int) -> tuple[np.ndarray, dict]:
-    """n seeded images and, for each request kind that goes through
-    `forward` here, their (image, submit keywords) requests: a trace, 1-16
-    boxes, or the whole image."""
-    imgs, traces = _requests(n, seed)
+def _kind_requests(n: int, seed: int, img: int = IMG) -> tuple[np.ndarray, dict]:
+    """n seeded images of img px and, for each request kind that goes
+    through `forward` here, their (image, submit keywords) requests: a
+    trace, 1-16 boxes, or the whole image."""
+    imgs, traces = _requests(n, seed, img)
     sets = _query_boxes(n, seed + 1)
     return imgs, {"trace": [(im, {"trace": tr}) for im, tr in zip(imgs, traces)],
                   "bbox": [(im, {"bboxes": bs}) for im, bs in zip(imgs, sets)],
@@ -1801,7 +1896,7 @@ def phase_clipcap(seed: int, smi: str, directory: str, paths: dict) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t1) * 1e3
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    want = expected_launches(tconfig, model.vit_cfg.depth, 1)
+    want = expected_launches(model, 1)
     log(f"[clipcap transformer] {len(ct.mapper_params['layers'])}-layer mapper, "
         f"{ct.cfg.clip_length} + {ct.cfg.prefix_length} tokens: a whole-image batch of {B} "
         f"through forward {ms:.1f} ms (host clock), {len(caps)} captions; launches {counts}; "
@@ -1826,12 +1921,13 @@ MEMORY_WORDS = (
 )
 
 
-def write_meacap_memory(seed: int, directory: str) -> str:
+def write_meacap_memory(seed: int, directory: str, width: int = D,
+                        memory_id: str = MEACAP_CONFIG["viecap"]["meacap"]["memory_id"]) -> str:
     """MeaCap's caption memory at the flagship memory's size, seeded, in the
-    published layout, written by `MeaCap.build_memory`: 591,753 captions
-    drawn from `MEMORY_WORDS` (so that the frequency extractor finds
-    concepts) and their (591,753, 768) f32 embeddings; the memory's base
-    path."""
+    published layout, written by `MeaCap.build_memory` under
+    `memory/<memory_id>/`: 591,753 captions drawn from `MEMORY_WORDS` (so
+    that the frequency extractor finds concepts) and their (591,753, width)
+    f32 embeddings; the memory's base path."""
     from patchioner_tpu_torch.models import meacap
 
     rng = np.random.default_rng(seed + 30)
@@ -1841,9 +1937,9 @@ def write_meacap_memory(seed: int, directory: str) -> str:
     base = os.path.join(directory, "meacap")
     gen = torch.Generator(device="cuda").manual_seed(seed + 31)  # drawn on the card: faster
     meacap.MeaCap.build_memory(
-        captions, lambda texts: torch.randn(len(texts), D, generator=gen, device="cuda").cpu(),
-        os.path.join(base, "memory", MEACAP_CONFIG["viecap"]["meacap"]["memory_id"]),
-        batch_size=1 << 16)
+        captions, lambda texts: torch.randn(len(texts), width, generator=gen,
+                                            device="cuda").cpu(),
+        os.path.join(base, "memory", memory_id), batch_size=1 << 16)
     return base
 
 
@@ -2355,6 +2451,207 @@ def phase_training(seed: int, smi: str, directory: str) -> int:
     return d_launches
 
 
+# ------------------------------------------------------------------ phase 11
+
+
+def phase_clip_served(seed: int, smi: str) -> int:
+    """Phase 11a: DeCap on the CLIP ViT-B/16 tower at 592 px
+    (configs/decap_B16_resize.k.yaml) in bf16, a random 500,000 x 512
+    bank: 8 trace, 8 box and 8 whole-image requests served through
+    `forward` after each kind's `warmup()`, D once a batch and a decode
+    graph replayed, none captured; a whole-image batch's split and the
+    encoder's kernels. Returns D's launches in the served runs."""
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    model = build_model(CLIP_CONFIGS["decap_B16_resize"], seed, "[clip]")
+    if (model.backbone_type != "CLIP" or model.supports_fused_trace_path()
+            or model.vit_cfg.num_tokens != CLIP_TOKENS
+            or tuple(model.bank.rows[:model.bank.num_real].shape) != (CLIP_BANK_ROWS, CLIP_D)):
+        raise AssertionError("[clip] the model must be DeCap on the CLIP tower at 592 px over "
+                             "the 500,000 x 512 bank, served through forward")
+    imgs, requests = _kind_requests(B, seed + 40, model.crop_dim)
+    launches = 0
+    for kind in ("trace", "bbox", "cls"):
+        tag = f"[clip {kind}]"
+        results, snap, batches, wall, counts = _serve(model, requests[kind], tag, kind)
+        launches += counts["memory_project"]
+        flat = _flat(results)
+        if not all(isinstance(c, str) for c in flat):
+            raise AssertionError(f"{tag} a request did not resolve to caption strings")
+        log(f"{tag} {len(flat)} captions from {len(results)} requests in {batches} batch(es): "
+            f"{len(flat) / wall:.3f} captions/s, mean request latency "
+            f"{snap['mean_latency_ms']} ms; D {counts['memory_project']} launches; "
+            f"result 0: {str(results[0])[:60]!r}; {smi}")
+
+    # a whole-image batch apart, each stage by CUDA events (medians)
+    enc = model.encode_images(imgs)
+    cls = enc["x_norm_clstoken"]
+    prefix = model.project_features(cls)
+    if prefix.shape != (B, CLIP_D) or not torch.isfinite(prefix).all():
+        raise AssertionError(f"[clip] the whole-image prefix is malformed: "
+                             f"{tuple(prefix.shape)}")
+    graphs = model.decode.captures
+    d_before = mp.memory_project_streamed.launches
+    ms = {"encoder": cuda_ms(lambda: model.encode_images(imgs), warmup=1, iters=5),
+          "projection (D)": cuda_ms(lambda: model.project_features(cls)),
+          "decode (graph)": cuda_ms(lambda: model.decode(prefix.float()))}
+    forward_ms = _host_ms(lambda: model.forward(imgs, get_cls_capt=True))
+    if model.decode.captures != graphs or mp.memory_project_streamed.launches == d_before:
+        raise AssertionError("[clip] the split captured a decode graph or skipped D")
+    log(f"[clip] a whole-image batch of {B} at {model.crop_dim} px: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" (CUDA events, medians); forward {forward_ms:.1f} ms (host clock, median of 3); "
+        f"{smi}")
+    _encoder_kernels(lambda: model.encode_images(imgs), smi)
+    del model, enc, cls, prefix
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _encoder_kernels(fn, smi: str, top: int = 6) -> None:
+    """The plain CLIP tower's device time by kernel in one call of fn()
+    (torch.profiler): the total, the idle share of the call's wall, and the
+    `top` kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    device = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[clip] encoder under the profiler: {device:.2f} ms of device time in "
+        f"{sum(e.count for e in events)} kernels, wall {wall:.2f} ms, idle share "
+        f"{max(0.0, 1 - device / wall):.3f}; {smi}")
+    for e in events[:top]:
+        log(f"[clip]   {e.self_device_time_total / 1e3:8.3f} ms in {e.count:4d} x "
+            f"{e.key[:90]}")
+
+
+def _clip_f32_gate(label: str, config: dict, seed: int, boxes: bool = False) -> None:
+    """Phase 11b, one model: f32 on the card against the same weights on
+    the CPU (TF32 off), two images: the encoder's CLS and patch tokens and
+    the projected prefix under the gate, the captions compared (reported);
+    with `boxes` also AlphaCLIP's box path (4 boxes an image, one encoder
+    pass each), its CLS features and their prefix."""
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    cpu = gpu.to("cpu")
+    imgs, _ = _requests(2, seed + 41, gpu.crop_dim)
+    got = {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        enc = m.encode_images(imgs)
+        prefix = m.project_features(enc["x_norm_clstoken"])
+        tokens, _ = m.decode(prefix.float())
+        got[where] = [t.float().cpu() for t in (enc["x_norm_clstoken"],
+                                                enc["x_norm_patchtokens"], prefix, tokens)]
+        log(f"[{label}] whole image on {where}: {time.perf_counter() - t0:.1f} s")
+    for i, what in enumerate(("x_norm_clstoken", "x_norm_patchtokens", "projected prefix")):
+        _gate(label, got["card"][i], got["cpu"][i], f"{what} {tuple(got['cpu'][i].shape)}, "
+              "card vs CPU", "encoder" if i < 2 else "prefix")
+    same = (got["card"][3] == got["cpu"][3]).all(-1).sum().item()
+    log(f"[{label}] {gpu.backbone_type} at {gpu.crop_dim} px ({gpu.vit_cfg.num_tokens} "
+        f"tokens): captions card vs CPU (reported, not asserted): {same}/2 equal")
+    if boxes:
+        sets = _query_boxes(2, seed + 43)
+        pixel_boxes = _pixel_boxes(sets, [0, 0, 1, 1], gpu.crop_dim, max_boxes=4)
+        seen, caps = {}, {}
+        for where, m in (("card", gpu), ("cpu", cpu)):
+            seen[where] = _recording(m)
+            caps[where] = m.forward(imgs, get_cls_capt=False, bboxes=pixel_boxes)["bbox_capts"]
+        for key in ("features", "decoder input"):
+            _gate(label, seen["card"][key][0], seen["cpu"][key][0],
+                  f"box path {tuple(seen['cpu'][key][0].shape)}, card vs CPU", key)
+        flat = {w: [c for row in caps[w] for c in row] for w in caps}
+        log(f"[{label}] box captions card vs CPU (reported, not asserted): "
+            f"{sum(a == b for a, b in zip(flat['card'], flat['cpu']))}/{len(flat['cpu'])} equal")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_clip_f32(seed: int) -> None:
+    """Phase 11b: each CLIP variant f32, card vs CPU."""
+    for label, config, boxes in (
+            ("f32 clip B/16", CLIP_CONFIGS["decap_B16"], False),
+            ("f32 clip B/32", CLIP_CONFIGS["decap_B32"], False),
+            ("f32 invite 592", CLIP_CONFIGS["INViTE_B16_1layer_bigResize"], False),
+            ("f32 openclip", OPENCLIP_CONFIG, False),
+            ("f32 denseclip 640", CLIP_CONFIGS["denseclip_B16_seg_40patches"], False),
+            ("f32 alphaclip", CLIP_CONFIGS["alphaclip_B16_CLS"], True)):
+        _clip_f32_gate(label, config, seed, boxes)
+
+
+def phase_clip_families(seed: int, smi: str, directory: str) -> None:
+    """Phase 11c: ViECap (configs/viecap.k.yaml, the copied CLIP-space COCO
+    entity embeddings) and MeaCap (configs/meacap_invlm.k.yaml over a
+    seeded 591,753-row memory) on the CLIP ViT-B/32 tower, random weights:
+    one whole-image batch of 8 each, split inside the same `forward` calls;
+    no kernel launched (a plain tower, no bank) and no DeCap graph."""
+    import shutil
+
+    from patchioner_tpu_torch.models import meacap, viecap
+
+    for name in ("viecap", "meacap_invlm"):
+        config, base = CLIP_CONFIGS[name], None
+        if name == "meacap_invlm":
+            vd = config["viecap"]
+            base = write_meacap_memory(seed, directory, CLIP_D, vd["meacap"]["memory_id"])
+            config = dict(config, viecap=dict(vd, meacap=dict(vd["meacap"],
+                                                              memory_base_path=base)))
+        tag = f"clip {name}"
+        model = build_model(config, seed, f"[{tag}]")
+        fam = model.viecap
+        if name == "viecap":
+            # the copied embeddings: the COCO entities, prompt ensemble, B/32
+            rows = (len(fam.entities), fam.texts_embeddings.shape[1])
+            ok = rows == (80, CLIP_D) and fam.texts_embeddings.std().item() > 0.01
+            what = f"{rows[0]} entities x {rows[1]}"
+        else:
+            ok = (isinstance(fam, meacap.MeaCap) and len(fam.memory_captions) == MEMORY_ROWS
+                  and fam.memory_clip_embeddings.shape[1] == CLIP_D)
+            what = (f"memory {len(fam.memory_captions)} captions x "
+                    f"{fam.memory_clip_embeddings.shape[1]}")
+        if not ok or model.bank is not None or model.supports_fused_trace_path():
+            raise AssertionError(f"[{tag}] the model must be {name} on the CLIP tower, "
+                                 "without a bank")
+        log(f"[{tag}] {type(fam).__name__}, {what}, GPT-2 {fam.gpt2_cfg.n_layer}L/"
+            f"{fam.gpt2_cfg.n_embd} in {str(fam.gpt2_params['wte'].dtype)[6:]}")
+        imgs, _ = _requests(B, seed + 42, model.crop_dim)
+        parts = {"encoder": (model, "encode_images")}
+        if name == "meacap_invlm":
+            parts["retrieval"] = (meacap, "retrieve_memory_captions")
+        parts[f"greedy search of {fam.cfg.max_len} tokens"] = (viecap, "run_search")
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        graphs = model.decode.captures, model.decode.replays
+        _forward_split(model, imgs, smi, tag, parts)
+        counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        if counts or (model.decode.captures, model.decode.replays) != graphs:
+            raise AssertionError(f"[{tag}] kernels {counts} or the DeCap decoder ran")
+        del model, fam
+        torch.cuda.empty_cache()
+        if base is not None:
+            shutil.rmtree(base)
+
+
+def phase_clip(seed: int, smi: str, directory: str) -> int:
+    """Phase 11: the CLIP backbone family (11a served, 11b f32 gates, 11c
+    ViECap and MeaCap); D's launches in 11a's served runs."""
+    launches = phase_clip_served(seed, smi)
+    phase_clip_f32(seed)
+    phase_clip_families(seed, smi, directory)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2377,7 +2674,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-10; the kernels' rows of the JSON summary."""
+    """Phases 2-11; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -2443,11 +2740,14 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 9")
     for path in paths.values():
         os.remove(path)
+    trained = phase_training(seed, smi, scratch)
+    elapsed("phase 10")
+    clip = phase_clip(seed, smi, scratch)
+    elapsed("phase 11")
     launches["memory_project"] = (
         launches["memory_project"][0],
-        f"main; training --im_proj: {phase_training(seed, smi, scratch)} launches in its "
-        "timed steps")
-    elapsed("phase 10")
+        f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "
+        f"served: {clip} launches in its 3 served kinds")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -11,6 +11,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace pt {
 
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
@@ -104,10 +108,24 @@ struct RowLayout {
 
 }  // namespace pt
 
-// Host side: raise the dynamic shared-memory cap of a kernel once.
+// Host side: let a kernel take `bytes` of dynamic shared memory. Without
+// the opt-in a block gets 48 KiB in all, its static shared memory
+// included (the f32 projection at D = 512: 48 KiB dynamic and 608 bytes
+// static), so every size is opted in. The driver is asked once for each
+// device, kernel and larger size; later launches find it granted.
 template <typename K>
 static cudaError_t pt_allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_pair(device, reinterpret_cast<const void*>(kernel));
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = granted.find(key);
+  if (it != granted.end() && it->second >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) granted[key] = bytes;
+  return err;
 }

@@ -14,8 +14,8 @@ import torch
 from patchioner_tpu_torch.models import decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 
-__all__ = ["to_torch", "vit_from_jax", "decap_from_jax", "bank_from_jax",
-           "inversion_from_jax", "mlp_w8_from_jax"]
+__all__ = ["to_torch", "vit_from_jax", "clip_vision_from_jax", "decap_from_jax",
+           "bank_from_jax", "inversion_from_jax", "mlp_w8_from_jax"]
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -49,6 +49,25 @@ def vit_from_jax(tree: dict, cfg, device="cpu") -> dict:
     ffn = ("w12", "w3") if cfg.ffn == "swiglu" else ("fc1", "fc2")
     if not all(k in blk for k in ffn):
         raise ValueError(f"ffn={cfg.ffn!r} needs {ffn} in each block, got {sorted(blk)}")
+    return to_torch(tree, device)
+
+
+_CLIP_KEYS = {"patch_embed_w", "class_embedding", "pos_embed", "ln_pre", "ln_post", "proj",
+              "blocks"}
+_CLIP_BLOCK_KEYS = {"ln_1", "qkv", "out_proj", "ln_2", "fc1", "fc2"}
+
+
+def clip_vision_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """An `init_clip_vision` / ported CLIP vision tree (AlphaCLIP's
+    `alpha_embed_w` included) -> the port's CLIP tower params."""
+    if len(tree["blocks"]) != cfg.depth:
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg.depth={cfg.depth}")
+    missing = _CLIP_KEYS - set(tree)
+    if missing or set(tree) - _CLIP_KEYS - {"alpha_embed_w"}:
+        raise ValueError(f"not a CLIP vision tree: keys {sorted(tree)}")
+    for blk in tree["blocks"]:
+        if set(blk) != _CLIP_BLOCK_KEYS:
+            raise ValueError(f"a CLIP block needs {sorted(_CLIP_BLOCK_KEYS)}, got {sorted(blk)}")
     return to_torch(tree, device)
 
 

@@ -1,7 +1,9 @@
-"""Patchioner: the DINOv2 captioning subset, with DeCap, ViECap, MeaCap or ClipCap, in PyTorch.
+"""Patchioner: the DINOv2 and CLIP ViT subset with DeCap, ViECap, MeaCap or ClipCap, in PyTorch.
 
-Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone:
-`from_config`, `supports_fused_trace_path`, the fused caption paths
+Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone and
+the CLIP ViT family (`models/clip.py`: OpenAI CLIP by its timm name,
+INViTE, OpenCLIP, AlphaCLIP, DenseCLIP): `from_config`,
+`supports_fused_trace_path`, the fused caption paths
 `caption_traces_fused` (a trace), `caption_bboxes_fused` (a caption per
 box), `caption_images_fused` (the whole image) and
 `caption_region_sets_fused` (a caption per box set), and the generic path
@@ -12,16 +14,20 @@ drives. Each fused path is `entry.make_caption_step` with its own pool;
 all share the encoder, the projection and the decode, which the model's
 `decap.GreedyDecoder` (`decode`) runs: on the card one CUDA graph a
 batch's row count. A DeCap model over a support memory has the fused
-paths; a ViECap, MeaCap or ClipCap model, or one without a bank, captions
-through `forward` (`supports_fused_trace_path()` is False), as in the
-reference.
+paths on the DINOv2 backbone; a CLIP backbone, a ViECap, MeaCap or ClipCap
+model, or one without a bank, captions through `forward`
+(`supports_fused_trace_path()` is False), as in the reference.
 
 `forward` takes the reference's flags: `get_cls_capt`,
 `get_avg_self_attn_capt`, `get_avg_patch_capt`, `get_patch_capts`,
 `get_register_capts`, `bboxes` (with `gaussian_avg`,
 `gaussian_bbox_variance`, `use_attn_map_for_bboxes`),
 `get_controllable_capts`, `traces` (with `use_attention_tracing`) and
-`compute_scores`, and returns the reference's keys, split per image. The
+`compute_scores`, and returns the reference's keys, split per image. Only
+the DINOv2 and DenseCLIP towers' attention is read: elsewhere attention
+boxes and tracing pool uniformly and `get_avg_self_attn_capt` raises
+ValueError. AlphaCLIP captions boxes and traces by one encoder pass a
+region, the region as its alpha mask (`_forward_alphaclip_regions`). The
 context cleaner (`cleaning_type`), double-DINO boxes,
 `caption_bboxes_type`, `get_attn_heads_capt` and `return_n_best_sims`
 raise NotImplementedError.
@@ -29,9 +35,19 @@ raise NotImplementedError.
 `from_config` takes the reference YAML schema (a path or a dict) and
 loads what the reference's `from_config` loads for this subset
 (patchioner.py:155-300, 506-547, 836-972), the same files:
-- `dino_weights`: a torch.hub DINOv2 `.pth` (a `state_dict` key is
+- the backbone, in the JAX builder's order (`_backbone_type`): a DINOv2
+  `dino_model` whatever other backbone key the config holds, with
+  `dino_weights`, a torch.hub DINOv2 `.pth` (a `state_dict` key is
   unwrapped) through `io.torch_port.port_dinov2`, or an `.npz` of
-  `io.checkpoints.save_params_npz`;
+  `io.checkpoints.save_params_npz`; else AlphaCLIP (`alphaclip_config`,
+  its `checkpoint` in the openai/CLIP layout, the alpha conv drawn when
+  the file lacks it), DenseCLIP (`denseclip_config`, a geometry of the
+  port's data folder or a file; `denseclip_weights`, the openai layout
+  under `backbone.`), OpenCLIP (`use_open_clip` and a `ViT-B/16`-style
+  `dino_model`; `clip_weights` in the openai layout), INViTE
+  (`invite_config`) or a timm OpenAI CLIP name, whose `clip_weights` are
+  in the transformers layout (`models.clip`'s porters); a CLIP-space bank
+  file's rows are taken at unit norm;
 - `decap_weights`: a DeCap `.pt` through `port_decap`, or a directory the
   port's `train/cli.py` wrote (its latest step, through
   `io.checkpoints.load_decap_from_train_dir`; an Orbax directory of the
@@ -49,9 +65,9 @@ loads what the reference's `from_config` loads for this subset
   `port_hf_gpt2_lmhead` into GPT-2 base, f32) or a directory of the
   port's `train/prefix_cli.py --model viecap` (the mapper alone), the entity vocabulary and
   its embedding pickle from `files_path/annotations/vocabulary` or else
-  the port's data folder (the COCO, VG/OI and Open Images vocabularies
-  and the Talk2DINO-space COCO embeddings are there; the CLIP-space
-  pickles are read from `files_path`), and the GPT-2 tokenizer
+  the port's data folder (the COCO, VG/OI, Visual Genome and Open Images
+  vocabularies with their CLIP-space embeddings, and the Talk2DINO-space
+  COCO embeddings, are there), and the GPT-2 tokenizer
   (`text.gpt2_bpe` over $GPT2_BPE_DIR or the Hugging Face cache, else the
   whitespace fallback under `allow_missing_weights`). A `meacap` block in
   it gives MeaCap instead: no entity vocabulary, the caption memory
@@ -79,10 +95,13 @@ model's type, and projected by kernel H). The DINOv2 backbones it takes
 are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and ViT-g,
 `dinov2_vitg14(_reg)` (SwiGLU FFN, kernel G: D <= 1536), whose prefix and
 bank are 1536-wide as the config gives them; every `attn_impl` runs on
-each. Any key that leaves this subset raises NotImplementedError: other
-backbones (ViT-L among them, until C's f32 kernel takes D = 1024, and
-DINO.txt), argmax-text, int8 (W8A8) encoders, the compute-dtype softmax
-(`softmax_f32: false`) and a non-qkv attention_type. The README's
+each. The CLIP towers (ViT-B and ViT-L) run as plain PyTorch, as the JAX
+package runs them as plain XLA. Any key that leaves this subset raises
+NotImplementedError: other backbones (DINOv2 ViT-L, until C's f32 kernel
+takes D = 1024; DINO.txt, RegionCLIP and ProxyCLIP), argmax-text, int8
+(W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`) and a
+non-qkv attention_type. The DINOv2 encoder keys are ignored on a CLIP
+tower, as in the JAX builder. The README's
 `kkv_attention` key is read by neither the reference's loader nor the
 JAX package: it is ignored, with a UserWarning where `attention_type` is
 absent. A config given as a Hugging Face model id is not ported
@@ -109,6 +128,7 @@ import torch
 
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.io import checkpoints, memory_bank, torch_port
+from patchioner_tpu_torch.models import clip as clip_mod
 from patchioner_tpu_torch.models import clipcap as clipcap_mod
 from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit, viecap as viecap_mod
 from patchioner_tpu_torch.ops import memory_projection as memproj
@@ -125,8 +145,14 @@ _KEYS = {
     "dino_geometry", "attention_type", "prefix_size", "decap_arch",
     "normalize", "support_memory_size", "decap_weights", "dino_weights",
     "talk2dino_weights", "memory_bank_int8", "memory_bank_path", "viecap", "clipcap",
-    "kkv_attention",
+    "kkv_attention", "clip_weights", "use_open_clip", "denseclip_config",
+    "denseclip_weights", "alphaclip_config", "invite_config",
 }
+# the backbone keys `_backbone_type` reads; a RegionCLIP or ProxyCLIP
+# backbone is refused there, and its keys are ignored beside a DINOv2
+# `dino_model`, as the JAX builder ignores them
+_BACKBONE_KEYS = {"regionclip_config", "proxyclip_clipmodel", "proxyclip_vfm",
+                  "proxyclip_beta", "proxyclip_gamma"}
 # keys that name the bank file under $IM2TXT_MEMORY_PATH
 # (`io.memory_bank.bank_filename`) when `memory_bank_path` is not given
 _BANK_NAME_KEYS = {
@@ -139,20 +165,43 @@ _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
 # encoder keys read into ViTConfig (vit.py:93-104 of the reference)
 _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
-_OFF_ONLY_KEYS = {
-    "calculate_argmax_text", "encoder_w8a8", "regionclip_config",
-    "proxyclip_clipmodel", "alphaclip_config", "denseclip_config",
-    "use_open_clip", "invite_config",
-}
+_OFF_ONLY_KEYS = {"calculate_argmax_text", "encoder_w8a8"}
 # the widest encoder each FFN kernel takes in both types: the f32 SIMT
 # kernels keep a block's output rows in registers, 24 columns a thread in C
 # (D <= 768) and 48 in G (D <= 1536); their bf16 GEMMs take any D % 128
 _MAX_EMBED_DIM = {"mlp": 768, "swiglu": 1536}
 
 
+def _backbone_type(config: dict) -> str:
+    """The backbone `from_config` builds, in the JAX builder's order of
+    branches (`patchioner.py:470-797`): a DINOv2 `dino_model` first,
+    whatever other backbone key the config holds, then RegionCLIP,
+    ProxyCLIP, AlphaCLIP, DenseCLIP, OpenCLIP (`use_open_clip` with a
+    `dino_model`), INViTE (`invite_config`) and a timm OpenAI CLIP name.
+    'DINO', 'RegionCLIP', 'ProxyCLIP', 'AlphaClip', 'DenseClip', 'OpenCLIP',
+    'INViTE' or 'CLIP'; anything else raises NotImplementedError, as in the
+    JAX package."""
+    dino_model = config.get("dino_model")
+    if dino_model is not None and "dinov2" in dino_model:
+        return "DINO"
+    for key, kind in (("regionclip_config", "RegionCLIP"), ("proxyclip_clipmodel", "ProxyCLIP"),
+                      ("alphaclip_config", "AlphaClip"), ("denseclip_config", "DenseClip")):
+        if config.get(key) is not None:
+            return kind
+    if config.get("use_open_clip") and dino_model is not None:
+        return "OpenCLIP"
+    if config.get("invite_config"):
+        return "INViTE"
+    if dino_model is not None and "openai" in dino_model:
+        return "CLIP"
+    raise NotImplementedError(f"backbone {dino_model!r} not wired (DINOv2 / OpenAI-CLIP / "
+                              "INViTE variants)")
+
+
 def _check_config(config: dict) -> None:
     for key, value in config.items():
-        if key in _KEYS or key in _BANK_NAME_KEYS or key in _KERNEL_STACK_KEYS:
+        if (key in _KEYS or key in _BANK_NAME_KEYS or key in _KERNEL_STACK_KEYS
+                or key in _BACKBONE_KEYS):
             continue
         if key == "attn_impl" and value not in (None, *vit.ViTConfig.ATTN_IMPLS):
             raise NotImplementedError(f"attn_impl={value!r} is not ported")
@@ -163,12 +212,15 @@ def _check_config(config: dict) -> None:
         if key in _OFF_ONLY_KEYS and value in (None, False):
             continue
         raise NotImplementedError(
-            f"config key {key}={value!r} is outside the ported DINOv2 + DeCap "
+            f"config key {key}={value!r} is outside the ported DINOv2 / CLIP + DeCap "
             "subset"
         )
     dino_model = config.get("dino_model")
-    if not dino_model or "dinov2" not in dino_model or "dinotxt" in dino_model:
-        raise NotImplementedError(f"backbone {dino_model!r} is not ported yet")
+    kind = _backbone_type(config)
+    if kind in ("RegionCLIP", "ProxyCLIP") or "dinotxt" in (dino_model or ""):
+        raise NotImplementedError(
+            f"backbone {dino_model!r} ({'DINO.txt' if kind == 'DINO' else kind}) is not "
+            "ported yet")
     if config.get("attention_type", "qkv") != "qkv":
         raise NotImplementedError(
             f"attention_type={config['attention_type']!r} is not ported yet")
@@ -240,6 +292,128 @@ def _load_dino(path: str, cfg: vit.ViTConfig, clock: _Clock) -> dict:
                            f"{cfg.num_registers} registers, {cfg.ffn} FFN {cfg.ffn_hidden}, "
                            f"patch {cfg.patch_size}, position grid {cfg.stored_pos_grid}")
     return tree
+
+
+# DenseCLIP's tower geometries, converted once from the YAML files the JAX
+# package carries (`patchioner_tpu/data/denseclip_configs`)
+DENSECLIP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "data", "denseclip_configs")
+
+
+def _denseclip_config(name: str) -> dict:
+    """`denseclip_config`: a file path (JSON, or YAML where PyYAML is
+    installed), else the name of a geometry in the port's data folder
+    (`patchioner.py:686-694`)."""
+    path = name if os.path.exists(str(name)) else os.path.join(DENSECLIP_DIR, f"{name}.json")
+    with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
+
+        return yaml.safe_load(f)
+
+
+def _clip_size(large: bool) -> dict:
+    """ViT-L/14's width, depth, heads and projection, else ViT-B's."""
+    width, depth, heads, proj = (1024, 24, 16, 768) if large else (768, 12, 12, 512)
+    return dict(width=width, depth=depth, heads=heads, proj_dim=proj)
+
+
+def _clip_geometry(config: dict, kind: str, dtype) -> tuple:
+    """(ClipVisionConfig, weights path, checkpoint layout, Patchioner
+    keywords) of one of the JAX builder's CLIP branches
+    (`patchioner.py:636-797`); the layout is 'hf' (transformers), 'openai'
+    or 'denseclip' (the openai layout under `backbone.`, maybe wrapped in
+    `state_dict`)."""
+    dino_model = config.get("dino_model")
+    crop = int(config.get("crop_dim", 518))
+    opts = {}
+    if kind == "DenseClip":
+        dc = _denseclip_config(config["denseclip_config"])
+        vis = dc.get("model", {}).get("vision", {})
+        width = vis.get("vision_width", 768)
+        cfg = clip_mod.ClipVisionConfig(
+            img_size=crop, patch_size=vis.get("vision_patch_size", 16), width=width,
+            depth=vis.get("vision_layers", 12), heads=width // 64,
+            proj_dim=vis.get("embed_dim", 512), dtype=dtype)
+        path = config.get("denseclip_weights", dc.get("checkpoint", {}).get("path"))
+        return cfg, path, "denseclip", opts
+    if kind == "AlphaClip":
+        acfg = dict(config["alphaclip_config"])
+        name = acfg.get("name", "ViT-B/16")
+        patch = acfg.get("patch_size") or (32 if "/32" in name else (14 if "/14" in name else 16))
+        size = _clip_size("ViT-L" in name)
+        size["proj_dim"] = acfg.get("embed_dim", size["proj_dim"])
+        path, layout = acfg.get("checkpoint"), "openai"
+    elif kind == "OpenCLIP":
+        # the reference projects the tokens before ln_post (src/model.py:766-768,848-859)
+        patch = int(str(dino_model).split("/")[-1])
+        size = _clip_size("ViT-L" in dino_model)
+        opts["skip_ln_post"] = True
+        path, layout = config.get("clip_weights"), "openai"
+    else:  # a timm OpenAI CLIP name, or INViTE
+        invite = config.get("invite_config") or {}
+        if invite:
+            # the last k blocks attend diagonally; the JAX branch reads
+            # `clip_weights`, not invite_config.checkpoint (ROADMAP §3)
+            opts["diag_last_layers"] = max(0, int(invite.get("extract_last_k_th_token", -1)))
+            name = invite.get("name", "ViT-B/32")
+            patch = 32 if "/32" in name else (16 if "/16" in name else 14)
+        else:
+            patch = int(dino_model.split("patch")[1].split("_")[0])
+        size = _clip_size("large" in (dino_model or "") or "ViT-L" in str(invite.get("name", "")))
+        path, layout = config.get("clip_weights"), "hf"
+    return (clip_mod.ClipVisionConfig(img_size=crop, patch_size=patch, dtype=dtype, **size),
+            path, layout, opts)
+
+
+def _load_clip(path: str, layout: str, cfg: clip_mod.ClipVisionConfig,
+               clock: _Clock) -> dict:
+    """A CLIP tower's checkpoint in `layout` as an f32 CPU tree, checked
+    against `cfg` (the stored position grid is the file's)."""
+    sd = _torch_load(path, clock)
+    if layout == "denseclip":
+        sd = sd.get("state_dict", sd)
+        # segmentation checkpoints prefix the tower with 'backbone.'
+        sd = {k.replace("backbone.", "", 1) if k.startswith("backbone.") else k: v
+              for k, v in sd.items()}
+    with clock("port"):
+        if layout == "hf":
+            tree = clip_mod.port_hf_clip_vision(
+                sd, _num_blocks(sd, "vision_model.encoder.layers."))
+        else:
+            prefix = "visual." if any(k.startswith("visual.") for k in sd) else ""
+            tree = clip_mod.port_openai_clip_vision(
+                sd, _num_blocks(sd, f"{prefix}transformer.resblocks."), prefix=prefix)
+    pos = tree["pos_embed"].shape[1]
+    side = int(round((pos - 1) ** 0.5))
+    if side * side + 1 != pos:
+        raise ValueError(f"{path!r}: {pos} position embeddings are not a square grid and a "
+                         "class token")
+    checkpoints.check_tree(
+        "clip weights", path, tree, clip_mod.param_template(cfg, pos, "alpha_embed_w" in tree),
+        f"depth {cfg.depth}, width {cfg.width}, patch {cfg.patch_size}, projection "
+        f"{cfg.proj_dim}, position grid {side}")
+    return tree
+
+
+def _build_clip(config: dict, kind: str, dtype, generator: torch.Generator,
+                allow_missing_weights: bool, device, clock: _Clock) -> tuple:
+    """The CLIP tower of `kind` (`patchioner.py:636-797`): (its config, its
+    f32 params, the Patchioner keywords it sets). A missing file falls back
+    to seeded random weights only under `allow_missing_weights`;
+    AlphaCLIP's alpha conv is drawn whenever the weights lack it."""
+    cfg, path, layout, opts = _clip_geometry(config, kind, dtype)
+    if path and os.path.exists(str(path)):
+        params = _load_clip(str(path), layout, cfg, clock)
+    elif allow_missing_weights:
+        params = clip_mod.init_clip_vision(cfg, generator, device)
+    else:
+        raise FileNotFoundError(f"no local {kind} weights at {path!r} (pass "
+                                "allow_missing_weights=True for random init)")
+    if kind == "AlphaClip" and "alpha_embed_w" not in params:
+        params["alpha_embed_w"] = clip_mod.init_alpha_embed(cfg, generator, device)
+    return cfg, params, dict(opts, backbone_type=kind)
 
 
 def _load_decap(path: str, cfg: gpt2.GPT2Config, prefix_size: int,
@@ -607,15 +781,23 @@ def _traces_to_arrays(traces, device):
 
 
 class Patchioner:
-    def __init__(self, *, vit_cfg: vit.ViTConfig, vit_params: dict,
+    def __init__(self, *, vit_cfg, vit_params: dict,
                  gpt2_cfg: gpt2.GPT2Config, decoder: decap.DecapParams,
                  bank=None, normalize: bool = True, bank_texts: Optional[list] = None,
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
                  device="cuda", tokenizer=None,
                  entry_length: int = decap.ENTRY_LENGTH,
                  viecap: Optional[viecap_mod.VieCap] = None,
-                 clipcap: Optional[clipcap_mod.ClipCap] = None):
+                 clipcap: Optional[clipcap_mod.ClipCap] = None,
+                 backbone_type: str = "DINO", diag_last_layers: int = 0,
+                 skip_ln_post: bool = False):
+        # a vit.ViTConfig for the DINO backbone, else a
+        # clip.ClipVisionConfig, with the tower options of
+        # `clip_visual_forward`
         self.vit_cfg = vit_cfg
+        self.backbone_type = backbone_type
+        self.diag_last_layers = diag_last_layers
+        self.skip_ln_post = skip_ln_post
         self.gpt2_cfg = gpt2_cfg
         self.device = entry.resolve_device(device)
         self.vit_params = vit.cast_params(vit_params, vit_cfg.dtype, self.device)
@@ -651,6 +833,17 @@ class Patchioner:
                                   dtype=torch.float32, device=self.device)
         self._std = torch.tensor(self.config.get("image_std", IMAGENET_STD),
                                  dtype=torch.float32, device=self.device)
+        # the CLS->patch attention's extraction (`patchioner.py:390-405`): the
+        # DINO config's, else 16 heads when `dino_model` is set and names no
+        # ViT-S (6 otherwise), one global token, scale 0.125
+        if backbone_type == "DINO":
+            self.extract_heads = vit_cfg.extract_heads
+            self.num_global_tokens = vit_cfg.num_global_tokens
+            self.extract_scale = vit_cfg.extract_scale
+        else:
+            dino_model = self.config.get("dino_model")
+            self.extract_heads = 16 if dino_model is not None and "vits" not in dino_model else 6
+            self.num_global_tokens, self.extract_scale = 1, 0.125
 
     @classmethod
     def from_config(cls, config, *, rng_seed: int = 0,
@@ -677,23 +870,29 @@ class Patchioner:
         def gen(offset):
             return torch.Generator(device=device).manual_seed(rng_seed + offset)
 
-        vit_cfg = vit.config_for(
-            config["dino_model"], img_size=int(config.get("crop_dim", 518)),
-            dtype=dtype, **_encoder_options(config),
-            **dict(config.get("dino_geometry") or {}))
-        widest = _MAX_EMBED_DIM[vit_cfg.ffn]
-        if vit_cfg.embed_dim > widest:
-            raise NotImplementedError(
-                f"{config['dino_model']} (D = {vit_cfg.embed_dim}) is not ported yet: "
-                f"kernel {'G' if vit_cfg.ffn == 'swiglu' else 'C'} takes D <= {widest}")
-        path = config.get("dino_weights")
-        if path and os.path.exists(str(path)):
-            vit_params = _load_dino(str(path), vit_cfg, clock)
-        elif allow_missing_weights:
-            vit_params = vit.init_vit(vit_cfg, gen(0), device)
+        kind = _backbone_type(config)
+        if kind != "DINO":
+            vit_cfg, vit_params, backbone = _build_clip(config, kind, dtype, gen(0),
+                                                        allow_missing_weights, device, clock)
         else:
-            raise FileNotFoundError("no local DINOv2 weights (set 'dino_weights' or pass "
-                                    "allow_missing_weights=True)")
+            backbone = {}
+            vit_cfg = vit.config_for(
+                config["dino_model"], img_size=int(config.get("crop_dim", 518)),
+                dtype=dtype, **_encoder_options(config),
+                **dict(config.get("dino_geometry") or {}))
+            widest = _MAX_EMBED_DIM[vit_cfg.ffn]
+            if vit_cfg.embed_dim > widest:
+                raise NotImplementedError(
+                    f"{config['dino_model']} (D = {vit_cfg.embed_dim}) is not ported yet: "
+                    f"kernel {'G' if vit_cfg.ffn == 'swiglu' else 'C'} takes D <= {widest}")
+            path = config.get("dino_weights")
+            if path and os.path.exists(str(path)):
+                vit_params = _load_dino(str(path), vit_cfg, clock)
+            elif allow_missing_weights:
+                vit_params = vit.init_vit(vit_cfg, gen(0), device)
+            else:
+                raise FileNotFoundError("no local DINOv2 weights (set 'dino_weights' or pass "
+                                        "allow_missing_weights=True)")
 
         prefix_size = int(config["prefix_size"])
         da = dict(config.get("decap_arch") or {})
@@ -734,7 +933,7 @@ class Patchioner:
                                           device, clock, concept_extractor)
         clipcap = None
         if config.get("clipcap") is not None:
-            clipcap = _build_clipcap(config["clipcap"], config["dino_model"], prefix_size,
+            clipcap = _build_clipcap(config["clipcap"], config.get("dino_model"), prefix_size,
                                      gen(4), allow_missing_weights, gpt2_tokenizer, device,
                                      clock)
         with clock("upload"):
@@ -742,7 +941,7 @@ class Patchioner:
                         decoder=decoder, bank=bank, bank_texts=bank_texts,
                         normalize=bool(config.get("normalize", True)),
                         inversion=inversion, config=config, device=device, viecap=viecap,
-                        clipcap=clipcap)
+                        clipcap=clipcap, **backbone)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         model.load_seconds = dict(clock)
@@ -761,15 +960,20 @@ class Patchioner:
                 f"kernels take D <= {memproj.MAX_D}")
         path, dataset = _bank_path(config)
         if os.path.exists(path):
+            dino_model = config.get("dino_model")
             with clock("read"):
                 loaded = memory_bank.load_bank(
-                    path, dataset, dinotxt_slice="dinotxt" in config["dino_model"])
+                    path, dataset, dinotxt_slice="dinotxt" in (dino_model or ""))
             if loaded.embeddings.shape[1] != width:
                 raise ValueError(f"the memory bank {path!r} is {loaded.embeddings.shape[1]} "
                                  f"wide where the config gives {width}")
             bank_texts = loaded.texts
+            emb = loaded.embeddings
+            if dino_model is not None and "dinov2" not in dino_model:
+                # a CLIP-space bank's rows are taken at unit norm (`patchioner.py:935-938`)
+                emb = emb / np.linalg.norm(emb, axis=-1, keepdims=True)
             with clock("upload"):  # f32 rows onto the device, prepared there
-                emb = torch.from_numpy(loaded.embeddings).to(device)
+                emb = torch.from_numpy(emb).to(device)
         elif allow_missing_weights:
             size = random_bank_size or int(config["support_memory_size"])
             emb = torch.randn(size, width, generator=generator, device=device)
@@ -790,13 +994,15 @@ class Patchioner:
             bank_texts=self.bank_texts, normalize=self.normalize,
             inversion=self.inversion, config=self.config, device=device,
             tokenizer=self.tokenizer, entry_length=self.entry_length, viecap=self.viecap,
-            clipcap=self.clipcap)
+            clipcap=self.clipcap, backbone_type=self.backbone_type,
+            diag_last_layers=self.diag_last_layers, skip_ln_post=self.skip_ln_post)
 
     def supports_fused_trace_path(self) -> bool:
-        """True for DeCap over a support memory; a ViECap, MeaCap or ClipCap
-        model, or one without a bank, captions through `forward`
-        (`patchioner.py:1369-1381`)."""
-        return self.viecap is None and self.clipcap is None and self.bank is not None
+        """True for DeCap over a support memory on the DINO backbone; a CLIP
+        backbone, a ViECap, MeaCap or ClipCap model, or one without a bank,
+        captions through `forward` (`patchioner.py:1369-1381`)."""
+        return (self.backbone_type == "DINO" and self.viecap is None and self.clipcap is None
+                and self.bank is not None)
 
     def state(self) -> dict:
         return entry.make_state(self.vit_params, self.decoder, self.bank,
@@ -823,9 +1029,9 @@ class Patchioner:
         """One fused step with `pool` over the images and the pool's
         arrays (f32 on the model's device); a caption string per row."""
         if not self.supports_fused_trace_path():
-            raise ValueError("this model has no fused caption path (a ViECap, MeaCap or "
-                             "ClipCap decoder, or no support memory): caption through "
-                             "forward()")
+            raise ValueError("this model has no fused caption path (a CLIP backbone, a "
+                             "ViECap, MeaCap or ClipCap decoder, or no support memory): "
+                             "caption through forward()")
         step = entry.make_caption_step(
             self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
             n_steps=self.entry_length, normalize=self.normalize, pool=pool)
@@ -883,12 +1089,26 @@ class Patchioner:
         """The encoder's outputs for images of any size (NHWC or NCHW,
         uint8 normalised on the device), with `self_attn` (B, P), the
         CLS->patch attention row, and `self_attn_maps` (B, H, P) softmaxed
-        per head. Twin of `patchioner.py:1085` (the DINO backbone)."""
-        cfg = self.vit_cfg
-        outs = vit.vit_forward(self.vit_params, self._pixels(imgs), cfg)
+        per head. A CLIP tower's `x_norm_regtokens` is empty (B, 0, P), and
+        AlphaCLIP encodes the whole image (an all-ones alpha). Twin of
+        `patchioner.py:1085`."""
+        pixels = self._pixels(imgs)
+        if self.backbone_type == "DINO":
+            outs = vit.vit_forward(self.vit_params, pixels, self.vit_cfg)
+        else:
+            alpha = None
+            if self.backbone_type == "AlphaClip":
+                alpha = torch.ones(pixels.shape[:3] + (1,), dtype=pixels.dtype,
+                                   device=pixels.device)
+            outs = clip_mod.clip_visual_forward(
+                self.vit_params, pixels, self.vit_cfg, diag_last_layers=self.diag_last_layers,
+                alpha=alpha, skip_ln_post=self.skip_ln_post)
+            patches = outs["x_norm_patchtokens"]
+            outs["x_norm_regtokens"] = patches.new_zeros(
+                (patches.shape[0], 0, patches.shape[-1]))
         self_attn, maps = vit.process_self_attention(
-            outs["qkv_last"], num_heads=cfg.extract_heads,
-            num_global_tokens=cfg.num_global_tokens, scale=cfg.extract_scale)
+            outs["qkv_last"], num_heads=self.extract_heads,
+            num_global_tokens=self.num_global_tokens, scale=self.extract_scale)
         outs["self_attn"] = self_attn
         outs["self_attn_maps"] = torch.softmax(maps, dim=-1)
         return outs
@@ -917,6 +1137,9 @@ class Patchioner:
         bank) and decoded by DeCap. Twin of `patchioner.py:1301-1363`;
         `return_n_best_sims` and the argmax-text mode are not ported."""
         feats = torch.as_tensor(feats).to(self.device)
+        if feats.shape[0] == 0:
+            # a CLIP tower's register tokens: no row, nothing to launch
+            return ([], []) if compute_scores else []
         for name, family in (("viecap", self.viecap), ("clipcap", self.clipcap)):
             if family is not None:
                 if return_n_best_sims:
@@ -968,12 +1191,22 @@ class Patchioner:
         for flag, asked in refused.items():
             if asked:
                 raise NotImplementedError(f"forward({flag}=...) is not ported yet")
+        if self.backbone_type == "AlphaClip" and (bboxes is not None or traces is not None):
+            return self._forward_alphaclip_regions(
+                imgs, bboxes, traces, get_controllable_capts=get_controllable_capts,
+                compute_scores=compute_scores)
 
         outs: dict[str, Any] = {}
         enc = self.encode_images(imgs)
         patch_tokens = enc["x_norm_patchtokens"]
         bs, n_patches, embed_dim = patch_tokens.shape
-        self_attn = enc["self_attn"]
+        # only the DINO and DenseCLIP towers' attention is read
+        # (`patchioner.py:2014-2021`): elsewhere boxes and traces pool
+        # uniformly and the attention-weighted mean raises
+        has_attention = self.backbone_type in ("DINO", "DenseClip")
+        self_attn = enc["self_attn"] if has_attention else None
+        if get_avg_self_attn_capt and not has_attention:
+            raise ValueError(f"backbone {self.backbone_type} exposes no self-attention")
 
         def emit(key, feats):
             ret = self.caption_tokens(feats, compute_scores=compute_scores)
@@ -1025,4 +1258,86 @@ class Patchioner:
             grid = rp.traces_to_grid(pts, valid, int(round(n_patches ** 0.5)))
             outs["trace_capts"] = self.caption_tokens(rp.trace_pool(
                 patch_tokens, grid, self_attn if use_attention_tracing else None))
+        return outs
+
+    @torch.no_grad()
+    def _forward_alphaclip_regions(self, imgs, bboxes=None, traces=None, *,
+                                   get_controllable_capts: bool = False,
+                                   compute_scores: bool = False) -> dict:
+        """AlphaCLIP's region captions (`patchioner.py:2297-2420`): every
+        (image, box) pair, or each image's trace, through one batched
+        encoder pass with the region as the alpha mask. The encoder's mask
+        is at pixel resolution (a trace marks single pixels); under
+        `use_cls_for_localized_captions: false` the patch tokens are
+        averaged under the region's patch-grid mask, else the CLS token is
+        captioned. A dummy box (negative coordinate sum) gets "", a score
+        of 0.0. `get_controllable_capts` captions the OR of each image's
+        boxes and trace."""
+        pixels = self._pixels(imgs)
+        bs, hw = pixels.shape[0], pixels.shape[1]
+        grid = self.vit_cfg.grid_size
+        use_cls = (self.config.get("alphaclip_config") or {}).get(
+            "use_cls_for_localized_captions", True)
+        outs: dict[str, Any] = {}
+
+        def encode_with_masks(px, masks, patch_masks):
+            out = clip_mod.clip_visual_forward(self.vit_params, px, self.vit_cfg,
+                                               alpha=masks[..., None])
+            if use_cls:
+                return out["x_norm_clstoken"]
+            af = patch_masks.reshape(patch_masks.shape[0], -1)
+            return ((out["x_norm_patchtokens"] * af[..., None]).sum(dim=1)
+                    / (af.sum(dim=1, keepdim=True) + 1e-8))
+
+        if traces is not None:
+            if isinstance(traces, (list, tuple)):
+                pts, valid = _traces_to_arrays(traces, self.device)
+            else:  # pre-padded (B, P, 2) points and (B, P) valid mask
+                pts, valid = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                              for a in traces)
+
+        def trace_masks(size):
+            return (rp.traces_to_grid(pts, valid, size) > 0).float()
+
+        if bboxes is not None:
+            boxes = torch.as_tensor(np.asarray(bboxes, np.float32), device=self.device)
+        if get_controllable_capts:
+            mask = torch.zeros(bs, hw, hw, device=self.device)
+            pmask = torch.zeros(bs, grid, grid, device=self.device)
+            if bboxes is not None:
+                mask = torch.maximum(mask, rp.boxes_to_pixel_masks(boxes, hw).amax(dim=1))
+                pmask = torch.maximum(pmask, rp.boxes_to_pixel_masks(
+                    boxes / self.patch_size, grid).amax(dim=1))
+            if traces is not None:
+                mask = torch.maximum(mask, trace_masks(hw))
+                pmask = torch.maximum(pmask, trace_masks(grid))
+            ret = self.caption_tokens(encode_with_masks(pixels, mask, pmask),
+                                      compute_scores=compute_scores)
+            outs["set_controllable_capts"] = ret[0] if compute_scores else ret
+            return outs
+
+        if bboxes is not None:
+            n_boxes = boxes.shape[1]
+            masks = rp.boxes_to_pixel_masks(boxes, hw).reshape(-1, hw, hw)
+            pmasks = rp.boxes_to_pixel_masks(boxes / self.patch_size, grid)
+            ret = self.caption_tokens(
+                encode_with_masks(pixels.repeat_interleave(n_boxes, dim=0), masks,
+                                  pmasks.reshape(-1, grid, grid)),
+                compute_scores=compute_scores)
+            capts, scores = ret if compute_scores else (ret, None)
+            dummy = (boxes.sum(dim=-1) < 0).cpu().numpy()
+            rows = range(bs)
+            outs["bbox_capts"] = [["" if dummy[i, j] else capts[i * n_boxes + j]
+                                   for j in range(n_boxes)] for i in rows]
+            if compute_scores:
+                outs["bbox_scores"] = [[0.0 if dummy[i, j] else scores[i * n_boxes + j]
+                                        for j in range(n_boxes)] for i in rows]
+        if traces is not None:
+            ret = self.caption_tokens(
+                encode_with_masks(pixels, trace_masks(hw), trace_masks(grid)),
+                compute_scores=compute_scores)
+            if compute_scores:
+                outs["trace_capts"], outs["trace_scores"] = ret
+            else:
+                outs["trace_capts"] = ret
         return outs

@@ -12,7 +12,9 @@ the JAX module pins hold here too:
   clipped at the grid edge;
 * attention box weights normalise the attention map in place, so a later
   box that overlaps an earlier one sees the values it normalised;
-* trace pooling divides by the full grid size, not by the weights' sum.
+* trace pooling divides by the full grid size, not by the weights' sum;
+* AlphaCLIP's pixel masks floor and clamp a box's corners and end it
+  exclusively; a dummy box (negative coordinate sum) masks nothing.
 
 Where the JAX module takes a PRNG key (`even_center="random"`), these take
 a `torch.Generator`; they cannot reproduce JAX's draws.
@@ -32,6 +34,7 @@ __all__ = [
     "compute_region_means",
     "traces_to_grid",
     "trace_pool",
+    "boxes_to_pixel_masks",
 ]
 
 
@@ -237,3 +240,21 @@ def trace_pool(patch_tokens: torch.Tensor, trace_grid: torch.Tensor,
     if self_attn is not None:
         w = w * self_attn.reshape(b, g * g).float()
     return torch.einsum("bp,bpd->bd", w, patch_tokens.float()) / (g * g)
+
+
+def boxes_to_pixel_masks(bboxes: torch.Tensor, size: int) -> torch.Tensor:
+    """(..., 4) `[x1, y1, w, h]` boxes -> (..., size, size) f32 binary
+    masks, AlphaCLIP's region conditioning: start floor(x1) clamped to
+    [0, size - 1], end floor(x1 + w) clamped to [0, size], exclusive; a box
+    with a negative coordinate sum gives a zero mask. Twin of
+    `region_pooling.py:414`."""
+    x1 = torch.floor(bboxes[..., 0]).clamp(0, size - 1)
+    y1 = torch.floor(bboxes[..., 1]).clamp(0, size - 1)
+    x2 = torch.floor(bboxes[..., 0] + bboxes[..., 2]).clamp(0, size)
+    y2 = torch.floor(bboxes[..., 1] + bboxes[..., 3]).clamp(0, size)
+    valid = bboxes.sum(dim=-1) >= 0
+    xs = torch.arange(size, dtype=torch.float32, device=bboxes.device)
+    in_x = (xs >= x1[..., None]) & (xs < x2[..., None])
+    in_y = (xs >= y1[..., None]) & (xs < y2[..., None])
+    mask = in_y[..., :, None] & in_x[..., None, :]
+    return mask.to(torch.float32) * valid[..., None, None]

@@ -9,8 +9,8 @@ next size of a ladder of powers of two (so the device sees a few fixed
 batch shapes) and runs the model's fused path for that kind
 (`caption_traces_fused`, `caption_bboxes_fused`,
 `caption_region_sets_fused` or `caption_images_fused`), or for a model
-without them (a ViECap decoder, or no support memory) `forward`, with the
-flags the JAX server passes (`patchioner_tpu/serve.py:547-605`). Padding rows and
+without them (a CLIP backbone, a ViECap decoder, or no support memory)
+`forward`, with the flags the JAX server passes (`patchioner_tpu/serve.py:547-605`). Padding rows and
 padding boxes are cut off before delivery, so a request's caption does not
 depend on its neighbours in the batch.
 

@@ -380,7 +380,9 @@ def test_viecap_files_missing_directory_and_mapping_only(viecap_files, tiny_base
 
 def test_the_vendored_vocabulary_is_read_without_files_path(tiny_base, monkeypatch):
     """No files_path: the port's own data folder, whose t2d embeddings are
-    768 wide; no weight file: random weights under the opt-in."""
+    768 wide; no weight file: random weights under the opt-in. The Visual
+    Genome vocabulary is vendored too (as in the JAX package's folder); its
+    t2d embeddings are not, so they are drawn."""
     monkeypatch.delenv("GPT2_BPE_DIR", raising=False)
     config = {"prefix_size": 128, "support_memory_size": 0,
               "dino_model": "dinov2_vits14_reg", "crop_dim": 28,
@@ -396,10 +398,14 @@ def test_the_vendored_vocabulary_is_read_without_files_path(tiny_base, monkeypat
                            "coco_embeddings_ViT-B16_t2d__with_ensemble.pickle"), "rb") as f:
         np.testing.assert_array_equal(m.viecap.texts_embeddings.numpy(),
                                       np.asarray(pickle.load(f)))
-    with pytest.raises(FileNotFoundError, match="all_objects_attributes_relationships"):
-        Patchioner.from_config(dict(config, viecap=dict(
-            config["viecap"], name_of_entities_text="visual_genome_entities")),
-            allow_missing_weights=True, device="cpu", gpt2_tokenizer=WordTokenizer())
+    vg = Patchioner.from_config(dict(config, viecap=dict(
+        config["viecap"], name_of_entities_text="visual_genome_entities")),
+        allow_missing_weights=True, device="cpu", gpt2_tokenizer=WordTokenizer())
+    want = jviecap.load_entities_text(
+        "visual_genome_entities", os.path.join(jviecap.VOCAB_DIR,
+                                               "all_objects_attributes_relationships.pickle"))
+    assert vg.viecap.entities == want and len(want) > 1000
+    assert vg.viecap.texts_embeddings.shape == (len(want), 768)
 
 
 # ------------------------------------------------------------- tokenizers

@@ -22,6 +22,9 @@ the graphs kept stay one a bucket. One decoder training step on the card
 (kernel D's --im_proj step, and the packed step) is held against the
 same step on the CPU under chip_smoke's f32 gate.
 
+A CLIP-backbone DeCap model (the tower plain torch, kernel D over a
+512-wide bank) runs `forward` on the card as on the CPU in f32.
+
 ViECap's searches (plain torch, no kernel) run on the card as on the CPU:
 on a small f32 GPT-2 whose wte is scaled so that no step is a near-tie,
 the batched beam search equals the per-image one, and every search's
@@ -422,6 +425,49 @@ def test_memory_project_kernel_at_giant_width(cuda, dtype):
     got = _counted(mp.memory_project_streamed,
                    lambda: mp.memory_project_streamed(feats, bank, normalize=True))
     _check(got, mp.memory_project_plain(feats, bank, normalize=True), torch.float32)
+
+
+@pytest.mark.parametrize("rows", [8, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_memory_project_kernel_at_clip_width(cuda, dtype, rows):
+    # the CLIP DeCap configs' 512-wide bank (the tensor-core body in bf16,
+    # 512 % 128 == 0; the SIMT body in f32), at a trace or whole-image
+    # batch's 8 rows and a box batch's 128; the f32 bound in both types
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bank = mp.prepare_bank(torch.randn(20000, 512, generator=gen, device="cuda"), dtype=dtype)
+    feats = torch.randn(rows, 512, generator=gen, device="cuda")
+    for normalize in (True, False):
+        got = _counted(mp.memory_project_streamed,
+                       lambda: mp.memory_project_streamed(feats, bank, normalize=normalize))
+        _check(got, mp.memory_project_plain(feats, bank, normalize=normalize), torch.float32)
+
+
+def test_clip_model_on_the_card_matches_the_cpu(cuda):
+    # DeCap on the full-width CLIP ViT-B/16 tower (plain PyTorch, as in the
+    # JAX package) at 64 px, f32: the encoder's tokens, the projected prefix
+    # (kernel D on the card) and the captions of forward, card vs CPU
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    config = {"dino_model": "vit_base_patch16_clip_224.openai", "crop_dim": 64,
+              "prefix_size": 512, "support_memory_size": 3000, "normalize": False,
+              "decap_arch": {"n_layer": 2, "n_embd": 128, "n_head": 4, "vocab_size": 1000}}
+    gpu = Patchioner.from_config(config, allow_missing_weights=True, device="cuda")
+    gpu.decoder.gpt2["wte"] *= 10  # sharp logits: no greedy step is a near-tie
+    gpu = gpu.to("cuda")
+    cpu = gpu.to("cpu")
+    imgs = np.random.default_rng(16).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    enc, ref = gpu.encode_images(imgs), cpu.encode_images(imgs)
+    for key in ("x_norm_clstoken", "x_norm_patchtokens"):
+        assert (enc[key].cpu() - ref[key]).abs().max() <= 1e-4 * max(1.0, ref[key].abs().max())
+    got = _counted(mp.memory_project_streamed,
+                   lambda: gpu.project_features(enc["x_norm_clstoken"])).cpu()
+    want = cpu.project_features(ref["x_norm_clstoken"])
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    boxes = np.asarray([[[0, 0, 32, 32], [16, 8, 40, 50]]] * 3, np.float32)
+    kw = dict(get_cls_capt=True, bboxes=boxes, traces=[[(0.2, 0.3), (0.7, 0.6)]] * 3,
+              get_register_capts=True)  # a CLIP tower has none: no row to project
+    out = gpu.forward(imgs, **kw)
+    assert out == cpu.forward(imgs, **kw) and out["register_capts"] == [[], [], []]
 
 
 @pytest.mark.parametrize("opts", [

@@ -208,8 +208,10 @@ def test_viecap_cli_trains_resumes_and_serves(tmp_path, tiny_base):
     assert mgr.latest_step() == 2 and mgr.restore()["opt_state"]["count"] == 2
     trained = mgr.restore()["params"]
     assert trained["layers"][0]["to_queries"]["b"] is None
+    # no ViT-B/16 vgoi entity embeddings are vendored: WIDTH-wide ones are drawn
     m = Patchioner.from_config(
-        _model_config(viecap={"weight_path": str(out), "clip_hidden_size": WIDTH,
+        _model_config(clip_model_name="ViT-B/16",
+                      viecap={"weight_path": str(out), "clip_hidden_size": WIDTH,
                               "using_greedy_search": True}),
         allow_missing_weights=True, device="cpu")
     assert torch.equal(m.viecap.mapping_params["linear"]["w"], trained["linear"]["w"])

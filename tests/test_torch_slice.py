@@ -169,14 +169,17 @@ def test_shipped_viecap_config_builds():
     assert vc.cfg.using_hard_prompt and vc.cfg.soft_prompt_first and vc.cfg.using_greedy_search
 
 
+# a DINOv2 `dino_model` wins over every other backbone key, as in the JAX
+# builder, so the other backbones' cases name theirs
 @pytest.mark.parametrize("extra", [
-    {"regionclip_config": {"config": "RN50"}},
-    {"viecap": {"hard_prompt_pad_multiple": 8}}, {"denseclip_config": {}},
+    {"dino_model": "RN50_regionclip", "regionclip_config": {"config": "RN50"}},
+    {"viecap": {"hard_prompt_pad_multiple": 8}},
+    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l"},
     {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
-    {"dino_model": "vit_base_patch16_clip_224.openai"},
+    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16"},
     {"calculate_argmax_text": True},
     {"encoder_w8a8": True}, {"softmax_f32": False},
-    {"use_open_clip": True}, {"an_unknown_key": 1},
+    {"dino_model": "resnet50"}, {"an_unknown_key": 1},
 ])
 def test_keys_outside_the_subset_raise(extra):
     with pytest.raises(NotImplementedError):
@@ -185,18 +188,38 @@ def test_keys_outside_the_subset_raise(extra):
                                device="cpu")
 
 
+CLIP_CONFIGS = ["decap_B16.k.yaml", "decap_B16_resize.k.yaml", "decap_B32.k.yaml",
+                "INViTE_B16_1layer.k.yaml", "INViTE_B16_1layer_bigResize.k.yaml",
+                "alphaclip_B16_CLS.k.yaml", "denseclip_B16_seg_40patches.k.yaml",
+                "viecap.k.yaml", "viecap_b16_14patches.k.yaml", "viecap_b16_37patches.k.yaml",
+                "meacap_invlm.k.yaml", "meacap_invlm_b16_14patches.k.yaml",
+                "meacap_invlm_b16_37patches.k.yaml"]
+
+
 @pytest.mark.parametrize("path", ["mlp.k.yaml", "mlp.k.tpu-serving.yaml", "mlp.viecap.k.yaml",
-                                  "mlp_noise.k.yaml", "mlp.meacap.k.yaml"])
-def test_the_port_takes_five_shipped_configs(path):
-    """The shipped configs whose keys the port takes: the flagship and its
-    int8 serving twin, ViECap, the noisy DeCap (`kkv_attention`, ignored)
-    and MeaCap. Each builds on the CPU here or in test_torch_meacap.py /
-    test_torch_checkpoints.py."""
+                                  "mlp_noise.k.yaml", "mlp.meacap.k.yaml", *CLIP_CONFIGS])
+def test_the_port_takes_eighteen_shipped_configs(path):
+    """The shipped configs whose keys the port takes: on DINOv2 the flagship
+    and its int8 serving twin, ViECap, the noisy DeCap (`kkv_attention`,
+    ignored) and MeaCap; on the CLIP tower DeCap (OpenAI CLIP B/16 and
+    B/32, INViTE, AlphaCLIP, DenseCLIP), ViECap and MeaCap. Each builds on
+    the CPU here or in test_torch_meacap.py, test_torch_checkpoints.py and
+    test_torch_clip.py. RegionCLIP, ProxyCLIP and DINO.txt are refused."""
     with open(os.path.join(REPO, "configs", path)) as f:
         config = yaml.safe_load(f)
     patchioner._check_config(config)
     assert ("kkv_attention" in config) == (path == "mlp_noise.k.yaml")
-    assert ("meacap" in (config.get("viecap") or {})) == (path == "mlp.meacap.k.yaml")
+    assert ("meacap" in (config.get("viecap") or {})) == ("meacap" in path)
+    assert (patchioner._backbone_type(config) == "DINO") == (path not in CLIP_CONFIGS)
+
+
+@pytest.mark.parametrize("path", ["regionclip_resnet50_p32_512.k.yaml", "proxyclip_b16.k.yaml",
+                                  "proxyclip_b16_dinov2.k.yaml", "dinotxt.yaml"])
+def test_the_port_refuses_the_other_four_shipped_configs(path):
+    with open(os.path.join(REPO, "configs", path)) as f:
+        config = yaml.safe_load(f)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        patchioner._check_config(config)
 
 
 def test_missing_weights_need_the_explicit_opt_in():
@@ -231,7 +254,8 @@ with CaptionServer(m, max_batch=2) as server:
 from patchioner_tpu_torch.models import gpt2
 gpt2.GPT2_BASE_CONFIG = gpt2.GPT2Config(n_layer=1, n_embd=64, n_head=1, vocab_size=1000,
                                         n_positions=128)
-v = Patchioner.from_config(dict(cfg, support_memory_size=0, viecap={
+# no ViT-B/16 vgoi entity embeddings are vendored: 64-wide ones are drawn
+v = Patchioner.from_config(dict(cfg, support_memory_size=0, clip_model_name="ViT-B/16", viecap={
     "clip_hidden_size": 64, "using_hard_prompt": True, "using_greedy_search": True}),
     allow_missing_weights=True, device="cpu")
 out = v.forward(np.zeros((2, 28, 28, 3), np.uint8), traces=[[(0.5, 0.5)]] * 2)
