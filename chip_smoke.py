@@ -190,7 +190,30 @@ then exits non-zero without the final result line:
    (`configs/viecap.k.yaml`, the copied CLIP-space entity embeddings) and
    MeaCap (`configs/meacap_invlm.k.yaml`, a seeded 591,753 x 512 memory)
    on CLIP ViT-B/32: a whole-image batch of 8 each, its encoder and search
-   ms inside the same `forward` calls, no kernel launched.
+   ms inside the same `forward` calls, no kernel launched;
+12. the CLIP text towers (plain PyTorch, as in the JAX package), each of
+   the five text spaces at full geometry written from a seed in the
+   openai/CLIP layout under its checkpoint prefix (`TEXT_SPACES`), with a
+   Talk2DINO projection 512 -> 768: 12a, the flagship's support memory
+   built as `extract_features bank` builds it, without its HDF5 write (no
+   h5py on the card): 591,753 seeded captions through the CLIP ViT-B/16
+   text tower (f32, TF32 off) and Talk2DINO in batches of 1000, the
+   tokenizer's and the tower's seconds apart, captions/s and peak memory;
+   12b, f32 card against CPU on the same files under phase 5's gate: the
+   clip space's output on 256 of those captions and the built bank's rows,
+   open_clip, regionclip (1024 out), denseclip (context 13) and DINO.txt
+   (1280 x 24, 2048 out and its patch-aligned half) on 8 captions each;
+   12c, the flagship (bf16) with the built bank as its support memory, 8
+   trace requests served after `warmup()`, A-D and a decode-graph replay a
+   batch asserted; 12d, `train.cli --encode_on_the_fly --talk2dino_weights
+   --im_proj` on 2,048 seeded captions over the built bank in f32, 32
+   steps, steps/s and D's launches (one a step) asserted; 12e,
+   `extract_features image` over 16 seeded images through the flagship
+   config in f32 (A, B and C 12 launches a run), `cls` and
+   `avg_self_attn` of two images held to the CPU under the gate; 12f,
+   `ClipScorer` on CLIP ViT-B/16 (the vision tower at 224 px and the clip
+   text file): PAC-S and RefPAC-S of 8 captions against 8 images, card
+   against CPU within 1e-4.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -2652,6 +2675,392 @@ def phase_clip(seed: int, smi: str, directory: str) -> int:
     return launches
 
 
+# ------------------------------------------------------------------ phase 12
+
+# the five text spaces at full geometry: (checkpoint prefix, width, depth,
+# context, projection). CLIP ViT-B/16's text tower is the one the flagship's
+# bank is built with; DINO.txt's is the tet1280d20h24l release's; DenseCLIP's
+# context is its config's (data/denseclip_configs)
+TEXT_SPACES = {
+    "clip": ("", 512, 12, 77, 512),
+    "open_clip": ("", 512, 12, 77, 512),
+    "regionclip": ("lang_encoder.", 512, 12, 77, 1024),
+    "denseclip": ("text_encoder.", 512, 12, 13, 512),
+    "dinotxt": ("text_model.", 1280, 24, 77, 2048),
+}
+TEXT_BANK_ROWS = MEMORY_ROWS  # the flagship's COCO support memory
+TEXT_BANK_BATCH = 1000  # the JAX bank mode's --bs
+TEXT_GATE_ROWS = 256  # the clip space's f32 gate; the other spaces take 8
+TEXT_TRAIN_CAPTIONS = 2048
+TEXT_TRAIN_STEPS = 32  # one epoch at the reference CLI's batch 64
+# a caption is 6-16 words of these: enough that the BPE and its cache see
+# the shapes of real captions
+BANK_WORDS = sum(MEMORY_WORDS, ()) + (
+    "a", "the", "on", "with", "of", "and", "is", "next", "to", "near", "two", "three",
+    "sitting", "standing", "holding", "playing", "riding", "eating", "looking", "at", "its",
+    "while", "some", "people", "group", "front", "top", "under", "behind", "grass")
+
+
+def _bank_captions(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(6, 17, n)
+    words = np.asarray(BANK_WORDS)[rng.integers(0, len(BANK_WORDS), int(lengths.sum()))]
+    ends = np.cumsum(lengths).tolist()
+    return [" ".join(words[e - k:e]) for e, k in zip(ends, lengths.tolist())]
+
+
+def _text_cfg(name: str):
+    from patchioner_tpu_torch.models import clip
+
+    _, width, depth, context, proj = TEXT_SPACES[name]
+    return clip.ClipTextConfig(context_length=context, width=width, depth=depth,
+                               heads=width // 64, proj_dim=proj)
+
+
+def text_state_dict(tree: dict, prefix: str = "") -> dict:
+    """A port text tower as an openai/CLIP-layout state dict under `prefix`,
+    the inverse of `models.clip.port_openai_clip_text` (each `nn.Linear`
+    (out, in); `text_projection` stays (D, proj))."""
+    sd = {"token_embedding.weight": tree["token_embedding"],
+          "positional_embedding": tree["pos_embed"],
+          "ln_final.weight": tree["ln_final"]["scale"], "ln_final.bias": tree["ln_final"]["bias"],
+          "text_projection": tree["text_projection"]}
+    for i, blk in enumerate(tree["blocks"]):
+        q = f"transformer.resblocks.{i}"
+        for key in ("ln_1", "ln_2"):
+            sd[f"{q}.{key}.weight"] = blk[key]["scale"]
+            sd[f"{q}.{key}.bias"] = blk[key]["bias"]
+        sd[f"{q}.attn.in_proj_weight"] = blk["qkv"]["w"].t()
+        sd[f"{q}.attn.in_proj_bias"] = blk["qkv"]["b"]
+        for key, name in (("out_proj", "attn.out_proj"), ("fc1", "mlp.c_fc"),
+                          ("fc2", "mlp.c_proj")):
+            sd[f"{q}.{name}.weight"] = blk[key]["w"].t()
+            sd[f"{q}.{name}.bias"] = blk[key]["b"]
+    return _cpu({prefix + k: v for k, v in sd.items()})
+
+
+def write_text_checkpoints(seed: int, directory: str) -> dict:
+    """Each text space's tower at full geometry (`TEXT_SPACES`), drawn on
+    the card from a seed with `init_clip_text`'s distributions, biases and
+    LayerNorms moved off their init so that they count, written with
+    `torch.save` in the openai/CLIP layout under the space's prefix; and a
+    Talk2DINO projection 512 -> 768. {space or 't2d': path}."""
+    from patchioner_tpu_torch.models import clip
+
+    paths = {}
+    for i, name in enumerate(TEXT_SPACES):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 60 + i)
+        tree = clip.init_clip_text(_text_cfg(name), gen, "cuda")
+        for blk in tree["blocks"] + [tree]:
+            for leaf in blk.values():
+                if isinstance(leaf, dict):
+                    for key, v in leaf.items():
+                        if v.dim() == 1:
+                            v += 0.02 * torch.randn(v.shape, generator=gen, device="cuda")
+        paths[name] = os.path.join(directory, f"text_{name}.pt")
+        torch.save(text_state_dict(tree, TEXT_SPACES[name][0]), paths[name])
+        del tree
+    gen = torch.Generator().manual_seed(seed + 66)
+    paths["t2d"] = os.path.join(directory, "text_talk2dino.pth")
+    torch.save(talk2dino_state_dict({"w": torch.randn(512, D, generator=gen) * 512 ** -0.5,
+                                     "b": 0.1 * torch.randn(D, generator=gen)}), paths["t2d"])
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_text_bank(seed: int, smi: str, directory: str, paths: dict):
+    """Phase 12a: the flagship's support memory built on the card as
+    `extract_features bank` builds it, without its HDF5 write (the card's
+    machine has no h5py): `TEXT_BANK_ROWS` seeded captions through the
+    `clip` space of the ViT-B/16 text file, Talk2DINO-projected to 768, in
+    batches of `TEXT_BANK_BATCH`; (the bank, its captions)."""
+    from patchioner_tpu_torch.train import extract_features as ef
+
+    t0 = time.perf_counter()
+    captions = _bank_captions(seed + 61, TEXT_BANK_ROWS)
+    corpus = os.path.join(directory, "text_bank_corpus.json")
+    with open(corpus, "w") as f:
+        json.dump({"annotations": [{"caption": c, "image_id": i}
+                                   for i, c in enumerate(captions)]}, f)
+    log(f"[text bank] {len(captions)} seeded captions of 6-16 words written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    args = ef.build_argparser().parse_args([
+        "bank", "--data", corpus, "--size", str(TEXT_BANK_ROWS), "--no-sample",
+        "--text-weights", paths["clip"], "--talk2dino", paths["t2d"],
+        "--bs", str(TEXT_BANK_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bank, encoder = ef.make_bank(args, torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok, tower = encoder.seconds["tokenizer"], encoder.seconds["tower"]
+    n = len(bank)
+    cfg = encoder.space.cfg
+    t, d = cfg.context_length, cfg.width
+    # the tower's operations: per token and layer the qkv, out-projection
+    # and MLP products (12 d^2 multiply-adds) and the causal attention's
+    # q k^T and weights @ v over the full context (2 t d); then the pooled
+    # row's projection and Talk2DINO's linear
+    ops = 2 * n * (t * cfg.depth * (12 * d * d + 2 * t * d) + d * cfg.proj_dim
+                   + cfg.proj_dim * D)
+    bound = ops / PEAK_FLOPS[torch.float32]
+    log(f"[text bank] {n} captions through the clip space ({d} wide, {cfg.depth} layers, "
+        f"{cfg.heads} heads, context {t}, vocab {cfg.vocab_size}, projection "
+        f"{cfg.proj_dim}; f32, TF32 off) and Talk2DINO {cfg.proj_dim} -> {D}, "
+        f"{TEXT_BANK_BATCH} a batch: {wall:.1f} s in all, {n / wall:.0f} captions/s; "
+        f"tokenizer {tok:.1f} s on the host ({n / tok:.0f} captions/s), tower and "
+        f"projection {tower:.1f} s waited for ({n / tower:.0f} captions/s, "
+        f"{ops / tower / 1e12:.1f} TFLOP/s against the f32 peak's bound {bound:.1f} s), "
+        f"the rest {wall - tok - tower:.1f} s (the corpus read, the space built); peak "
+        f"device memory {peak:.2f} GiB; {smi}")
+    if bank.embeddings.shape != (TEXT_BANK_ROWS, D) or bank.texts != captions:
+        raise AssertionError(f"[text bank] bank {bank.embeddings.shape} with "
+                             f"{len(bank.texts)} texts")
+    if not np.isfinite(bank.embeddings).all():
+        raise AssertionError("[text bank] the bank has non-finite rows")
+    return bank, captions
+
+
+@torch.no_grad()
+def phase_text_gates(paths: dict, captions: list, bank) -> None:
+    """Phase 12b: each space built from its file on the card and on the CPU,
+    f32 with TF32 off, under phase 5's gate: the `clip` space's raw output
+    on `TEXT_GATE_ROWS` of the bank's captions and the bank's own rows
+    (Talk2DINO-projected) against the CPU's projection; the other four on 8
+    captions each, DINO.txt's raw 2048 columns and its patch-aligned half."""
+    from patchioner_tpu_torch.train import text_spaces
+    from patchioner_tpu_torch.train.extract_features import talk2dino_projection
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12 holds the card to the CPU in f32: TF32 must be off")
+    for name in TEXT_SPACES:
+        texts = captions[:TEXT_GATE_ROWS if name == "clip" else 8]
+        out = {}
+        for where in ("cuda", "cpu"):
+            space = text_spaces.build_text_space(name, paths[name], device=where)
+            toks = space.tokenize(texts)
+            t0 = time.perf_counter()
+            raw = space.encode_tokens_raw(toks)
+            out[where] = (raw.cpu(), space.encode_tokens(toks).cpu())
+            if where == "cpu" and name == "clip":
+                out["projected"] = talk2dino_projection(paths["t2d"], "cpu")(raw)
+            log(f"[text f32 {name}] {where}: {space.cfg.width} wide, {space.cfg.depth} layers, "
+                f"context {space.cfg.context_length}, output {space.cfg.proj_dim}, prefix "
+                f"{space.prefix_size}; {len(texts)} captions in "
+                f"{time.perf_counter() - t0:.2f} s")
+            del space
+        what = f"{len(texts)} captions, card vs CPU"
+        _gate(f"text f32 {name}", out["cuda"][0], out["cpu"][0], what, noun="tower output")
+        if name == "dinotxt":
+            _gate(f"text f32 {name}", out["cuda"][1], out["cpu"][1], what,
+                  noun="patch-aligned half")
+        if name == "clip":
+            _gate(f"text f32 {name}", torch.from_numpy(bank.embeddings[:len(texts)]),
+                  out["projected"], f"{what} (the built bank's rows)", noun="Talk2DINO row")
+        torch.cuda.empty_cache()
+
+
+def phase_text_served(seed: int, smi: str, bank) -> int:
+    """Phase 12c: the flagship (bf16, `fusedqkv`) with the built bank as its
+    support memory, handed in as phase 6 hands the CPU model the card's
+    drawn bank; 8 trace requests served after `warmup()`, A, B, C and D and
+    a decode-graph replay a batch asserted. D's launches."""
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    model = Patchioner.from_config(FLAGSHIP_CONFIG, rng_seed=seed, allow_missing_weights=True,
+                                   random_bank_size=1, dtype=torch.bfloat16, device="cuda")
+    rows = torch.from_numpy(bank.embeddings).to("cuda")
+    model.bank = mp.prepare_bank(rows, dtype=torch.bfloat16)
+    model.bank_texts = bank.texts
+    del rows
+    log(f"[text served] the flagship with the built bank: {model.bank.num_real} x "
+        f"{model.bank.rows.shape[1]} {str(model.bank.rows.dtype)[6:]}")
+    imgs, traces = _requests(B, seed + 62)
+    captions, snap, batches, wall, counts = _serve(
+        model, [(im, {"trace": tr}) for im, tr in zip(imgs, traces)], "[text served]")
+    log(f"[text served] {len(captions)} captions in {batches} batch(es), mean request latency "
+        f"{snap['mean_latency_ms']} ms, {len(captions) / wall:.3f} captions/s; caption 0: "
+        f"{captions[0][:60]!r}; {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return counts["memory_project"]
+
+
+def phase_text_training(seed: int, smi: str, directory: str, paths: dict, bank) -> int:
+    """Phase 12d: `train.cli --encode_on_the_fly` with the clip file and
+    Talk2DINO on `TEXT_TRAIN_CAPTIONS` seeded captions, `--im_proj` over the
+    built bank in f32 (handed to the CLI's bank loader in memory: the
+    card's machine has no h5py to read a bank file), the reference CLI's
+    decoder, `TEXT_TRAIN_STEPS` steps. D's launches, one a step."""
+    from patchioner_tpu_torch.io import memory_bank
+    from patchioner_tpu_torch.train import cli
+
+    work = os.path.join(directory, "text_train")
+    os.makedirs(work, exist_ok=True)
+    corpus = os.path.join(work, "captions.json")
+    with open(corpus, "w") as f:
+        json.dump([{"image_id": i // 5, "caption": c} for i, c in
+                   enumerate(_bank_captions(seed + 63, TEXT_TRAIN_CAPTIONS))], f)
+    handed = os.path.join(work, "built_bank.h5")  # never written
+    read = memory_bank.load_bank
+
+    def load_bank(path, dataset=None, *, dinotxt_slice=False):
+        return bank if path == handed else read(path, dataset, dinotxt_slice=dinotxt_slice)
+
+    d_kernel = _wrappers()["memory_project"]
+    d_kernel.launches = 0
+    memory_bank.load_bank = load_bank
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--data", corpus, "--encode_on_the_fly", "--text_weights", paths["clip"],
+                  "--talk2dino_weights", paths["t2d"], "--im_proj", "--bank", handed,
+                  "--out_dir", os.path.join(work, "decap"), "--epochs", "1", "--bs", "64",
+                  "--limit_steps", str(TEXT_TRAIN_STEPS), "--seed", str(seed),
+                  "--device", "cuda"])
+    finally:
+        memory_bank.load_bank = read
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, "decap", "train_log.csv")) as f:
+        epoch, step, loss, acc, secs = f.read().split()[-1].split(",")
+    launches = d_kernel.launches
+    log(f"[text train] {TEXT_TRAIN_CAPTIONS} captions encoded on the fly (clip space, "
+        f"Talk2DINO to {D}), decoder 4L/4H/768 vocab 50257, batch 64, --im_proj over the "
+        f"built {len(bank)} x {D} f32 bank: {step} steps, loss {loss}, acc {acc}; the epoch's "
+        f"loop {secs} s ({int(step) / max(float(secs), 1e-9):.1f} steps/s), the CLI "
+        f"{wall:.1f} s with set-up; kernel D {launches} launches; {smi}")
+    if int(step) != TEXT_TRAIN_STEPS or launches != TEXT_TRAIN_STEPS:
+        raise AssertionError(f"[text train] {step} steps and {launches} launches of D, "
+                             f"{TEXT_TRAIN_STEPS} each expected")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"[text train] loss {loss}")
+    import shutil
+
+    shutil.rmtree(work)
+    return launches
+
+
+@torch.no_grad()
+def phase_text_images(seed: int, smi: str, directory: str) -> None:
+    """Phase 12e: `extract_features image` over 16 seeded images through the
+    flagship config (f32, a hub DINOv2 file written here), `cls` and
+    `avg_self_attn`, A, B and C 12 launches a run asserted; the first two
+    images' features on the CPU, from the same file, under phase 5's gate."""
+    from PIL import Image
+
+    from patchioner_tpu_torch.models import vit
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+    from patchioner_tpu_torch.train import extract_features as ef
+    from patchioner_tpu_torch.utils import transforms
+
+    work = os.path.join(directory, "text_images")
+    folder = os.path.join(work, "images")
+    os.makedirs(folder)
+    gen = torch.Generator().manual_seed(seed + 64)
+    tree = vit.init_vit(vit.config_for(FLAGSHIP_CONFIG["dino_model"]), gen)
+    for blk in tree["blocks"]:
+        blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, D, generator=gen)
+    config = dict(FLAGSHIP_CONFIG, dino_weights=os.path.join(work, "dinov2.pth"))
+    torch.save(hub_state_dict(tree), config["dino_weights"])
+    config_path = os.path.join(work, "flagship.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+    rng = np.random.default_rng(seed + 65)
+    for i in range(16):
+        Image.fromarray(rng.integers(0, 256, (IMG + 20, IMG + 60, 3), dtype=np.uint8)).save(
+            os.path.join(folder, f"{i:02d}.png"))
+    wrappers = _wrappers()
+    card = {}
+    for select in ("cls", "avg_self_attn"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        card[select] = ef.main(["image", "--config", config_path, "--images", folder,
+                                "--out", os.path.join(work, f"{select}.npy"), "--select", select,
+                                "--bs", "16", "--allow-random", "--device", "cuda"])
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        want = {name: 12 if name in ("ln_dense", "qkv_attention", "ln_mlp") else 0
+                for name in wrappers}
+        log(f"[text images] extract_features image --select {select}: "
+            f"{card[select].shape} in {time.perf_counter() - t0:.1f} s (the model built "
+            f"from its config included); launches {counts}")
+        if counts != want:
+            raise AssertionError(f"[text images] launches {counts} != {want}")
+    model = Patchioner.from_config(config, allow_missing_weights=True, random_bank_size=1,
+                                   device="cpu")
+    names = sorted(os.listdir(folder))[:2]
+    batch = np.stack([transforms.preprocess_pil_uint8(Image.open(os.path.join(folder, n)),
+                                                      model.resize_dim, model.crop_dim)
+                      for n in names])
+    enc = model.encode_images(batch)
+    for select, feats in card.items():
+        _gate("text images", torch.from_numpy(feats[:2]), ef.select_features(enc, select),
+              f"{select}, 2 images, card vs CPU", noun="feature")
+    import shutil
+
+    shutil.rmtree(work)
+
+
+def phase_text_scores(seed: int, smi: str, paths: dict, captions: list) -> None:
+    """Phase 12f: `ClipScorer` on CLIP ViT-B/16 (the vision tower at 224 px,
+    seeded, and the clip text file) scores 8 captions against 8 images on
+    the card and on the CPU: PAC-S and RefPAC-S (one candidate without
+    references), each score within 1e-4."""
+    from patchioner_tpu_torch.eval import pac_score
+    from patchioner_tpu_torch.models import clip
+
+    vcfg, tcfg = clip.ClipVisionConfig(), _text_cfg("clip")
+    vparams = clip.init_clip_vision(vcfg, torch.Generator().manual_seed(seed + 67))
+    tparams = clip.port_openai_clip_text(torch.load(paths["clip"], weights_only=True),
+                                         tcfg.depth)
+    pixels = np.random.default_rng(seed + 68).standard_normal(
+        (8, vcfg.img_size, vcfg.img_size, 3)).astype(np.float32)
+    candidates = captions[:8]
+    references = [captions[8 + 2 * i:10 + 2 * i] for i in range(7)] + [[]]
+    scores = {}
+    for where in ("cuda", "cpu"):
+        scorer = pac_score.ClipScorer(vparams, tparams, vcfg, tcfg, device=where)
+        t0 = time.perf_counter()
+        images = scorer.encode_images(pixels)
+        pac, per, cand, _ = pac_score.pac_score(scorer, images, candidates)
+        ref, ref_per = pac_score.ref_pac_score(scorer, references, cand)
+        scores[where] = (pac, per, ref, ref_per)
+        log(f"[text scores] {where}: PAC-S {pac:.6f}, RefPAC-S {ref:.6f} for 8 captions "
+            f"against 8 images (ViT-B/16 at {vcfg.img_size} px, 14 reference captions) in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (pac, per, ref, ref_per), (cpac, cper, cref, cref_per) = scores["cuda"], scores["cpu"]
+    err = max(abs(pac - cpac), abs(ref - cref), float(np.abs(per - cper).max()),
+              float(np.abs(ref_per - cref_per).max()))
+    log(f"[text scores] PAC-S and RefPAC-S, card vs CPU: max|d| = {err:.3e} (tol 1e-4); "
+        f"the candidate without references scores {ref_per[-1]}; {smi}")
+    if not err <= 1e-4 or ref_per[-1] != 0.0:
+        raise AssertionError(f"[text scores] card vs CPU {err:.3e}, no-reference score "
+                             f"{ref_per[-1]}")
+
+
+def phase_text(seed: int, smi: str, directory: str) -> tuple[int, int]:
+    """Phase 12: the text towers (12a the flagship's bank built, 12b f32
+    gates of the five spaces, 12c served from the built bank, 12d training
+    on text features, 12e image features, 12f scoring); D's launches in
+    12c's served run and in 12d's steps."""
+    t0 = time.perf_counter()
+    paths = write_text_checkpoints(seed, directory)
+    sizes = ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e9:.3f} GB"
+                      for p in paths.values())
+    log(f"[text files] wrote {sizes} in {time.perf_counter() - t0:.1f} s")
+    bank, captions = phase_text_bank(seed, smi, directory, paths)
+    phase_text_gates(paths, captions, bank)
+    served = phase_text_served(seed, smi, bank)
+    trained = phase_text_training(seed, smi, directory, paths, bank)
+    del bank
+    phase_text_images(seed, smi, directory)
+    phase_text_scores(seed, smi, paths, captions)
+    for path in paths.values():
+        os.remove(path)
+    return served, trained
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2674,7 +3083,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-11; the kernels' rows of the JSON summary."""
+    """Phases 2-12; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -2744,10 +3153,13 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 10")
     clip = phase_clip(seed, smi, scratch)
     elapsed("phase 11")
+    text_served, text_trained = phase_text(seed, smi, scratch)
+    elapsed("phase 12")
     launches["memory_project"] = (
         launches["memory_project"][0],
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "
-        f"served: {clip} launches in its 3 served kinds")
+        f"served: {clip} launches in its 3 served kinds; served from the bank built by "
+        f"the text tower: {text_served}; text-feature training --im_proj: {text_trained}")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -14,7 +14,8 @@ import torch
 from patchioner_tpu_torch.models import decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 
-__all__ = ["to_torch", "vit_from_jax", "clip_vision_from_jax", "decap_from_jax",
+__all__ = ["to_torch", "vit_from_jax", "clip_vision_from_jax", "clip_text_from_jax",
+           "decap_from_jax",
            "bank_from_jax", "inversion_from_jax", "mlp_w8_from_jax"]
 
 
@@ -65,9 +66,27 @@ def clip_vision_from_jax(tree: dict, cfg, device="cpu") -> dict:
     missing = _CLIP_KEYS - set(tree)
     if missing or set(tree) - _CLIP_KEYS - {"alpha_embed_w"}:
         raise ValueError(f"not a CLIP vision tree: keys {sorted(tree)}")
+    _check_clip_blocks(tree)
+    return to_torch(tree, device)
+
+
+def _check_clip_blocks(tree: dict) -> None:
     for blk in tree["blocks"]:
         if set(blk) != _CLIP_BLOCK_KEYS:
             raise ValueError(f"a CLIP block needs {sorted(_CLIP_BLOCK_KEYS)}, got {sorted(blk)}")
+
+
+_CLIP_TEXT_KEYS = {"token_embedding", "pos_embed", "ln_final", "text_projection", "blocks"}
+
+
+def clip_text_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """An `init_clip_text` / ported CLIP text tree -> the port's text tower
+    params (`clip.clip_text_forward`)."""
+    if len(tree["blocks"]) != cfg.depth:
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg.depth={cfg.depth}")
+    if set(tree) != _CLIP_TEXT_KEYS:
+        raise ValueError(f"not a CLIP text tree: keys {sorted(tree)}")
+    _check_clip_blocks(tree)
     return to_torch(tree, device)
 
 

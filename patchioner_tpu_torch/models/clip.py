@@ -1,6 +1,6 @@
-"""CLIP ViT vision tower in PyTorch.
+"""CLIP ViT vision and text towers in PyTorch.
 
-Twin of the vision half of `patchioner_tpu/models/clip.py`: the config
+Twin of `patchioner_tpu/models/clip.py`. The vision half: the config
 (`ClipVisionConfig`), `clip_visual_forward` with every option the
 backbone family needs (`skip_last_layers`; `diag_last_layers`, INViTE's
 diagonal-only attention; `alpha`, AlphaCLIP's one-channel conv added to
@@ -9,19 +9,21 @@ before `ln_post`; the stored position grid resized bicubic to a larger
 one), the porters of the transformers layout (`port_hf_clip_vision`) and
 of the openai/CLIP layout (`port_openai_clip_vision`, with AlphaCLIP's
 `conv1_alpha`), and seeded random init (`init_clip_vision`,
-`init_alpha_embed`). Parameters are a nested dict of tensors in the JAX
-package's layout (dense weights stored (in, out)); `io.bridge` converts a
-JAX tree.
+`init_alpha_embed`). The text half: `ClipTextConfig`, `clip_text_forward`
+(the causal tower, pooled at the first EOT token and projected), the
+porters of the openai/CLIP layout under any key prefix
+(`port_openai_clip_text`: OpenAI CLIP, open_clip, RegionCLIP, DenseCLIP
+and DINO.txt store their text towers so) and of the transformers layout
+(`port_hf_clip_text`), and `init_clip_text`. Parameters are a nested dict
+of tensors in the JAX package's layout (dense weights stored (in, out));
+`io.bridge` converts a JAX tree.
 
-The tower runs as plain PyTorch, as the JAX package runs it as plain XLA
-(no Pallas kernel), in the JAX package's order of operations: LN with f32
-statistics (eps 1e-5) whatever the activation type, q scaled by
-head_dim^-0.5 before q k^T, the logits cast to f32 for the softmax and the
-weights cast back, the quick-GELU MLP.
-
-The text half (`clip_text_forward`, `port_openai_clip_text`,
-`port_hf_clip_text`, `init_clip_text`) is not ported yet: ROADMAP queue 1
-item 11.
+Both towers run as plain PyTorch, as the JAX package runs them as plain
+XLA (no Pallas kernel), in the JAX package's order of operations: weights
+cast once when the config's type is below f32, LN with f32 statistics (eps
+1e-5) whatever the activation type, q scaled by head_dim^-0.5 before
+q k^T, the logits cast to f32 (the text tower's causal mask fills -1e30
+there) for the softmax and the weights cast back, the quick-GELU MLP.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ import torch
 from patchioner_tpu_torch.io.torch_port import _linear, _ln as _port_ln, _patch_conv_to_dense, _t
 from patchioner_tpu_torch.models import vit
 
-__all__ = ["ClipVisionConfig", "clip_visual_forward", "port_hf_clip_vision",
-           "port_openai_clip_vision", "init_clip_vision", "init_alpha_embed",
-           "param_template"]
+__all__ = ["ClipVisionConfig", "ClipTextConfig", "clip_visual_forward",
+           "clip_text_forward", "port_hf_clip_vision", "port_openai_clip_vision",
+           "port_openai_clip_text", "port_hf_clip_text", "init_clip_vision",
+           "init_clip_text", "init_alpha_embed", "param_template", "text_param_template"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +63,19 @@ class ClipVisionConfig:
         return 1 + self.grid_size ** 2
 
 
+@dataclasses.dataclass(frozen=True)
+class ClipTextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    depth: int = 12
+    heads: int = 8
+    proj_dim: int = 512
+    ln_eps: float = 1e-5
+    eot_token: int = 49407
+    dtype: torch.dtype = torch.float32
+
+
 def _ln(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     """LayerNorm with f32 statistics whatever the activation type, the
     result in the activation type (`clip.py:76`)."""
@@ -79,10 +95,12 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _resblock(x: torch.Tensor, blk: dict, heads: int, eps: float,
-              diag_attn: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              diag_attn: bool = False,
+              causal_mask: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block; (x, the block's fused qkv). Under `diag_attn`
     every token attends to itself alone, so the attention output is its
-    value vector (`clip.py:107-136`)."""
+    value vector; a (T, T) bool `causal_mask` keeps the logits where it is
+    True and sets the others to -1e30 in f32 (`clip.py:107-136`)."""
     b, t, d = x.shape
     hd = d // heads
     qkv = _dense(_ln(x, blk["ln_1"], eps), blk["qkv"])  # fused (D, 3D)
@@ -91,6 +109,8 @@ def _resblock(x: torch.Tensor, blk: dict, heads: int, eps: float,
     else:
         q, k, v = qkv.reshape(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
         logits = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
+        if causal_mask is not None:
+            logits = logits.masked_fill(~causal_mask, -1e30)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
         a = torch.matmul(w, v).transpose(1, 2).reshape(b, t, d)
     x = x + _dense(a, blk["out_proj"])
@@ -144,6 +164,32 @@ def clip_visual_forward(params: dict, pixels: torch.Tensor, cfg: ClipVisionConfi
             "tokens_preproj": x, "qkv_last": qkv}
 
 
+def first_eot(tokens: torch.Tensor, eot: int) -> torch.Tensor:
+    """(B,) index of each row's first `eot` token, 0 for a row without one,
+    as `argmax(tokens == eot)` gives it in JAX; the least index of a match,
+    so that no tie rule of `torch.argmax` can change it."""
+    t = tokens.shape[-1]
+    pos = torch.arange(t, device=tokens.device).expand_as(tokens)
+    idx = torch.where(tokens == eot, pos, t).amin(dim=-1)
+    return torch.where(idx == t, 0, idx)
+
+
+def clip_text_forward(params: dict, tokens: torch.Tensor, cfg: ClipTextConfig) -> torch.Tensor:
+    """(B, T) int token ids, T <= the context -> (B, proj_dim): the causal
+    tower, `ln_final`, the row at the first EOT, the text projection
+    (`clip.py:211-230`)."""
+    b, t = tokens.shape
+    params = vit.cast_params(params, cfg.dtype)
+    tokens = tokens.to(device=params["token_embedding"].device, dtype=torch.int64)
+    x = params["token_embedding"][tokens] + params["pos_embed"][:t]
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    for blk in params["blocks"]:
+        x, _ = _resblock(x, blk, cfg.heads, cfg.ln_eps, causal_mask=causal)
+    x = _ln(x, params["ln_final"], cfg.ln_eps)
+    pooled = x[torch.arange(b, device=x.device), first_eot(tokens, cfg.eot_token)]
+    return torch.matmul(pooled, params["text_projection"])
+
+
 # -------------------------------------------------------------------- port
 
 
@@ -152,21 +198,33 @@ def _block(ln_1: dict, qkv: dict, out_proj: dict, ln_2: dict, fc1: dict, fc2: di
             "fc2": fc2}
 
 
+def _hf_block(sd: Mapping, p: str) -> dict:
+    """A transformers CLIPEncoderLayer: q, k and v fused into one qkv."""
+    att = f"{p}.self_attn"
+    return _block(
+        _port_ln(sd, f"{p}.layer_norm1"),
+        {"w": torch.cat([_t(sd[f"{att}.{k}_proj.weight"]) for k in "qkv"]).t().contiguous(),
+         "b": torch.cat([_t(sd[f"{att}.{k}_proj.bias"]) for k in "qkv"])},
+        _linear(sd, f"{att}.out_proj"), _port_ln(sd, f"{p}.layer_norm2"),
+        _linear(sd, f"{p}.mlp.fc1"), _linear(sd, f"{p}.mlp.fc2"))
+
+
+def _openai_block(sd: Mapping, q: str) -> dict:
+    """An openai/CLIP ResidualAttentionBlock: attn.in_proj_* is the qkv."""
+    return _block(
+        _port_ln(sd, f"{q}.ln_1"),
+        {"w": _t(sd[f"{q}.attn.in_proj_weight"]).t().contiguous(),
+         "b": _t(sd[f"{q}.attn.in_proj_bias"])},
+        _linear(sd, f"{q}.attn.out_proj"), _port_ln(sd, f"{q}.ln_2"),
+        _linear(sd, f"{q}.mlp.c_fc"), _linear(sd, f"{q}.mlp.c_proj"))
+
+
 def port_hf_clip_vision(sd: Mapping, depth: int) -> dict:
     """A transformers CLIPModel / CLIPVisionModelWithProjection state dict
     (`vision_model.*` and `visual_projection`): q, k and v fused into one
     qkv (`clip.py:274`)."""
     v = "vision_model"
-    blocks = []
-    for i in range(depth):
-        p = f"{v}.encoder.layers.{i}"
-        att = f"{p}.self_attn"
-        blocks.append(_block(
-            _port_ln(sd, f"{p}.layer_norm1"),
-            {"w": torch.cat([_t(sd[f"{att}.{k}_proj.weight"]) for k in "qkv"]).t().contiguous(),
-             "b": torch.cat([_t(sd[f"{att}.{k}_proj.bias"]) for k in "qkv"])},
-            _linear(sd, f"{att}.out_proj"), _port_ln(sd, f"{p}.layer_norm2"),
-            _linear(sd, f"{p}.mlp.fc1"), _linear(sd, f"{p}.mlp.fc2")))
+    blocks = [_hf_block(sd, f"{v}.encoder.layers.{i}") for i in range(depth)]
     return {
         "patch_embed_w": _patch_conv_to_dense(_t(sd[f"{v}.embeddings.patch_embedding.weight"])),
         "class_embedding": _t(sd[f"{v}.embeddings.class_embedding"]).reshape(1, 1, -1),
@@ -201,17 +259,60 @@ def port_openai_clip_vision(sd: Mapping, depth: int, prefix: str = "visual.") ->
     if prefix + "conv1_alpha.weight" in sd:
         params["alpha_embed_w"] = _patch_conv_to_dense(g("conv1_alpha.weight"))
     for i in range(depth):
-        q = f"{prefix}transformer.resblocks.{i}"
-        params["blocks"].append(_block(
-            _port_ln(sd, f"{q}.ln_1"),
-            {"w": _t(sd[f"{q}.attn.in_proj_weight"]).t().contiguous(),
-             "b": _t(sd[f"{q}.attn.in_proj_bias"])},
-            _linear(sd, f"{q}.attn.out_proj"), _port_ln(sd, f"{q}.ln_2"),
-            _linear(sd, f"{q}.mlp.c_fc"), _linear(sd, f"{q}.mlp.c_proj")))
+        params["blocks"].append(_openai_block(sd, f"{prefix}transformer.resblocks.{i}"))
     return params
 
 
+def port_openai_clip_text(sd: Mapping, depth: int, prefix: str = "") -> dict:
+    """An openai/CLIP-layout text tower under `prefix` (token_embedding,
+    positional_embedding, transformer.resblocks.N, ln_final and
+    text_projection, stored (D, proj) already): the layout of OpenAI CLIP
+    and open_clip (no prefix), RegionCLIP ('lang_encoder.'), DenseCLIP
+    ('text_encoder.') and DINO.txt ('text_model.'). KeyError naming the
+    missing keys when the layout differs (`clip.py:302`)."""
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    missing = [k for k in ("token_embedding.weight", "positional_embedding",
+                           "ln_final.weight", "text_projection") if k not in sd]
+    if missing:
+        raise KeyError(f"openai-clip text port (prefix={prefix!r}): missing {missing}; "
+                       f"got e.g. {sorted(sd)[:5]}")
+    return {
+        "token_embedding": _t(sd["token_embedding.weight"]),
+        "pos_embed": _t(sd["positional_embedding"]),
+        "ln_final": _port_ln(sd, "ln_final"),
+        "text_projection": _t(sd["text_projection"]),
+        "blocks": [_openai_block(sd, f"transformer.resblocks.{i}") for i in range(depth)],
+    }
+
+
+def port_hf_clip_text(sd: Mapping, depth: int) -> dict:
+    """A transformers CLIPTextModelWithProjection / CLIPModel state dict
+    (`text_model.*` and `text_projection`, an `nn.Linear` (proj, D), so
+    transposed), q, k and v fused into one qkv (`clip.py:354`)."""
+    e = "text_model.embeddings"
+    return {
+        "token_embedding": _t(sd[f"{e}.token_embedding.weight"]),
+        "pos_embed": _t(sd[f"{e}.position_embedding.weight"]),
+        "blocks": [_hf_block(sd, f"text_model.encoder.layers.{i}") for i in range(depth)],
+        "ln_final": _port_ln(sd, "text_model.final_layer_norm"),
+        "text_projection": _t(sd["text_projection.weight"]).t().contiguous(),
+    }
+
+
 # -------------------------------------------------------------------- init
+
+
+def _ln_leaf(d: int, make) -> dict:
+    return {"scale": make("scale", d), "bias": make("bias", d)}
+
+
+def _blocks(d: int, depth: int, make) -> list:
+    def dense(fan_in, fan_out):
+        return {"w": make("w", fan_in, fan_out), "b": make("b", fan_out)}
+
+    return [_block(_ln_leaf(d, make), dense(d, 3 * d), dense(d, d), _ln_leaf(d, make),
+                   dense(d, 4 * d), dense(4 * d, d)) for _ in range(depth)]
 
 
 def _tree(cfg: ClipVisionConfig, make, pos_tokens: int) -> dict:
@@ -219,28 +320,34 @@ def _tree(cfg: ClipVisionConfig, make, pos_tokens: int) -> dict:
     'w' (a dense weight, fan-in first), 'b', 'scale', 'bias', 'patch',
     'cls', 'pos', 'proj'."""
     d = cfg.width
-
-    def dense(fan_in, fan_out):
-        return {"w": make("w", fan_in, fan_out), "b": make("b", fan_out)}
-
-    def ln():
-        return {"scale": make("scale", d), "bias": make("bias", d)}
-
     return {
         "patch_embed_w": make("patch", cfg.patch_size ** 2 * 3, d),
         "class_embedding": make("cls", 1, 1, d),
         "pos_embed": make("pos", 1, pos_tokens, d),
-        "ln_pre": ln(),
-        "ln_post": ln(),
+        "ln_pre": _ln_leaf(d, make),
+        "ln_post": _ln_leaf(d, make),
         "proj": make("proj", d, cfg.proj_dim),
-        "blocks": [_block(ln(), dense(d, 3 * d), dense(d, d), ln(), dense(d, 4 * d),
-                          dense(4 * d, d)) for _ in range(cfg.depth)],
+        "blocks": _blocks(d, cfg.depth, make),
     }
 
 
-def init_clip_vision(cfg: ClipVisionConfig, generator: torch.Generator, device="cpu") -> dict:
-    """Seeded random f32 weights with `init_clip_vision`'s layout and
-    distributions (`clip.py:370`); the position grid is the config's."""
+def _text_tree(cfg: ClipTextConfig, make) -> dict:
+    """The text tower's tree, leaves made as `_tree` makes them ('tok' the
+    token embedding)."""
+    d = cfg.width
+    return {
+        "token_embedding": make("tok", cfg.vocab_size, d),
+        "pos_embed": make("pos", cfg.context_length, d),
+        "ln_final": _ln_leaf(d, make),
+        "text_projection": make("proj", d, cfg.proj_dim),
+        "blocks": _blocks(d, cfg.depth, make),
+    }
+
+
+def _random_leaf(generator: torch.Generator, device):
+    """`make` of the JAX inits' distributions: dense weights and
+    projections N(0, 1 / fan_in), position embeddings N(0, 0.01^2), the
+    other embeddings N(0, 0.02^2), zero biases, unit LN scales."""
 
     def make(kind, *shape):
         if kind in ("b", "bias"):
@@ -252,7 +359,19 @@ def init_clip_vision(cfg: ClipVisionConfig, generator: torch.Generator, device="
             return x / math.sqrt(shape[0])
         return x * (0.01 if kind == "pos" else 0.02)
 
-    return _tree(cfg, make, cfg.num_tokens)
+    return make
+
+
+def init_clip_vision(cfg: ClipVisionConfig, generator: torch.Generator, device="cpu") -> dict:
+    """Seeded random f32 weights with `init_clip_vision`'s layout and
+    distributions (`clip.py:370`); the position grid is the config's."""
+    return _tree(cfg, _random_leaf(generator, device), cfg.num_tokens)
+
+
+def init_clip_text(cfg: ClipTextConfig, generator: torch.Generator, device="cpu") -> dict:
+    """Seeded random f32 weights with `init_clip_text`'s layout and
+    distributions (`clip.py:409`), drawn from `generator`."""
+    return _text_tree(cfg, _random_leaf(generator, device))
 
 
 def init_alpha_embed(cfg: ClipVisionConfig, generator: torch.Generator,
@@ -272,3 +391,9 @@ def param_template(cfg: ClipVisionConfig, pos_tokens: int, alpha: bool = False) 
     if alpha:
         tree["alpha_embed_w"] = torch.empty(cfg.patch_size ** 2, cfg.width, device="meta")
     return tree
+
+
+def text_param_template(cfg: ClipTextConfig) -> dict:
+    """`init_clip_text`'s tree as empty meta tensors, for checking a loaded
+    text tower against its config."""
+    return _text_tree(cfg, lambda kind, *shape: torch.empty(shape, device="meta"))

@@ -11,13 +11,17 @@ Usage:
   python -m patchioner_tpu_torch.train.cli --data captions.json \
       --features feats.npy --out_dir ./ckpt --epochs 10 --bs 64 \
       [--gaussian_noise 0.016] [--im_proj --bank bank.h5] [--device cpu]
+  python -m patchioner_tpu_torch.train.cli --data captions.json \
+      --encode_on_the_fly --text_encoder dinotxt --text_weights dinotxt.pth \
+      [--talk2dino_weights t2d.pth] ...
 
-Runs on the card unless `--device cpu`. Not ported yet, and refused with
-NotImplementedError: encoding captions with a frozen text tower
-(`--encode_on_the_fly`, `--text_encoder` other than clip,
-`--talk2dino_weights`), which waits for the CLIP text towers; and the
-device mesh (`--dp` or `--mp` above 1), which waits for multi-device
-support.
+Runs on the card unless `--device cpu`. `--encode_on_the_fly` encodes the
+captions once, before training, with a frozen text tower of one of the
+five spaces (`train/text_spaces.py`; a seeded random one drawn at
+`--seed` + 7 without weights), Talk2DINO-projected under
+`--talk2dino_weights`, and sets `--prefix_size` from the features. Not
+ported yet, and refused with NotImplementedError: the device mesh (`--dp`
+or `--mp` above 1), which waits for multi-device support.
 """
 
 from __future__ import annotations
@@ -37,10 +41,8 @@ from patchioner_tpu_torch.models import gpt2 as gpt2_mod
 from patchioner_tpu_torch.models.decap import init_decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 from patchioner_tpu_torch.train import data as data_mod
-from patchioner_tpu_torch.train import decoder_train, packing
+from patchioner_tpu_torch.train import decoder_train, packing, text_spaces
 
-TOWERS_MISSING = ("the port has no frozen text tower yet (the CLIP text towers, "
-                  "ROADMAP queue 1 item 11): pass pre-extracted --features")
 MESH_MISSING = "the port trains on one device (the mesh is ROADMAP queue 1 item 13)"
 
 
@@ -51,14 +53,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--features", default=None,
                    help="pre-extracted text features .npy aligned with --data")
     p.add_argument("--encode_on_the_fly", action="store_true",
-                   help="encode captions with a frozen text tower (not ported yet)")
-    p.add_argument("--text_encoder", default="clip",
-                   help="text-embedding space of --encode_on_the_fly (not ported yet)")
-    p.add_argument("--text_weights", default=None)
-    p.add_argument("--denseclip_config", default="denseclip_segmentation_vitb16")
-    p.add_argument("--clip_text_weights", default=None)
+                   help="encode captions with a frozen text tower instead of --features "
+                        "(reference decoderTraining.py:289-306)")
+    p.add_argument("--text_encoder", default="clip", choices=list(text_spaces.TEXT_SPACE_NAMES),
+                   help="text-embedding space to train in (the reference's --use_open_clip/"
+                        "--use_dinotxt/--use-regionclip/--denseclip_config switches, "
+                        "decoderTraining.py:116-208)")
+    p.add_argument("--text_weights", default=None,
+                   help="checkpoint for the chosen text encoder")
+    p.add_argument("--denseclip_config", default="denseclip_segmentation_vitb16",
+                   help="DenseCLIP geometry name (text context and widths)")
+    p.add_argument("--clip_text_weights", default=None,
+                   help="legacy alias for --text_weights with --text_encoder clip")
     p.add_argument("--talk2dino_weights", default=None,
-                   help="Talk2DINO projection of the encoded captions (not ported yet)")
+                   help="Talk2DINO projection of the encoded captions")
     p.add_argument("--out_dir", default="./decap_ckpt")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--bs", type=int, default=64)
@@ -104,12 +112,23 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """NotImplementedError for the JAX CLI's flags the port lacks."""
-    if (args.encode_on_the_fly or args.text_encoder != "clip"
-            or args.talk2dino_weights):
-        raise NotImplementedError(
-            f"--encode_on_the_fly / --text_encoder / --talk2dino_weights: {TOWERS_MISSING}")
     if (args.dp or 1) > 1 or args.mp > 1:
         raise NotImplementedError(f"--dp {args.dp} --mp {args.mp}: {MESH_MISSING}")
+
+
+def encode_captions(args, captions: list, device) -> np.ndarray:
+    """The captions through the frozen tower of `--text_encoder` (then
+    Talk2DINO under `--talk2dino_weights`), 256 at a time, each tokenized
+    at the tower's own context (13 for DenseCLIP), whatever the decoder's
+    `--max_seq_len`: the reference's in-loop encode (decoderTraining.py:
+    289-306), done once up front as the tower is frozen."""
+    from patchioner_tpu_torch.train.extract_features import encode_corpus, talk2dino_projection
+
+    project = talk2dino_projection(args.talk2dino_weights, device)
+    space = text_spaces.build_text_space(
+        args.text_encoder, args.text_weights or args.clip_text_weights,
+        denseclip_config=args.denseclip_config, seed=args.seed + 7, device=device)
+    return encode_corpus(space, project, captions, 256)
 
 
 def microbatch(a, grad_accum: int):
@@ -137,16 +156,22 @@ def main(argv=None):
     captions, image_ids = data_mod.load_coco_captions(args.data)
     ds = data_mod.CaptionDataset(captions, image_ids, max_len=args.max_seq_len)
     n = len(ds)
-    if not args.features:
-        raise SystemExit(f"--features required: {TOWERS_MISSING}")
-    features = np.load(args.features).astype(np.float32)
-    if len(features) != n:
-        raise ValueError(f"--features holds {len(features)} rows for {n} captions")
+    if args.features:
+        features = np.load(args.features).astype(np.float32)
+        if len(features) != n:
+            raise ValueError(f"--features holds {len(features)} rows for {n} captions")
+        source = "loaded features"
+    elif args.encode_on_the_fly:
+        features = encode_captions(args, captions, device)
+        source = f"{args.text_encoder} space"
+    else:
+        raise SystemExit("--features or --encode_on_the_fly required (see also "
+                         "patchioner_tpu_torch.train.extract_features)")
     if features.shape[1] != args.prefix_size:
         # the reference derives prefix_size from the feature space
-        # (decoderTraining.py:84-105)
+        # (decoderTraining.py:84-105,131-138)
         print(f"Updating prefix_size from {args.prefix_size} to "
-              f"{features.shape[1]} (loaded features)")
+              f"{features.shape[1]} ({source})")
         args.prefix_size = int(features.shape[1])
 
     gcfg = gpt2_mod.GPT2Config(vocab_size=args.vocab_size, n_layer=args.n_layer,
@@ -183,7 +208,9 @@ def main(argv=None):
             raise SystemExit("--im_proj requires --bank")
         from patchioner_tpu_torch.io import memory_bank as mb
 
-        loaded = mb.load_bank(args.bank)
+        # a DINO.txt bank keeps 2048 columns; training projects through
+        # the patch-aligned [:, 1024:], taken at load (im2txtprojection.py:405-406)
+        loaded = mb.load_bank(args.bank, dinotxt_slice=args.text_encoder == "dinotxt")
         if loaded is None:
             raise SystemExit(f"--bank {args.bank}: no such file")
         # the f32 rows, as the JAX step reads them: kernel D's SIMT body

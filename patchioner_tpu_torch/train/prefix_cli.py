@@ -18,8 +18,9 @@ Checkpoints are the port's train states (mapper, optimizer, step) with
 with the config block's `weight_path` pointed at `--out_dir` (the
 reference's torch.save -> torch.load cycle, viecap/training/main.py:100-105
 -> viecap/entrypoint.py:82-96). Runs on the card unless `--device cpu`.
-Not ported yet: encoding the captions on the fly with a CLIP text tower
-(no `--features`), and `--dp` above 1.
+Without `--features`, `--allow_random` trains on the captions' own
+features from a seeded CLIP text tower (ViECap trains text-only,
+viecap/training/main.py:43-48). Not ported yet: `--dp` above 1.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 
 from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.io.checkpoints import CheckpointManager, restore_into
-from patchioner_tpu_torch.train.cli import MESH_MISSING, TOWERS_MISSING, epoch_means
+from patchioner_tpu_torch.train.cli import MESH_MISSING, epoch_means
 
 
 def build_argparser():
@@ -90,6 +91,16 @@ def _tokenize(captions, tokenizer, max_len):
     return toks, mask
 
 
+@torch.no_grad()
+def _text_features(captions: list, seed: int, device) -> np.ndarray:
+    """The captions' own features in the `clip` space, a tower drawn from
+    `seed`, 512 captions at a time."""
+    from patchioner_tpu_torch.train import text_spaces
+
+    space = text_spaces.build_text_space("clip", None, seed=seed, device=device)
+    return space.encode_texts(captions, batch_size=512)
+
+
 def main(argv=None):
     from patchioner_tpu_torch.io import torch_port
     from patchioner_tpu_torch.models import clipcap as clipcap_mod
@@ -103,8 +114,6 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if (args.dp or 1) > 1:
         raise NotImplementedError(f"--dp {args.dp}: {MESH_MISSING}")
-    if not args.features:
-        raise SystemExit(f"--features required: {TOWERS_MISSING}")
     device = entry.resolve_device(args.device)
     captions, _ = data_mod.load_coco_captions(args.data)
     n = len(captions)
@@ -126,9 +135,15 @@ def main(argv=None):
 
     tokenizer = patchioner_mod._get_gpt2_tokenizer(allow_fallback=args.allow_random)
     tokens, mask = _tokenize(captions, tokenizer, args.max_seq_len)
-    features = np.load(args.features).astype(np.float32)
-    if len(features) != n:
-        raise ValueError(f"--features holds {len(features)} rows for {n} captions")
+    if args.features:
+        features = np.load(args.features).astype(np.float32)
+        if len(features) != n:
+            raise ValueError(f"--features holds {len(features)} rows for {n} captions")
+    elif args.allow_random:
+        features = _text_features(captions, args.seed + 7, device)
+    else:
+        raise SystemExit("--features required (or --allow_random for a seeded CLIP text "
+                         "tower)")
     if args.noise is None:
         args.noise = 0.016 if args.model == "viecap" else 0.0
     if args.normalize_prefix:

@@ -357,7 +357,8 @@ def test_data_and_packing_equal_jax():
 
 
 def test_train_modules_import_neither_jax_nor_the_jax_package():
-    mods = ["data", "packing", "decoder_train", "prefix_train", "cli", "prefix_cli"]
+    mods = ["data", "packing", "decoder_train", "prefix_train", "cli", "prefix_cli",
+            "text_spaces", "extract_features"]
     code = ("import sys\n" + "".join(f"import patchioner_tpu_torch.train.{m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'optax', 'orbax', 'patchioner_tpu'))\n"
@@ -461,17 +462,22 @@ def test_checkpoint_manager_keeps_three_and_skips_old_steps(tmp_path):
 
 
 def test_cli_refuses_what_the_port_lacks(tmp_path):
+    """The mesh is refused; a run without features or a tower, an unknown
+    text space and a Talk2DINO path naming no file stop before training."""
     p, fp = _corpus(tmp_path)
     base = ["--data", p, "--out_dir", str(tmp_path / "o"), "--device", "cpu", *CLI_GEOM]
-    for extra, match in ((["--encode_on_the_fly"], "item 11"),
-                         (["--features", fp, "--text_encoder", "dinotxt"], "item 11"),
-                         (["--features", fp, "--talk2dino_weights", "t.pth"], "item 11"),
-                         (["--features", fp, "--dp", "2"], "item 13"),
+    for extra, match in ((["--features", fp, "--dp", "2"], "item 13"),
                          (["--features", fp, "--mp", "2"], "item 13")):
         with pytest.raises(NotImplementedError, match=match):
             cli.main(base + extra)
     with pytest.raises(SystemExit):
         cli.main(base)
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--encode_on_the_fly", "--text_encoder", "bert"])
+    with pytest.raises(FileNotFoundError, match="t.pth"):
+        cli.main(base + ["--encode_on_the_fly", "--talk2dino_weights",
+                         str(tmp_path / "t.pth")])
+    assert not (tmp_path / "o").exists()
 
 
 # -------------------------------------------------- train dir -> from_config
