@@ -213,7 +213,26 @@ then exits non-zero without the final result line:
    `avg_self_attn` of two images held to the CPU under the gate; 12f,
    `ClipScorer` on CLIP ViT-B/16 (the vision tower at 224 px and the clip
    text file): PAC-S and RefPAC-S of 8 captions against 8 images, card
-   against CPU within 1e-4.
+   against CPU within 1e-4;
+13. evaluation (`[eval ...]` lines): a seeded dataset in the published
+   layouts (64 JPEG images of 640 x 480, a Localized-Narratives trace
+   file, a COCO dense file of 1-16 boxes an image, a region-set file and
+   a COCO captions file) through the port's four task evaluators on the
+   flagship (bf16, the 591,753-row bank, built once, its decode graphs
+   warmed) at the grid's batch of 16: trace `patches` (fused) and
+   Gaussian (`forward`); image `cls`, `avg_self_attn` and `patches` at
+   variance 100; dense `patches` (fused), `cls` and the crop-and-caption
+   baseline (`caption_bboxes_type: cls_capt`, 16 images); region-set
+   `patches`. Each run prints its images (boxes) a second in inference and
+   in total, the preprocessing stall's share, A-D's launches and the
+   decode graphs' replays, and asserts 12 launches of A, B and C and one
+   of D a projection, one graph replay each and no capture, and one step a
+   batch on the fused paths; each run's scores go to a CSV. The first
+   trace, `cls` and dense batches equal the direct fused calls on the same
+   pixels and padding; `ExperimentRunner` writes a trace and a dense row,
+   a second run skips both, `ResultsCollector` reads them back;
+   `profile_trace` records kernels; the trace evaluator's rate is printed
+   beside phase 4's served captions/s.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -967,12 +986,14 @@ def _host_ms(fn) -> float:
 
 def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
                     n_requests: int = 2 * B, base: dict = FLAGSHIP_CONFIG,
-                    model=None, warm: bool = False) -> tuple[dict, list]:
+                    model=None, warm: bool = False,
+                    rates: dict | None = None) -> tuple[dict, list]:
     """Serve `n_requests` trace requests through the `base` config (the
     flagship's by default) plus `opts`, on `model` if given (kept) or on
     one built here (dropped); returns the launch counts of the served run
-    and the captions. With `warm`, two new servers serve one batch each,
-    the second after its `warmup()`."""
+    and the captions, and puts the served captions/s into `rates[label]`
+    when given. With `warm`, two new servers serve one batch each, the
+    second after its `warmup()`."""
     from patchioner_tpu_torch import entry
 
     tag = f"[{label}]"
@@ -1007,6 +1028,8 @@ def phase_main_path(seed: int, smi: str, label: str = "main", opts=None,
 
     # steady-state batch time, outside the server
     batch_ms = _host_ms(lambda: model.caption_traces_fused(imgs[:B], pts, valid))
+    if rates is not None:
+        rates[label] = len(captions) / wall
     log(f"{tag} {len(captions) / wall:.3f} captions/s through the server "
         f"({wall:.3f} s for {len(captions)}), mean request latency "
         f"{snap['mean_latency_ms']} ms, batch of {B}: {batch_ms:.1f} ms "
@@ -3061,6 +3084,357 @@ def phase_text(seed: int, smi: str, directory: str) -> tuple[int, int]:
     return served, trained
 
 
+# ------------------------------------------------------------------ phase 13
+
+EVAL_IMAGES = 64
+EVAL_SIZE = (640, 480)  # (width, height): COCO's most common size
+EVAL_BATCH = 16  # configs/evaluation/*.json's batch_size
+# the crop-and-caption baseline runs one encoder pass a 16 crops: its
+# images are cut to one batch, 16 images of up to 16 boxes
+EVAL_CROP_IMAGES = 16
+EVAL_MODEL = "mlp.k"  # the flagship's name in configs/evaluation/main_table.json
+EVAL_KERNELS = {"ln_dense": "A", "qkv_attention": "B", "ln_mlp": "C", "memory_project": "D"}
+
+
+def _eval_caption(rng, lo: int = 6, hi: int = 14) -> str:
+    return " ".join(rng.choice(BANK_WORDS, int(rng.integers(lo, hi))))
+
+
+def _eval_boxes(rng, k: int, size=EVAL_SIZE) -> list:
+    """k integer xyxy boxes of at least 8 px a side inside a `size` image."""
+    w, h = size
+    x1, y1 = rng.integers(0, w - 16, k), rng.integers(0, h - 16, k)
+    x2 = np.minimum(x1 + rng.integers(8, w // 2, k), w - 1)
+    y2 = np.minimum(y1 + rng.integers(8, h // 2, k), h - 1)
+    return np.stack([x1, y1, x2, y2], -1).tolist()
+
+
+def write_eval_dataset(directory: str, seed: int, n: int = EVAL_IMAGES,
+                       size=EVAL_SIZE) -> dict:
+    """The four tasks' seeded data in their published layouts: n JPEG
+    images named by zero-filled COCO id (the loaders' `{id}.jpg`); a
+    Localized-Narratives trace file `{id: {captions, traces}}` whose name
+    holds `coco`, so that ids are zero-filled, 1-2 traces an image of
+    50-400 points (a random walk in [0, 1]); a COCO dense file of 1-16
+    boxes an image, stored xyxy as the loader reads them; a region-set file
+    of 1-4 sets of 1-5 xyxy boxes an image; and a COCO captions file of 1-5
+    references an image. Captions are words of `BANK_WORDS`. Returns the
+    image folder and each file's path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(directory, "images")
+    os.makedirs(folder)
+    ids = list(range(1, n + 1))
+    w, h = size
+    for i in ids:
+        # smooth colour fields plus noise, so that JPEG sees image-like content
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        freq = rng.uniform(0.005, 0.03, (3, 2))
+        field = np.stack([127 + 100 * np.sin(freq[c, 0] * xx + freq[c, 1] * yy + phase[c])
+                          for c in range(3)], -1)
+        pixels = np.clip(field + rng.normal(0, 20, field.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(folder, f"{i:012d}.jpg"), quality=90)
+    images = [{"id": i, "file_name": f"{i:012d}.jpg", "width": w, "height": h} for i in ids]
+
+    def walk(k):
+        steps = rng.normal(0, 0.02, (k, 2))
+        pts = np.clip(rng.uniform(0.1, 0.9, 2) + np.cumsum(steps, 0), 0, 1)
+        return [{"x": float(x), "y": float(y)} for x, y in pts]
+
+    files = {
+        "trace": {str(i): {"captions": [_eval_caption(rng) for _ in range(k)],
+                           "traces": [walk(int(rng.integers(50, 401))) for _ in range(k)]}
+                  for i in ids for k in [int(rng.integers(1, 3))]},
+        "dense": {"images": images, "categories": [], "annotations": [
+            {"id": 100 * i + j, "image_id": i, "caption": _eval_caption(rng, 3, 8), "bbox": box}
+            for i in ids
+            for j, box in enumerate(_eval_boxes(rng, int(rng.integers(1, 17)), size))]},
+        "region_set": {str(i): {f"{_eval_caption(rng)} {s}": _eval_boxes(
+            rng, int(rng.integers(1, 6)), size) for s in range(int(rng.integers(1, 5)))}
+            for i in ids},
+        "image": {"images": images, "categories": [], "annotations": [
+            {"id": 100 * i + j, "image_id": i, "caption": _eval_caption(rng)}
+            for i in ids for j in range(int(rng.integers(1, 6)))]},
+    }
+    paths = {"images": folder}
+    for task, obj in files.items():
+        paths[task] = os.path.join(directory, f"{task}_coco_test.json")
+        with open(paths[task], "w") as f:
+            json.dump(obj, f)
+    return paths
+
+
+def _eval_warmup(model, max_rows: int = EVAL_BATCH * MAX_BOXES) -> int:
+    """Capture the decode graph of every power-of-two row bucket up to
+    `max_rows` (an f32 prefix, as the projection gives) on this thread,
+    which runs the evaluators; the number of buckets."""
+    width = int(model.config["prefix_size"])
+    rows = 1
+    while rows <= max_rows:
+        model.decode(torch.zeros(rows, width, device=model.device))
+        rows *= 2
+    torch.cuda.synchronize()
+    return rows.bit_length() - 1
+
+
+def _eval_run(model, label: str, evaluate, annotations: str, images: str, fused: bool,
+              smi: str, **kw) -> dict:
+    """One evaluator run at `EVAL_BATCH`, every launch counter zeroed
+    first: the result, with its launches, the decode graphs' replays and
+    captures and the wall time. Asserts that no graph was captured, that
+    every encoder pass launched A, B and C once a layer (12 times on the
+    flagship) and every projection D once and replayed one graph, and, for
+    a fused run, one projection a batch."""
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    graphs = model.decode.captures, model.decode.replays
+    t0 = time.perf_counter()
+    result = evaluate(model, annotations, images, batch_size=EVAL_BATCH, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    captured = model.decode.captures - graphs[0]
+    replayed = model.decode.replays - graphs[1]
+    timing = result["timing"]
+    phases = timing["phases"]
+    n_batches = round(phases["inference"]["total_s"] / phases["inference"]["mean_batch_s"])
+    preds = result["predictions"]
+    items = len(preds["annotations"]) if isinstance(preds, dict) else len(preds)
+    unit = {"trace": "traces", "image": "images", "dense": "boxes",
+            "region_set": "box sets"}[label.split()[0]]
+    loop_s = phases["preprocessing"]["total_s"] + phases["inference"]["total_s"]
+    stall = phases["preprocessing"]["total_s"] / loop_s
+    passes = counts["memory_project"]
+    log(f"[eval {label}] {items} {unit} in {n_batches} batches of up to {EVAL_BATCH}: "
+        f"{timing['images_per_sec_inference']:.2f} {unit}/s in inference, "
+        f"{timing['images_per_sec_total']:.2f} in total ({wall:.2f} s wall); preprocessing "
+        f"stall {phases['preprocessing']['total_s']:.3f} s = {100 * stall:.1f}% of the "
+        f"loop's {loop_s:.3f} s; launches " + ", ".join(
+            f"{EVAL_KERNELS[k]} {counts[k]}" for k in EVAL_KERNELS) +
+        f"; decode graphs {replayed} replays, {captured} captures; {smi}")
+    others = {k: v for k, v in counts.items() if k not in EVAL_KERNELS and v}
+    depth = model.vit_cfg.depth
+    want = {k: depth * passes if k != "memory_project" else passes for k in EVAL_KERNELS}
+    if fused and passes != n_batches:
+        raise AssertionError(f"[eval {label}] {passes} projections for {n_batches} fused "
+                             "batches: each batch must be one step")
+    if (passes == 0 or others or {k: counts[k] for k in EVAL_KERNELS} != want
+            or replayed != passes or captured):
+        raise AssertionError(f"[eval {label}] launches {counts}, expected {want} and no other; "
+                             f"{replayed} decode replays for {passes} projections, "
+                             f"{captured} captures (none allowed after the warm-up)")
+    return dict(result=result, counts=counts, wall=wall, stall=stall, batches=n_batches)
+
+
+def _eval_pixels(paths: list, model) -> np.ndarray:
+    """The uint8 batch the evaluators' default loaders give for `paths`."""
+    from PIL import Image
+
+    from patchioner_tpu_torch.utils import transforms
+
+    return np.stack([transforms.preprocess_pil_uint8(Image.open(p), model.resize_dim,
+                                                     model.crop_dim) for p in paths])
+
+
+def _eval_same(label: str, got: list, want: list) -> None:
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"[eval {label}] the harness's captions against the direct call: "
+        f"{same}/{len(want)} equal")
+    if len(got) != len(want) or same != len(want):
+        raise AssertionError(f"[eval {label}] the harness changed captions: {got[:3]} vs "
+                             f"{want[:3]}")
+
+
+def _eval_direct_checks(model, paths: dict, runs: dict) -> None:
+    """The first trace batch, the first `cls` batch and the first dense
+    fused batch, captioned by the fused calls directly on the same uint8
+    pixels, padded points and padded boxes: equal to the harness's."""
+    from patchioner_tpu_torch.eval import dense_captioning, trace_captioning
+    from patchioner_tpu_torch.io.coco import CocoAnnotations
+    from patchioner_tpu_torch.models.patchioner import trace_arrays
+    from patchioner_tpu_torch.utils import geometry
+
+    samples = trace_captioning.load_trace_dataset(paths["trace"], paths["images"])
+    max_pts = max(len(t) for t in samples["traces"])
+    pts, valid = trace_arrays(samples["traces"][:EVAL_BATCH], max_points=max_pts)
+    direct = model.caption_traces_fused(_eval_pixels(samples["img_paths"][:EVAL_BATCH], model),
+                                        pts, valid)
+    _eval_same("trace patches", [p["pred"] for p in
+                                 runs["trace patches"]["result"]["predictions"][:EVAL_BATCH]],
+               [c.strip(" .") for c in direct])
+
+    coco = CocoAnnotations(paths["image"])
+    infos = coco.load_imgs(coco.image_ids[:EVAL_BATCH])
+    files = [os.path.join(paths["images"], i["file_name"]) for i in infos]
+    direct = model.caption_images_fused(_eval_pixels(files, model), caption_from="cls")
+    _eval_same("image cls", [r["pred"] for r in
+                             runs["image cls"]["result"]["predictions"][:EVAL_BATCH]],
+               [c.strip(" .") for c in direct])
+
+    coco = CocoAnnotations(paths["dense"])
+    infos = coco.load_imgs(coco.image_ids[:EVAL_BATCH])
+    files = [os.path.join(paths["images"], i["file_name"]) for i in infos]
+    run_max = max(len(coco.img_to_anns[i]) for i in coco.image_ids)
+    boxes, n_real = [], []
+    for info in infos:
+        anns = coco.img_to_anns[info["id"]]
+        per = [geometry.adjust_bbox_for_transform(
+            info["width"], info["height"], dense_captioning._normalize_xyxy(a["bbox"], info["id"]),
+            model.resize_dim, model.crop_dim) for a in anns]
+        n_real.append(len(per))
+        boxes.append(per + [dense_captioning.DUMMY_BOX] * (run_max - len(per)))
+    direct = model.caption_bboxes_fused(_eval_pixels(files, model),
+                                        np.asarray(boxes, np.float32))
+    want = [c.strip(" .") for row, k in zip(direct, n_real) for c in row[:k]]
+    got = [a["caption"] for a in
+           runs["dense patches"]["result"]["predictions"]["annotations"][:len(want)]]
+    log(f"[eval dense patches] the first batch padded to the run's {run_max} boxes: "
+        f"{EVAL_BATCH * run_max} rows a step")
+    _eval_same("dense patches", got, want)
+
+
+def _eval_runner(model, paths: dict, directory: str) -> None:
+    """`ExperimentRunner` over a two-entry grid (trace and dense on the
+    flagship, 32 samples each), its model built from the flagship's dict
+    config (`model_builder`, here the model built once): the rows written,
+    a second `run()` skipping every row, `ResultsCollector` reading them
+    back."""
+    from patchioner_tpu_torch.eval.collect_results import ResultsCollector
+    from patchioner_tpu_torch.eval.runner import ExperimentRunner
+
+    out = os.path.join(directory, "results")
+    common = dict(image_roots=paths["images"], batch_size=EVAL_BATCH, limit=2 * EVAL_BATCH)
+    grid = {"global_defaults": {"batch_size": EVAL_BATCH, "gaussian_variance": 1.0},
+            "output_directory": out,
+            "experiments": [{"model_name": EVAL_MODEL, "tasks": {
+                "narratives": [dict(common, caption_from="patches",
+                                    annotations_path=paths["trace"])],
+                "dense_captioning": [dict(common, caption_from="patches",
+                                          annotations_path=paths["dense"])]}}]}
+    built = {EVAL_MODEL: model}
+    t0 = time.perf_counter()
+    rows = ExperimentRunner(grid, model_builder=lambda name, settings: built[name]).run()
+    first_s = time.perf_counter() - t0
+    again = ExperimentRunner(grid, model_builder=lambda name, settings: built[name]).run()
+    grid_path = os.path.join(directory, "grid.json")
+    with open(grid_path, "w") as f:
+        json.dump(grid, f)
+    collected = ResultsCollector(out).collect_from_config(grid_path)
+    found = {task: [r["found"] for r in task_rows] for task, task_rows in collected.items()}
+    log(f"[eval runner] {len(rows)} rows written in {first_s:.2f} s ("
+        + "; ".join(f"{r['task']}: " + ", ".join(f"{k} {r[k]}" for k in ("CIDEr", "map_score")
+                                                  if k in r) for r in rows)
+        + f"), a second run() wrote {len(again)}, the collector found {found}")
+    if (len(rows) != 2 or again or
+            found != {"narratives": [True], "dense_captioning": [True]}):
+        raise AssertionError(f"[eval runner] rows {rows}, second run {again}, found {found}")
+
+
+def phase_eval(seed: int, smi: str, directory: str, served_rate: float) -> None:
+    """Phase 13: the four tasks' evaluators on the flagship (bf16, the
+    591,753-row bank, built once) over a seeded 640 x 480 dataset at the
+    grid's batch of 16, after the decode graphs are warmed; the harness's
+    captions held to the direct fused calls; the runner's rows, dedup and
+    collector; the trace evaluator's rate beside phase 4's served one."""
+    from patchioner_tpu_torch.eval import (dense_captioning, harness, image_captioning,
+                                           region_set_captioning, trace_captioning)
+    from patchioner_tpu_torch.eval.densecap_map import densecap_map
+
+    t_phase = time.perf_counter()
+    work = os.path.join(directory, "eval")
+    t0 = time.perf_counter()
+    paths = write_eval_dataset(work, seed + 130)
+    log(f"[eval data] {EVAL_IMAGES} JPEG images of {EVAL_SIZE[0]} x {EVAL_SIZE[1]} and the "
+        f"four tasks' files written in {time.perf_counter() - t0:.1f} s; the decode pool "
+        f"has {harness.decode_pool_width()} threads on {os.cpu_count()} CPUs")
+    model = build_model(FLAGSHIP_CONFIG, seed, "[eval]")
+    t0 = time.perf_counter()
+    buckets = _eval_warmup(model)
+    log(f"[eval] warm-up: {buckets} decode graphs captured in {time.perf_counter() - t0:.2f} s")
+    staged = harness.stage_to_device([np.zeros((2, 4), np.uint8)], model.device)[0]
+    if staged.device.type != "cuda":
+        raise AssertionError(f"[eval] the staged upload landed on {staged.device}")
+
+    trace, image = paths["trace"], paths["image"]
+    dense, region = paths["dense"], paths["region_set"]
+    plan = {
+        "trace patches": (trace_captioning, trace, True, dict(caption_from="patches",
+                                                              measure_flops=True)),
+        "trace gaussian": (trace_captioning, trace, False, dict(
+            caption_from="patches", use_gaussian_weighting=True)),
+        "image cls": (image_captioning, image, True, dict(caption_from="cls")),
+        "image avg_self_attn": (image_captioning, image, True,
+                                dict(caption_from="avg_self_attn")),
+        "image patches": (image_captioning, image, True, dict(
+            caption_from="patches", use_gaussian_weighting=True, gaussian_variance=100)),
+        "dense patches": (dense_captioning, dense, True, dict(caption_from="patches")),
+        "dense cls": (dense_captioning, dense, False, dict(caption_from="cls")),
+        "dense cls_capt": (dense_captioning, dense, False, dict(
+            caption_bboxes_type="cls_capt", limit=EVAL_CROP_IMAGES)),
+        "region_set patches": (region_set_captioning, region, True,
+                               dict(caption_from="patches")),
+    }
+    csv_dir = os.path.join(work, "csv")
+    runs = {}
+    for label, (mod, annotations, fused, kw) in plan.items():
+        runs[label] = run = _eval_run(model, label, mod.evaluate, annotations, paths["images"],
+                                      fused, smi, **kw)
+        task = label.split()[0]
+        row = {"model": EVAL_MODEL, "task": task, "variant": label}
+        t0 = time.perf_counter()
+        if task == "dense":
+            anns = run["result"]["predictions"]["annotations"]
+            scores = {"map_score": densecap_map(
+                [{k: a[k] for k in ("image_id", "bbox", "caption", "score")} for a in anns],
+                [{"image_id": a["image_id"], "bbox": a["bbox"],
+                  "caption": a.get("gt_caption") or ""} for a in anns])["map"]}
+            harness.append_results_csv(
+                os.path.join(csv_dir, "dense.csv"),
+                dict(row, **{k: f"{v:.4f}" for k, v in scores.items()}), list(row))
+        else:
+            scores = mod.compute_scores(run["result"], csv_path=os.path.join(
+                csv_dir, f"{task}.csv"), config_row=row)
+        log(f"[eval {label}] scores in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{k} {scores[k]:.4f}" for k in ("Bleu_4", "METEOR", "CIDEr", "SPICE", "map_score")
+            if k in scores))
+    flops = runs["trace patches"]["result"]["flops_per_image"]
+    log(f"[eval trace patches] the first batch's encoder call: {flops / 1e9:.1f} GFLOP counted "
+        f"on the plain path ({flops / 1e9 / EVAL_BATCH:.1f} GFLOP an image)")
+    if not flops:
+        raise AssertionError("[eval] the encoder's FLOP count read 0 or None")
+    for name in os.listdir(csv_dir):
+        with open(os.path.join(csv_dir, name)) as f:
+            n_rows = sum(1 for _ in f) - 1
+        log(f"[eval csv] {name}: {n_rows} rows")
+
+    _eval_direct_checks(model, paths, runs)
+    _eval_runner(model, paths, work)
+
+    with harness.profile_trace(os.path.join(work, "profile")) as prof:
+        model.caption_images_fused(np.zeros((EVAL_BATCH, IMG, IMG, 3), np.uint8))
+        torch.cuda.synchronize()
+    with open(prof.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[eval profile] profile_trace wrote {len(events)} events, {kernels} of them kernels")
+    if not kernels:
+        raise AssertionError("[eval profile] the trace holds no kernel")
+
+    rate = runs["trace patches"]["result"]["timing"]["images_per_sec_inference"]
+    log(f"[eval] trace evaluator {rate:.3f} images/s in inference against phase 4's "
+        f"{served_rate:.3f} captions/s through the server (ratio {rate / served_rate:.3f}, "
+        f"reported, not asserted); {smi}")
+    del model
+    torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(work)
+    log(f"[eval] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3083,7 +3457,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-12; the kernels' rows of the JSON summary."""
+    """Phases 2-13; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -3099,7 +3473,8 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     launches = {"ln_mlp_w8": (mlp.fused_ln_mlp_w8.launches,
                               "kernels (no model path reaches I)")}
     flagship = build_model(FLAGSHIP_CONFIG, seed, "[main]")
-    counts, captions = phase_main_path(seed, smi, model=flagship)
+    served = {}
+    counts, captions = phase_main_path(seed, smi, model=flagship, rates=served)
     launches.update({k: (counts[k], "main") for k in (
         "ln_dense", "qkv_attention", "ln_mlp", "memory_project")})
     # phase 4e: the other spatial queries on the same model; each kind's
@@ -3155,6 +3530,8 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 11")
     text_served, text_trained = phase_text(seed, smi, scratch)
     elapsed("phase 12")
+    phase_eval(seed, smi, scratch, served["main"])
+    elapsed("phase 13")
     launches["memory_project"] = (
         launches["memory_project"][0],
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "

@@ -27,10 +27,11 @@ model, or one without a bank, captions through `forward`
 the DINOv2 and DenseCLIP towers' attention is read: elsewhere attention
 boxes and tracing pool uniformly and `get_avg_self_attn_capt` raises
 ValueError. AlphaCLIP captions boxes and traces by one encoder pass a
-region, the region as its alpha mask (`_forward_alphaclip_regions`). The
+region, the region as its alpha mask (`_forward_alphaclip_regions`).
+`caption_bboxes_type` routes to `caption_bboxes`, the crop-and-caption
+baseline (PIL images in, one `forward` pass a chunk of crops). The
 context cleaner (`cleaning_type`), double-DINO boxes,
-`caption_bboxes_type`, `get_attn_heads_capt` and `return_n_best_sims`
-raise NotImplementedError.
+`get_attn_heads_capt` and `return_n_best_sims` raise NotImplementedError.
 
 `from_config` takes the reference YAML schema (a path or a dict) and
 loads what the reference's `from_config` loads for this subset
@@ -522,6 +523,22 @@ def uses_fallback_tokenizer(model) -> bool:
                           _FallbackWordTokenizer) for name in ("viecap", "clipcap"))
 
 
+def require_parity_tokenizer(model, allow_fallback: bool, context: str) -> None:
+    """Refuse a result-producing run whose captions would come from the
+    whitespace fallback tokenizer: the eval CLI and `ExperimentRunner` call
+    it once the model is built; `allow_fallback` lets the run go on. Twin
+    of `patchioner.py:138`."""
+    if allow_fallback or not uses_fallback_tokenizer(model):
+        return
+    raise RuntimeError(
+        f"{context}: this model decodes captions through GPT-2, but no "
+        "GPT-2 BPE vocab is available locally, so caption strings would "
+        "come from the whitespace FALLBACK tokenizer (not parity with the "
+        "reference). Set $GPT2_BPE_DIR to a directory containing "
+        "vocab.json + merges.txt (or populate the HF cache), or pass "
+        "--allow-tokenizer-fallback to run anyway.")
+
+
 # the entity vocabularies: the text file and the stem of the embedding
 # pickle (`{stem}_{suffix}[_with_ensemble].pickle`) of each
 _ENTITY_FILES = {
@@ -764,20 +781,26 @@ def _build_clipcap(cd: dict, dino_model, prefix_size: int, generator: torch.Gene
         return clipcap_mod.ClipCap(cfg, gcfg, gpt, mapper, tokenizer, width, device)
 
 
-def _traces_to_arrays(traces, device):
+def trace_arrays(traces, max_points: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:
     """Traces in the reference's format (a list a image of {'x', 'y'} point
-    dicts, or of (x, y) pairs) -> (B, P, 2) points padded to the longest and
-    a (B, P) valid mask on `device`. Twin of `patchioner.py:303`."""
+    dicts, or of (x, y) pairs) -> (B, P, 2) f32 points and a (B, P) valid
+    mask, P = `max_points` (a longer trace is cut to it), else the longest
+    trace. Twin of `_traces_to_arrays` at `patchioner.py:303`, on the host."""
     seqs = [[(float(p["x"]), float(p["y"])) if isinstance(p, dict)
              else (float(p[0]), float(p[1])) for p in tr] for tr in traces]
-    p = max((len(s) for s in seqs), default=1) or 1
+    p = max_points or max((len(s) for s in seqs), default=1) or 1
     out = np.zeros((len(seqs), p, 2), np.float32)
     valid = np.zeros((len(seqs), p), np.float32)
     for i, s in enumerate(seqs):
         if s:
-            out[i, : len(s)] = s
+            out[i, : len(s)] = s[:p]
             valid[i, : len(s)] = 1.0
-    return torch.from_numpy(out).to(device), torch.from_numpy(valid).to(device)
+    return out, valid
+
+
+def _traces_to_arrays(traces, device):
+    """`trace_arrays` padded to the longest trace, on `device`."""
+    return tuple(torch.from_numpy(a).to(device) for a in trace_arrays(traces))
 
 
 class Patchioner:
@@ -1035,7 +1058,8 @@ class Patchioner:
         step = entry.make_caption_step(
             self.vit_cfg, self.gpt2_cfg, self.bank.num_real,
             n_steps=self.entry_length, normalize=self.normalize, pool=pool)
-        args = [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        args = [a.to(self.device, torch.float32) if torch.is_tensor(a) else
+                torch.as_tensor(np.asarray(a, np.float32), device=self.device)
                 for a in pool_args]
         tokens, _ = step(self.state(), self.pixels_to_device(imgs), *args)
         return [self.tokenizer.decode_caption(row) for row in tokens.cpu().numpy()]
@@ -1179,18 +1203,22 @@ class Patchioner:
         `[x1, y1, w, h]` boxes; uniform, Gaussian or attention-map weights),
         `set_controllable_capts` (one caption per box set) and `trace_capts`
         (a list of traces, or padded (points, valid)); with `compute_scores`
-        each caption list but the last two has a `_scores` twin. Flags not
-        ported raise NotImplementedError naming themselves."""
+        each caption list but the last two has a `_scores` twin.
+        `caption_bboxes_type` returns `caption_bboxes`' result on PIL
+        images. Flags not ported raise NotImplementedError naming
+        themselves."""
         assert clean_from in ("cls", "avg_self_attn")
         assert cleaning_type in (None, "orthogonal_projection", "contrastive_mask")
         refused = {"cleaning_type": cleaning_type is not None,
                    "double_DINO_for_bboxes": double_DINO_for_bboxes,
-                   "caption_bboxes_type": caption_bboxes_type is not None,
                    "get_attn_heads_capt": get_attn_heads_capt,
                    "return_n_best_sims": return_n_best_sims is not None}
         for flag, asked in refused.items():
             if asked:
                 raise NotImplementedError(f"forward({flag}=...) is not ported yet")
+        if caption_bboxes_type is not None:
+            return self.caption_bboxes(imgs, bboxes, capt_type=caption_bboxes_type,
+                                       compute_scores=compute_scores)
         if self.backbone_type == "AlphaClip" and (bboxes is not None or traces is not None):
             return self._forward_alphaclip_regions(
                 imgs, bboxes, traces, get_controllable_capts=get_controllable_capts,
@@ -1259,6 +1287,37 @@ class Patchioner:
             outs["trace_capts"] = self.caption_tokens(rp.trace_pool(
                 patch_tokens, grid, self_attn if use_attention_tracing else None))
         return outs
+
+    @torch.no_grad()
+    def caption_bboxes(self, imgs, bboxes, capt_type: str = "cls_capt",
+                       crop_boxes: bool = False, compute_scores: bool = False) -> dict:
+        """The crop-and-caption baseline: crop each (B, NB, 4) pixel
+        `[x1, y1, w, h]` box out of its PIL image in `imgs`, bring the crop
+        to the model's input (`utils.transforms.preprocess_pil_uint8`, a
+        stretch unless `crop_boxes`), and caption the crops through
+        `forward` (`capt_type` 'cls_capt' or 'avg_self_attn_capt') in
+        chunks of B; `bbox_capts` (and `bbox_scores`) nested B x NB. Twin
+        of `patchioner.py:2449`."""
+        from patchioner_tpu_torch.utils import transforms
+
+        bboxes = np.asarray(bboxes)
+        bs, n_boxes = bboxes.shape[0], bboxes.shape[1]
+        crops = np.stack([
+            transforms.preprocess_pil_uint8(img.crop((x1, y1, x1 + w, y1 + h)),
+                                            self.resize_dim, self.crop_dim, crop=crop_boxes)
+            for img, img_boxes in zip(imgs, bboxes) for x1, y1, w, h in img_boxes.tolist()])
+        capts, scores = [], []
+        for i in range(0, len(crops), bs):
+            outs = self.forward(crops[i:i + bs], get_cls_capt=capt_type == "cls_capt",
+                                get_avg_self_attn_capt=capt_type == "avg_self_attn_capt",
+                                compute_scores=compute_scores)
+            capts.extend(outs[capt_type])
+            if compute_scores:
+                scores.extend(outs[f"{capt_type}_scores"])
+        ret = {"bbox_capts": [capts[i * n_boxes:(i + 1) * n_boxes] for i in range(bs)]}
+        if compute_scores:
+            ret["bbox_scores"] = [scores[i * n_boxes:(i + 1) * n_boxes] for i in range(bs)]
+        return ret
 
     @torch.no_grad()
     def _forward_alphaclip_regions(self, imgs, bboxes=None, traces=None, *,

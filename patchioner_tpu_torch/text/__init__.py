@@ -1,1 +1,2 @@
-"""Host-side text: the CLIP BPE tokenizer."""
+"""Host-side text: the CLIP and GPT-2 BPE tokenizers and the Porter
+stemmer."""

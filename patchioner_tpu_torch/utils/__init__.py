@@ -1,1 +1,2 @@
-"""Host-side helpers: image preprocessing."""
+"""Host-side helpers: image preprocessing, box geometry, `.env` loading and
+the PAC-S renderings."""

@@ -168,7 +168,6 @@ def test_forward_equals_jax(models, imgs, kind, flags):
 
 @pytest.mark.parametrize("flag", [dict(cleaning_type="orthogonal_projection"),
                                   dict(double_DINO_for_bboxes=True, bboxes=BOXES),
-                                  dict(caption_bboxes_type="avg", bboxes=BOXES),
                                   dict(get_attn_heads_capt=True),
                                   dict(return_n_best_sims=3, bboxes=BOXES)])
 def test_flags_not_ported_raise(models, imgs, flag):

@@ -862,3 +862,40 @@ def test_decoder_train_step_on_the_card_matches_the_cpu(cuda, packed):
     for g, r in zip(states["cuda"].leaves, states["cpu"].leaves):
         _f32_gate(g, r)
     assert mp.memory_project_streamed.launches - before == (0 if packed else 2)
+
+
+def test_eval_staging_lands_on_the_card(cuda):
+    from patchioner_tpu_torch.eval import harness
+
+    arrays = [np.arange(2 * 56 * 56 * 3, dtype=np.uint8).reshape(2, 56, 56, 3),
+              np.random.default_rng(0).uniform(0, 1, (2, 9, 2)).astype(np.float32)]
+    staged = harness.stage_to_device(arrays, cuda)
+    assert [t.device.type for t in staged] == ["cuda", "cuda"]
+    assert all(np.array_equal(t.cpu().numpy(), a) for t, a in zip(staged, arrays))
+
+
+def test_eval_harness_on_the_card_equals_the_direct_calls(cuda, tmp_path):
+    # chip_smoke's phase 13 on 8 seeded images of 320 x 240, the flagship
+    # cut to 2 layers (bf16, a 4096-row bank): the trace, cls and dense
+    # evaluators, each encoder pass's A-C launches, one D and one decode
+    # replay a batch, no graph captured after the warm-up, and the first
+    # batch of each equal to the direct fused calls on the same pixels and
+    # padding
+    import chip_smoke
+    from patchioner_tpu_torch.eval import dense_captioning, image_captioning, trace_captioning
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    config = dict(chip_smoke.FLAGSHIP_CONFIG, dino_geometry={"depth": 2})
+    model = Patchioner.from_config(config, allow_missing_weights=True, random_bank_size=4096,
+                                   dtype=torch.bfloat16, device="cuda")
+    paths = chip_smoke.write_eval_dataset(str(tmp_path), 3, n=8, size=(320, 240))
+    chip_smoke._eval_warmup(model)
+    runs = {}
+    for label, mod, task, kw in (
+            ("trace patches", trace_captioning, "trace", {"caption_from": "patches"}),
+            ("image cls", image_captioning, "image", {"caption_from": "cls"}),
+            ("dense patches", dense_captioning, "dense", {"caption_from": "patches"})):
+        runs[label] = chip_smoke._eval_run(model, label, mod.evaluate, paths[task],
+                                           paths["images"], True, "card test", **kw)
+        assert runs[label]["counts"]["ln_dense"] == 2 * runs[label]["batches"]
+    chip_smoke._eval_direct_checks(model, paths, runs)
