@@ -42,7 +42,10 @@ then exits non-zero without the final result line:
    and 128 rows against the CLIP DeCap configs' 500,000 x 512 bank
    (`memory_project_clip`, `memory_project_clip_128`), each with its bound
    and SDPA's time, printed with their bank rate, not rows of the JSON
-   summary.
+   summary; so are A, B and C at ViT-L's shapes (DINO.txt's tower: 8 x
+   1374 rows, D = 1024, 16 heads, hidden 4096; C's f32 body in its
+   32-column instantiation) and D at 8 and 128 rows against a 500,000 x
+   1024 bank (`*_vitl`).
    No model path reaches I: its launches are this phase's;
 4. main path: ViT-B/14-reg at 518 px, the 591,753-row bank and the 30-step
    DeCap decode behind the port's `CaptionServer`, seeded random weights in
@@ -232,7 +235,30 @@ then exits non-zero without the final result line:
    pixels and padding; `ExperimentRunner` writes a trace and a dense row,
    a second run skips both, `ResultsCollector` reads them back;
    `profile_trace` records kernels; the trace evaluator's rate is printed
-   beside phase 4's served captions/s.
+   beside phase 4's served captions/s;
+14. the rest of the backbone family, on seeded files in the published
+   layouts (`write_backbone_checkpoints`), bf16, each config's random
+   bank: 14a, RegionCLIP's RN50 at 512 px
+   (`configs/regionclip_resnet50_p32_512.k.yaml`) from a detection
+   checkpoint whose 224 px attention pool is drawn anew (asserted equal
+   to the CPU generator's draw), DeCap with prefix 1024 over 500,000 x
+   1024: 8 trace, 8 box and 8 whole-image requests through `forward`, D
+   once a batch, a whole-image batch's split, the crop-and-caption
+   baseline (8 PIL images of 640 x 480, 4 boxes each),
+   `analyze_feature_compatibility` (D four times), f32 card against CPU
+   (cuDNN's TF32 off); 14b, ProxyCLIP B/16 with DINOv2 B/14-reg at 518 px
+   (`configs/proxyclip_b16_dinov2.k.yaml`, its CLIP and DINOv2 files) over
+   500,000 x 512: 8 trace and 8 box requests, A, B and C 12 launches a
+   batch, a whole-image request raising through the server as in JAX,
+   the patch mean's captions and split, f32 card against CPU on mosaic
+   images whose affinity keeps at least 10% of every row off its
+   diagonal (the VFM's tokens, the affinity's masks compared, the tokens
+   and prefix of the rows whose mask agrees), and `configs/proxyclip_b16.k.yaml` (the `dino` VFM at 296 px) f32
+   only; 14c, DINO.txt's ViT-L/14-reg at 518 px (`configs/dinotxt.yaml`,
+   its checkpoint) over 591,753 x 1024: trace, box, region-set and
+   whole-image requests on the fused steps, A, B and C 24 launches and D
+   one a batch, a whole-image batch's split, f32 card against CPU at full
+   width and 4 layers.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -310,7 +336,8 @@ VIECAP_CONFIG = {
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROJECTIONS = {"memory_project", "memory_project_int8", "memory_project_giant",
                "memory_project_int8_giant", "memory_project_128", "memory_project_int8_128",
-               "memory_project_clip", "memory_project_clip_128"}
+               "memory_project_clip", "memory_project_clip_128", "memory_project_vitl",
+               "memory_project_vitl_128"}
 W8_F32_TOLERANCE = 1e-3
 # The decode graph replays the very launches of the eager loop, so its
 # scores should equal the loop's; any difference is a bug, and these
@@ -417,6 +444,34 @@ CLIP_CONFIGS["decap_B16_resize"] = dict(CLIP_CONFIGS["decap_B16"], resize_dim=59
 OPENCLIP_CONFIG = dict(CLIP_CONFIGS["decap_B16"], use_open_clip=True, dino_model="ViT-B/16")
 CLIP_BANK_ROWS, CLIP_D = 500000, 512  # the CLIP DeCap configs' support memory
 CLIP_TOKENS = (592 // 16) ** 2 + 1  # ViT-B/16 at 592 px
+
+# the shipped configs of the rest of the backbone family phase 14 drives,
+# as dicts; tests/test_torch_backbone_family.py holds each against its file
+REGIONCLIP_CONFIG = {
+    "decap_weights": "weights/decap/regionclip/coco_karpathy-009.pt", "prefix_size": 1024,
+    "support_memory_size": 500000, "dino_model": "RN50_regionclip", "normalize": False,
+    "resize_dim": 512, "crop_dim": 512, "clip_model_name": "RegionCLIP",
+    "use_talk2dino_project": False, "projection_type": "coco",
+    "regionclip_config": {"checkpoint": "weights/regionclip/regionclip_pretrained-cc_rn50.pth",
+                          "embed_dim": 1024, "patch_size": 32}}
+_PROXYCLIP = {"prefix_size": 512, "support_memory_size": 500000,
+              "proxyclip_clipmodel": "ViT-B/16", "normalize": False,
+              "use_talk2dino_project": False, "clip_model_name": "ViT-B/16",
+              "projection_type": "coco"}
+PROXYCLIP_CONFIGS = {
+    "proxyclip_b16_dinov2": dict(
+        _PROXYCLIP, decap_weights="weights/decap/clip-b16-ksplits/coco_karpathy-009.pt",
+        proxyclip_vfm="dinov2", clip_weights="weights/clip/vit-b16-openai.pt",
+        dino_weights="weights/dinov2/dinov2_vitb14_reg.pth", resize_dim=518, crop_dim=518),
+    "proxyclip_b16": dict(_PROXYCLIP, decap_weights="weights/decap/clip-b16/coco_prefix-009.pt",
+                          proxyclip_vfm="dino", resize_dim=296, crop_dim=296),
+}
+DINOTXT_CONFIG = {"decap_weights": "weights/decap/talkingdinotxt/coco_prefix-009.pt",
+                  "prefix_size": 1024, "support_memory_size": 591753,
+                  "dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "normalize": True,
+                  "use_talk2dino_project": False, "projection_type": "coco"}
+LD, LH, LHEADS = 1024, 4096, 16  # ViT-L's width, MLP hidden and heads (DINO.txt)
+LBANK_ROWS = 500000  # RegionCLIP's support memory, 1024 wide
 
 # each further attention configuration of the encoder (phase 4b, 5b)
 CONFIGS = {
@@ -636,6 +691,16 @@ def _kernel_cases(dtype, gen):
     # D's library calls: the unit rows made once here, outside the timer
     unit, gunit = _unit_rows(bank, dtype), _unit_rows(gbank, dtype)
     cunit = _unit_rows(cbank, dtype)
+    # A, B and C at ViT-L's shapes (DINO.txt's tower: D = 1024, 16 heads of
+    # 64, hidden 4096), and D over RegionCLIP's 500,000 x 1024 bank
+    xl = randn(B, N, LD)
+    gl, bgl, lsl = 1 + randn(LD, scale=0.1), randn(LD, scale=0.1), 1 + randn(LD, scale=0.1)
+    ln_dense_l = (xl, gl, bgl, randn(LD, 3 * LD, scale=LD ** -0.5), randn(3 * LD, scale=0.1))
+    qkvl = randn(B, N, 3 * LD)
+    mlp_l = (xl, gl, bgl, randn(LD, LH, scale=LD ** -0.5), randn(LH, scale=0.1),
+             randn(LH, LD, scale=LH ** -0.5), randn(LD, scale=0.1), lsl)
+    lbank = mp.prepare_bank(torch.randn(LBANK_ROWS, LD, generator=gen, device=dev), dtype=dtype)
+    lunit = _unit_rows(lbank, dtype)
 
     attn_flops = 4 * B * HEADS * N * N * HD  # QK^T and PV
     gattn_flops = 4 * B * GHEADS * N * N * HD
@@ -745,14 +810,35 @@ def _kernel_cases(dtype, gen):
          lambda: mp.memory_project_int8(bfeats, qbank, normalize=True),
          lambda: mp.memory_project_int8_plain(bfeats, qbank, normalize=True), None,
          4 * B * MAX_BOXES * nb * D, _nbytes(bfeats, *qbank[:-1], bfeats)),
+        ("ln_dense_vitl", "patchioner_tpu_torch/csrc/ln_dense.cu",
+         "patchioner_tpu/ops/mlp.py:188",
+         lambda: mlp.fused_ln_dense(*ln_dense_l, eps=eps),
+         lambda: mlp.ln_dense_plain(*ln_dense_l, eps=eps), None,
+         2 * rows * LD * 3 * LD, _nbytes(*ln_dense_l, qkvl)),
+        ("qkv_attention_vitl", "patchioner_tpu_torch/csrc/qkv_attention.cu",
+         "patchioner_tpu/ops/attention.py:220",
+         lambda: attention.fused_qkv_attention(qkvl, num_heads=LHEADS, scale=scale),
+         lambda: attention.qkv_attention_plain(qkvl, num_heads=LHEADS, scale=scale),
+         _sdpa(*attention.split_heads(qkvl, LHEADS), scale),
+         4 * B * LHEADS * N * N * HD, _nbytes(qkvl, xl)),
+        ("ln_mlp_vitl", "patchioner_tpu_torch/csrc/ln_mlp.cu",
+         "patchioner_tpu/ops/mlp.py:114",
+         lambda: mlp.fused_ln_mlp(*mlp_l, eps=eps),
+         lambda: mlp.ln_mlp_plain(*mlp_l, eps=eps), None,
+         4 * rows * LD * LH, _nbytes(*mlp_l, xl)),
     ] + [
         (name, "patchioner_tpu_torch/csrc/memory_projection.cu",
          "patchioner_tpu/ops/memory_projection.py:521",
-         lambda f=f: mp.memory_project_streamed(f, cbank, normalize=True),
-         lambda f=f: mp.memory_project_plain(f, cbank, normalize=True),
-         _bank_sdpa(f, cbank, cunit, dtype), 4 * f.shape[0] * CLIP_BANK_ROWS * CLIP_D,
-         _nbytes(f, cbank.rows[:CLIP_BANK_ROWS], cbank.inv_norm[:CLIP_BANK_ROWS], f))
-        for name, f in (("memory_project_clip", cfeats), ("memory_project_clip_128", cbfeats))]
+         lambda f=f, k=k: mp.memory_project_streamed(f, k, normalize=True),
+         lambda f=f, k=k: mp.memory_project_plain(f, k, normalize=True),
+         _bank_sdpa(f, k, u, dtype), 4 * f.shape[0] * k.num_real * f.shape[1],
+         _nbytes(f, k.rows[:k.num_real], k.inv_norm[:k.num_real], f))
+        for name, f, k, u in (
+            ("memory_project_clip", cfeats, cbank, cunit),
+            ("memory_project_clip_128", cbfeats, cbank, cunit),
+            ("memory_project_vitl", torch.randn(B, LD, generator=gen, device=dev), lbank, lunit),
+            ("memory_project_vitl_128", torch.randn(B * MAX_BOXES, LD, generator=gen, device=dev),
+             lbank, lunit))]
 
 
 def phase_kernels(seed: int) -> dict:
@@ -857,22 +943,26 @@ def _wrappers() -> dict:
 
 
 def expected_launches(model, batches: int) -> dict:
-    """Launches of every kernel for `batches` batches of `model`: on the
-    DINOv2 tower A each layer, C (G for ViT-g's SwiGLU FFN) each layer, the
-    attention kernel `attn_impl` selects each layer (a CLIP tower is plain
-    PyTorch: none); D (H over an int8 bank) once a batch when the
-    configuration has a support memory; every other kernel never."""
-    config, depth = model.config, model.vit_cfg.depth
-    dino = model.backbone_type == "DINO"
-    impl = config.get("attn_impl", "xla")
-    layer = {"ln_dense", "ln_swiglu" if "vitg" in config["dino_model"] else "ln_mlp"}
-    if impl in ("xla", "fusedqkv"):
-        layer.add("qkv_attention")
-        if config.get("proj_fused"):
-            layer.add("dense_residual")
-    layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
-              "flash1p": {"flash_attention_1pass"}}.get(impl, set())
-    counts = {name: depth * batches if dino and name in layer else 0 for name in _wrappers()}
+    """Launches of every kernel for `batches` batches of `model`: on a
+    DINOv2 tower (ProxyCLIP's VFM too) A each layer, C (G for ViT-g's
+    SwiGLU FFN) each layer, the attention kernel `attn_impl` selects each
+    layer (a CLIP tower and RegionCLIP's ResNet are plain PyTorch: none);
+    D (H over an int8 bank) once a batch when the configuration has a
+    support memory; every other kernel never."""
+    config = model.config
+    kind = model.backbone_type
+    cfg = model.vit_cfg.vfm if kind == "ProxyCLIP" else model.vit_cfg
+    counts = dict.fromkeys(_wrappers(), 0)
+    if kind in ("DINO", "ProxyCLIP"):
+        impl = cfg.attn_impl
+        layer = {"ln_dense", "ln_swiglu" if cfg.ffn == "swiglu" else "ln_mlp"}
+        if impl in ("xla", "fusedqkv"):
+            layer.add("qkv_attention")
+            if cfg.proj_fused:
+                layer.add("dense_residual")
+        layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
+                  "flash1p": {"flash_attention_1pass"}}.get(impl, set())
+        counts.update({name: cfg.depth * batches for name in layer})
     if int(config.get("support_memory_size", 0)) > 0:  # a ViECap model has no bank
         counts["memory_project_int8" if config.get("memory_bank_int8")
                else "memory_project"] = batches
@@ -909,17 +999,33 @@ def build_model(config: dict, seed: int, tag: str):
     torch.cuda.synchronize()
     bank = ("none" if model.bank is None else f"{model.bank.num_real} x "
             f"{model.bank.rows.shape[1]} {str(model.bank.rows.dtype)[6:]}")
-    cfg = model.vit_cfg
-    tower = (f"{cfg.depth} layers x D={cfg.embed_dim} ({cfg.ffn} FFN {cfg.ffn_hidden})"
-             if model.backbone_type == "DINO" else
-             f"{model.backbone_type} tower, {cfg.depth} layers x D={cfg.width}, {cfg.heads} "
-             f"heads, patch {cfg.patch_size}, projection {cfg.proj_dim}")
     log(f"{tag} {config.get('dino_model')}: model built in "
-        f"{time.perf_counter() - t0:.1f} s: {tower} at "
-        f"{model.crop_dim} px ({cfg.num_tokens} tokens), bank {bank}, decoder "
+        f"{time.perf_counter() - t0:.1f} s: {_tower(model)} at "
+        f"{model.crop_dim} px, bank {bank}, decoder "
         f"{model.gpt2_cfg.n_layer}L/{model.gpt2_cfg.n_head}H/"
         f"{model.gpt2_cfg.n_embd}, vocab {model.gpt2_cfg.vocab_size}")
     return model
+
+
+def _tower(model) -> str:
+    """The backbone's geometry, for the logs."""
+    cfg, kind = model.vit_cfg, model.backbone_type
+
+    def vit_desc(c):
+        return (f"{c.depth} layers x D={c.embed_dim}, {c.num_heads} heads ({c.ffn} FFN "
+                f"{c.ffn_hidden}), {c.num_tokens} tokens")
+
+    if kind == "DINO":
+        return vit_desc(cfg)
+    if kind == "RegionCLIP":
+        return (f"RegionCLIP ResNet, layers {cfg.layers} x width {cfg.width}, pool of "
+                f"{cfg.heads} heads over {cfg.num_tokens} tokens to {cfg.output_dim}")
+    c = cfg.clip if kind == "ProxyCLIP" else cfg
+    clip_desc = (f"{c.depth} layers x D={c.width}, {c.heads} heads, patch {c.patch_size}, "
+                 f"projection {c.proj_dim}")
+    if kind == "ProxyCLIP":
+        return f"ProxyCLIP: CLIP {clip_desc}; VFM {vit_desc(cfg.vfm)}"
+    return f"{kind} tower, {clip_desc}, {c.num_tokens} tokens"
 
 
 def _check_graphs(decoder, before: tuple, batches: int, tag: str) -> None:
@@ -1565,13 +1671,15 @@ def _search_calls(params, cfg, embeds, eos, max_len: int) -> dict:
 
 
 def _kind_requests(n: int, seed: int, img: int = IMG) -> tuple[np.ndarray, dict]:
-    """n seeded images of img px and, for each request kind that goes
-    through `forward` here, their (image, submit keywords) requests: a
-    trace, 1-16 boxes, or the whole image."""
+    """n seeded images of img px and, for each request kind, their (image,
+    submit keywords) requests: a trace, 1-16 boxes, a set of 1-16 boxes,
+    or the whole image."""
     imgs, traces = _requests(n, seed, img)
     sets = _query_boxes(n, seed + 1)
     return imgs, {"trace": [(im, {"trace": tr}) for im, tr in zip(imgs, traces)],
                   "bbox": [(im, {"bboxes": bs}) for im, bs in zip(imgs, sets)],
+                  "region_set": [(im, {"bboxes": bs, "region_set": True})
+                                 for im, bs in zip(imgs, sets)],
                   "cls": [(im, {}) for im in imgs]}
 
 
@@ -2507,8 +2615,6 @@ def phase_clip_served(seed: int, smi: str) -> int:
     `forward` after each kind's `warmup()`, D once a batch and a decode
     graph replayed, none captured; a whole-image batch's split and the
     encoder's kernels. Returns D's launches in the served runs."""
-    from patchioner_tpu_torch.ops import memory_projection as mp
-
     model = build_model(CLIP_CONFIGS["decap_B16_resize"], seed, "[clip]")
     if (model.backbone_type != "CLIP" or model.supports_fused_trace_path()
             or model.vit_cfg.num_tokens != CLIP_TOKENS
@@ -2516,42 +2622,46 @@ def phase_clip_served(seed: int, smi: str) -> int:
         raise AssertionError("[clip] the model must be DeCap on the CLIP tower at 592 px over "
                              "the 500,000 x 512 bank, served through forward")
     imgs, requests = _kind_requests(B, seed + 40, model.crop_dim)
-    launches = 0
-    for kind in ("trace", "bbox", "cls"):
-        tag = f"[clip {kind}]"
-        results, snap, batches, wall, counts = _serve(model, requests[kind], tag, kind)
-        launches += counts["memory_project"]
-        flat = _flat(results)
-        if not all(isinstance(c, str) for c in flat):
-            raise AssertionError(f"{tag} a request did not resolve to caption strings")
-        log(f"{tag} {len(flat)} captions from {len(results)} requests in {batches} batch(es): "
-            f"{len(flat) / wall:.3f} captions/s, mean request latency "
-            f"{snap['mean_latency_ms']} ms; D {counts['memory_project']} launches; "
-            f"result 0: {str(results[0])[:60]!r}; {smi}")
+    launches = sum(c["memory_project"] for c in
+                   _serve_each(model, requests, ("trace", "bbox", "cls"), "clip", smi).values())
+    _whole_image_split(model, imgs, "clip", smi)
+    _encoder_kernels(lambda: model.encode_images(imgs), smi)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
-    # a whole-image batch apart, each stage by CUDA events (medians)
-    enc = model.encode_images(imgs)
-    cls = enc["x_norm_clstoken"]
-    prefix = model.project_features(cls)
-    if prefix.shape != (B, CLIP_D) or not torch.isfinite(prefix).all():
-        raise AssertionError(f"[clip] the whole-image prefix is malformed: "
+
+def _whole_image_split(model, imgs, label: str, smi: str, patch_mean: bool = False) -> dict:
+    """A whole-image batch apart, each stage by CUDA events (medians): the
+    encoder, the projection of its CLS token (with `patch_mean`, of its
+    patch mean) by D, the decode graph; and `forward` of the same batch
+    (host clock). D must launch and no decode graph be captured. The
+    stages' ms."""
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    def whole(enc):
+        return enc["x_norm_patchtokens"].mean(dim=1) if patch_mean else enc["x_norm_clstoken"]
+
+    feats = whole(model.encode_images(imgs))
+    prefix = model.project_features(feats)
+    width = int(model.config["prefix_size"])
+    if prefix.shape != (len(imgs), width) or not torch.isfinite(prefix).all():
+        raise AssertionError(f"[{label}] the whole-image prefix is malformed: "
                              f"{tuple(prefix.shape)}")
     graphs = model.decode.captures
     d_before = mp.memory_project_streamed.launches
     ms = {"encoder": cuda_ms(lambda: model.encode_images(imgs), warmup=1, iters=5),
-          "projection (D)": cuda_ms(lambda: model.project_features(cls)),
+          "projection (D)": cuda_ms(lambda: model.project_features(feats)),
           "decode (graph)": cuda_ms(lambda: model.decode(prefix.float()))}
-    forward_ms = _host_ms(lambda: model.forward(imgs, get_cls_capt=True))
+    forward_ms = _host_ms(lambda: model.forward(imgs, get_cls_capt=not patch_mean,
+                                                get_avg_patch_capt=patch_mean))
     if model.decode.captures != graphs or mp.memory_project_streamed.launches == d_before:
-        raise AssertionError("[clip] the split captured a decode graph or skipped D")
-    log(f"[clip] a whole-image batch of {B} at {model.crop_dim} px: "
+        raise AssertionError(f"[{label}] the split captured a decode graph or skipped D")
+    log(f"[{label}] a whole-image batch of {len(imgs)} at {model.crop_dim} px: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
         + f" (CUDA events, medians); forward {forward_ms:.1f} ms (host clock, median of 3); "
         f"{smi}")
-    _encoder_kernels(lambda: model.encode_images(imgs), smi)
-    del model, enc, cls, prefix
-    torch.cuda.empty_cache()
-    return launches
+    return ms
 
 
 def _encoder_kernels(fn, smi: str, top: int = 6) -> None:
@@ -2747,8 +2857,15 @@ def text_state_dict(tree: dict, prefix: str = "") -> dict:
     sd = {"token_embedding.weight": tree["token_embedding"],
           "positional_embedding": tree["pos_embed"],
           "ln_final.weight": tree["ln_final"]["scale"], "ln_final.bias": tree["ln_final"]["bias"],
-          "text_projection": tree["text_projection"]}
-    for i, blk in enumerate(tree["blocks"]):
+          "text_projection": tree["text_projection"]} | _resblocks_state_dict(tree["blocks"])
+    return _cpu({prefix + k: v for k, v in sd.items()})
+
+
+def _resblocks_state_dict(blocks: list) -> dict:
+    """A CLIP tower's blocks as openai/CLIP `transformer.resblocks.N` keys
+    (each `nn.Linear` (out, in), `attn.in_proj_*` the fused qkv)."""
+    sd = {}
+    for i, blk in enumerate(blocks):
         q = f"transformer.resblocks.{i}"
         for key in ("ln_1", "ln_2"):
             sd[f"{q}.{key}.weight"] = blk[key]["scale"]
@@ -2759,7 +2876,7 @@ def text_state_dict(tree: dict, prefix: str = "") -> dict:
                           ("fc2", "mlp.c_proj")):
             sd[f"{q}.{name}.weight"] = blk[key]["w"].t()
             sd[f"{q}.{name}.bias"] = blk[key]["b"]
-    return _cpu({prefix + k: v for k, v in sd.items()})
+    return sd
 
 
 def write_text_checkpoints(seed: int, directory: str) -> dict:
@@ -3434,6 +3551,368 @@ def phase_eval(seed: int, smi: str, directory: str, served_rate: float) -> None:
     shutil.rmtree(work)
     log(f"[eval] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
+# ------------------------------------------------------------------ phase 14
+
+
+def regionclip_state_dict(tree: dict, prefix: str = "backbone.") -> dict:
+    """A port ModifiedResNet tree as a state dict under `prefix`, the
+    inverse of `models.resnet_clip.port_clip_resnet` (convolutions OIHW as
+    the port keeps them, each `nn.Linear` (out, in)); detectron's
+    'backbone.' by default, as a RegionCLIP detection checkpoint stores it."""
+    sd = {}
+
+    def bn(name, p):
+        sd.update({f"{name}.weight": p["w"], f"{name}.bias": p["b"],
+                   f"{name}.running_mean": p["mean"], f"{name}.running_var": p["var"]})
+
+    for i in (1, 2, 3):
+        sd[f"conv{i}.weight"] = tree["stem"][f"conv{i}"]
+        bn(f"bn{i}", tree["stem"][f"bn{i}"])
+    for li, blocks in enumerate(tree["layers"]):
+        for bi, blk in enumerate(blocks):
+            q = f"layer{li + 1}.{bi}"
+            for i in (1, 2, 3):
+                sd[f"{q}.conv{i}.weight"] = blk[f"conv{i}"]
+                bn(f"{q}.bn{i}", blk[f"bn{i}"])
+            if "down_conv" in blk:
+                sd[f"{q}.downsample.0.weight"] = blk["down_conv"]
+                bn(f"{q}.downsample.1", blk["down_bn"])
+    pool = tree["attnpool"]
+    sd["attnpool.positional_embedding"] = pool["pos_embed"]
+    for key in "qkvc":
+        sd[f"attnpool.{key}_proj.weight"] = pool[key]["w"].t()
+        sd[f"attnpool.{key}_proj.bias"] = pool[key]["b"]
+    return _cpu({prefix + k: v for k, v in sd.items()})
+
+
+def clip_vision_state_dict(tree: dict, prefix: str = "visual.") -> dict:
+    """A port CLIP vision tower as an openai/CLIP-layout state dict under
+    `prefix`, the inverse of `models.clip.port_openai_clip_vision`."""
+    d = tree["class_embedding"].shape[-1]
+    p = int(round((tree["patch_embed_w"].shape[0] // 3) ** 0.5))
+    sd = {"conv1.weight": tree["patch_embed_w"].reshape(p, p, 3, d).permute(3, 2, 0, 1),
+          "class_embedding": tree["class_embedding"].reshape(d),
+          "positional_embedding": tree["pos_embed"][0], "proj": tree["proj"],
+          "ln_pre.weight": tree["ln_pre"]["scale"], "ln_pre.bias": tree["ln_pre"]["bias"],
+          "ln_post.weight": tree["ln_post"]["scale"], "ln_post.bias": tree["ln_post"]["bias"]}
+    return _cpu({prefix + k: v for k, v in (sd | _resblocks_state_dict(tree["blocks"])).items()})
+
+
+def _decap_file(seed: int, directory: str, prefix_size: int) -> str:
+    """A seeded DeCap decoder at the reference CLI's size whose prefix
+    linear takes `prefix_size` (wte scaled by 10, as in phase 6), written
+    in the published layout; its path."""
+    from patchioner_tpu_torch.models import decap, gpt2
+
+    dec = decap.init_decap(gpt2.DECAP_DECODER_CONFIG, prefix_size,
+                           torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    dec.gpt2["wte"] *= 10
+    path = os.path.join(directory, f"decap_{prefix_size}.pt")
+    torch.save(decap_state_dict(dec), path)
+    return path
+
+
+def write_backbone_checkpoints(seed: int, directory: str) -> dict:
+    """Phase 14's files, seeded on the card, written with `torch.save` in
+    the published layouts: a RegionCLIP RN50 detection checkpoint (the
+    backbone under `model` and detectron's `backbone.`) whose attention
+    pool was trained at 224 px (50 tokens: the 512 px config draws a new
+    one), its batch norms away from the identity; an openai-layout CLIP
+    ViT-B/16 and a hub DINOv2 ViT-B/14-reg (ProxyCLIP); a DINO.txt
+    checkpoint, its ViT-L/14-reg under `visual_model.backbone.model.`
+    (layerscale near 1 in both DINOv2 towers); and DeCap decoders whose
+    prefix linear takes 1024 and 512. {name: path}."""
+    from patchioner_tpu_torch.models import clip, resnet_clip, vit
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    rn = resnet_clip.init_resnet_clip(resnet_clip.ResNetClipConfig(), gen, "cuda")
+
+    def stats(node):
+        for key, value in node.items():
+            if key.startswith(("bn", "down_bn")):
+                c = value["w"].shape[0]
+                value.update(w=1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+                             b=0.1 * torch.randn(c, generator=gen, device="cuda"),
+                             mean=0.1 * torch.randn(c, generator=gen, device="cuda"),
+                             var=0.5 + torch.rand(c, generator=gen, device="cuda"))
+
+    stats(rn["stem"])
+    for blocks in rn["layers"]:
+        for blk in blocks:
+            stats(blk)
+    towers = {}
+    for variant in ("dinov2_vitb14_reg", "dinov2_vitl14_reg"):
+        cfg = vit.config_for(variant)
+        tree = vit.init_vit(cfg, gen, "cuda")
+        for blk in tree["blocks"]:
+            blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, cfg.embed_dim, generator=gen,
+                                                           device="cuda")
+        towers[variant] = tree
+    clip_tree = clip.init_clip_vision(clip.ClipVisionConfig(), gen, "cuda")
+    paths = {}
+    for name, make in (
+            ("regionclip", lambda: {"model": regionclip_state_dict(rn)}),
+            ("clip_b16", lambda: clip_vision_state_dict(clip_tree)),
+            ("dinov2_vitb14_reg", lambda: hub_state_dict(towers["dinov2_vitb14_reg"])),
+            ("dinotxt", lambda: {f"visual_model.backbone.model.{k}": v for k, v in
+                                 hub_state_dict(towers["dinov2_vitl14_reg"]).items()})):
+        paths[name] = os.path.join(directory, f"{name}.pth")
+        torch.save(make(), paths[name])
+    paths["decap_1024"] = _decap_file(seed + 61, directory, LD)
+    paths["decap_512"] = _decap_file(seed + 62, directory, CLIP_D)
+    return paths
+
+
+def _serve_each(model, requests: dict, kinds: tuple, label: str, smi: str) -> dict:
+    """B requests of each of `kinds` served through `_serve` (launches and
+    decode graphs asserted); captions/s and mean latency printed; each
+    kind's launch counts."""
+    counts = {}
+    for kind in kinds:
+        tag = f"[{label} {kind}]"
+        results, snap, batches, wall, counts[kind] = _serve(model, requests[kind], tag, kind)
+        flat = _flat(results)
+        if not all(isinstance(c, str) for c in flat):
+            raise AssertionError(f"{tag} a request did not resolve to caption strings")
+        log(f"{tag} {len(flat)} captions from {len(results)} requests in {batches} batch(es): "
+            f"{len(flat) / wall:.3f} captions/s, mean request latency "
+            f"{snap['mean_latency_ms']} ms; result 0: {str(results[0])[:60]!r}; {smi}")
+    return counts
+
+
+def phase_regionclip(seed: int, smi: str, paths: dict) -> int:
+    """Phase 14a: DeCap on RegionCLIP's RN50 at 512 px
+    (configs/regionclip_resnet50_p32_512.k.yaml) from the detection
+    checkpoint, its 224 px attention pool drawn anew at 512 (the same
+    draw on the CPU, asserted), bf16, a random 500,000 x 1024 bank: 8
+    trace, 8 box and 8 whole-image requests served through `forward`, D
+    once a batch; a whole-image batch's split; the crop-and-caption
+    baseline; `analyze_feature_compatibility` (D four times); f32 card
+    against CPU. D's launches in the served runs."""
+    from PIL import Image
+
+    from patchioner_tpu_torch.ops import memory_projection as mp
+
+    config = dict(REGIONCLIP_CONFIG, decap_weights=paths["decap_1024"], regionclip_config=dict(
+        REGIONCLIP_CONFIG["regionclip_config"], checkpoint=paths["regionclip"]))
+    model = build_model(config, seed, "[regionclip]")
+    # the pool embedding drawn anew from a CPU generator seeded 0, N(0, 1/C)
+    pos = model.vit_params["attnpool"]["pos_embed"].float().cpu()
+    drawn = torch.randn(257, 2048, generator=torch.Generator().manual_seed(0)) / 2048 ** 0.5
+    if (model.backbone_type != "RegionCLIP" or model.supports_fused_trace_path()
+            or not torch.equal(pos, drawn.bfloat16().float())
+            or tuple(model.bank.rows[:model.bank.num_real].shape) != (LBANK_ROWS, LD)):
+        raise AssertionError("[regionclip] the model must be RegionCLIP at 512 px, its pool "
+                             "embedding the CPU generator's draw, over the 500,000 x 1024 bank")
+    imgs, requests = _kind_requests(B, seed + 70, model.crop_dim)
+    launches = sum(c["memory_project"] for c in
+                   _serve_each(model, requests, ("trace", "bbox", "cls"), "regionclip",
+                               smi).values())
+    _whole_image_split(model, imgs, "regionclip", smi)
+
+    # the crop-and-caption baseline (the main table's dense row): 8 PIL
+    # images of 640 x 480, 4 boxes each, one forward a chunk of 8 crops
+    rng = np.random.default_rng(seed + 71)
+    pil = [Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+           for _ in range(B)]
+    lo = rng.uniform(0, 300, (B, 4, 2))
+    boxes = np.concatenate([lo, rng.uniform(40, 300, (B, 4, 2))], -1).astype(np.float32)
+    before = mp.memory_project_streamed.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.forward(pil, bboxes=boxes, caption_bboxes_type="cls_capt")
+    wall = time.perf_counter() - t0
+    crops = mp.memory_project_streamed.launches - before
+    if [len(r) for r in out["bbox_capts"]] != [4] * B or crops != 4:
+        raise AssertionError(f"[regionclip crop] {out!r:.200} with D launched {crops} times")
+    log(f"[regionclip crop] the crop-and-caption baseline: {B * 4} boxes in {wall:.3f} s, "
+        f"{B * 4 / wall:.3f} boxes/s (PIL crops and resize on the host), D {crops} launches; "
+        f"{smi}")
+
+    before = mp.memory_project_streamed.launches
+    t0 = time.perf_counter()
+    analysis = model.analyze_feature_compatibility(imgs)
+    calls = mp.memory_project_streamed.launches - before
+    if sorted(analysis) != ["layer3", "layer4"] or calls != 4 or not all(
+            np.isfinite(v) for r in analysis.values() for v in r.values()
+            if isinstance(v, float)):
+        raise AssertionError(f"[regionclip] feature compatibility {analysis} (D {calls})")
+    log(f"[regionclip] analyze_feature_compatibility in {time.perf_counter() - t0:.2f} s, D "
+        f"{calls} launches: " + "; ".join(
+            f"{k}: {r['spatial_resolution']}, patch max sim {r['patch_max_similarity']:.4f}, "
+            f"efficiency {r['projection_efficiency']:.4f}" for k, r in analysis.items()))
+    del model
+    torch.cuda.empty_cache()
+    _clip_f32_gate("f32 regionclip", config, seed)
+    return launches
+
+
+def _mosaic(n: int, seed: int, img: int, blocks: int = 4) -> np.ndarray:
+    """n seeded uint8 images of blocks x blocks flat colours with a little
+    noise: the patches of one block are alike, so ProxyCLIP's proxy
+    affinity puts real weight off its diagonal (on noise it keeps the
+    diagonal alone, and the mixing would be an identity)."""
+    rng = np.random.default_rng(seed)
+    cell = -(-img // blocks)
+    tiles = np.repeat(np.repeat(rng.integers(0, 256, (n, blocks, blocks, 3)), cell, 1), cell, 2)
+    return np.clip(tiles[:, :img, :img] + rng.integers(-20, 21, (n, img, img, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def _proxyclip_f32_gate(label: str, config: dict, seed: int) -> None:
+    """ProxyCLIP f32 on the card against the same weights on the CPU (TF32
+    off), two mosaic images, the VFM's layerscale drawn near 1: the VFM's
+    patch tokens (A, B and C against their plain versions) under the gate;
+    every row of the CPU's affinity at least 10% off its diagonal, so that
+    the mixing is what the gate compares; the affinity's masks compared,
+    an entry differing only within 1e-4 of the mask's threshold (mean
+    similarity times beta) and in at most 1% of the rows; the output tokens
+    of every row whose mask agrees, and the prefix of each image's mean
+    over those rows, under the gate."""
+    from patchioner_tpu_torch.models import proxyclip, vit
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    gpu = Patchioner.from_config(config, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 72)
+    for blk in gpu.vit_params["vfm"]["blocks"]:
+        for key in ("ls1", "ls2"):
+            blk[key] = 1 + 0.1 * torch.randn(blk[key].shape, generator=gen, device="cuda")
+    cpu = gpu.to("cpu")
+    cfg = gpu.vit_cfg
+    imgs = _mosaic(2, seed + 73, gpu.crop_dim)
+    got = {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        px = m._pixels(imgs)
+        side = gpu.crop_dim // cfg.vfm.patch_size * cfg.vfm.patch_size
+        feats = vit.vit_forward(m.vit_params["vfm"], px[:, :side, :side], cfg.vfm)[
+            "x_norm_patchtokens"]
+        unit = feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+        sim = torch.matmul(unit, unit.transpose(-1, -2)).float()
+        affinity = proxyclip.proxy_affinity(feats, cfg.beta, cfg.gamma)
+        got[where] = {"feats": feats.cpu(), "margin": (sim - sim.mean() * cfg.beta).cpu(),
+                      "mask": (affinity > 0).cpu(),
+                      "off": (1 - torch.diagonal(affinity, dim1=-2, dim2=-1)).cpu(),
+                      "tokens": m.encode_images(imgs)["x_norm_patchtokens"]}
+        log(f"[{label}] on {where}: {time.perf_counter() - t0:.1f} s")
+    card, ref = got["card"], got["cpu"]
+    _gate(label, card["feats"], ref["feats"],
+          f"VFM patch tokens {tuple(ref['feats'].shape)}, card vs CPU", "encoder")
+    log(f"[{label}] affinity weight off the diagonal, by row: CPU min "
+        f"{ref['off'].min().item():.4f} mean {ref['off'].mean().item():.4f}, card min "
+        f"{card['off'].min().item():.4f} mean {card['off'].mean().item():.4f}")
+    if not ref["off"].min().item() >= 0.1:
+        raise AssertionError(f"[{label}] a row of the affinity keeps "
+                             f"{ref['off'].min().item():.4f} < 0.1 off its diagonal")
+    flipped = card["mask"] != ref["mask"]
+    rows = flipped.any(dim=-1)  # (B, N): rows whose mask differs
+    near = ref["margin"].abs() <= 1e-4
+    log(f"[{label}] affinity masks card vs CPU: {int(flipped.sum())} of {flipped.numel()} "
+        f"entries differ, in {int(rows.sum())} of {rows.numel()} rows; "
+        f"{float(ref['mask'].float().mean()):.4f} of the entries kept; {int(near.sum())} "
+        "entries within 1e-4 of the threshold on the CPU")
+    if (flipped & ~near).any():
+        raise AssertionError(f"[{label}] {int((flipped & ~near).sum())} mask entries differ "
+                             "farther than 1e-4 from the threshold")
+    if rows.float().mean().item() > 0.01:
+        raise AssertionError(f"[{label}] the affinity masks differ in {int(rows.sum())} rows")
+    _gate(label, card["tokens"][~rows.cuda()].cpu(), ref["tokens"][~rows],
+          f"patch tokens of the {int((~rows).sum())} rows whose mask agrees, card vs CPU",
+          "encoder")
+    prefix = {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        keep = (~rows).to(got[where]["tokens"].device)
+        means = torch.stack([t[k].mean(dim=0) for t, k in zip(got[where]["tokens"], keep)])
+        prefix[where] = m.project_features(means).cpu()
+    _gate(label, prefix["card"], prefix["cpu"],
+          f"of each image's mean over the {int((~rows).sum())} rows whose mask "
+          "agrees, card vs CPU")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_proxyclip(seed: int, smi: str, paths: dict) -> int:
+    """Phase 14b: DeCap on ProxyCLIP B/16 with DINOv2 B/14-reg at 518 px
+    (configs/proxyclip_b16_dinov2.k.yaml) from its CLIP and DINOv2 files,
+    bf16, a random 500,000 x 512 bank: 8 trace and 8 box requests served
+    through `forward`, A, B and C 12 launches and D one a batch; a
+    whole-image request raises through the server, as in JAX, and the
+    whole image is captioned from the patch mean; a whole-image batch's
+    split; f32 card against CPU, and for configs/proxyclip_b16.k.yaml (the
+    `dino` VFM at 296 px, random weights) too. D's served launches."""
+    config = dict(PROXYCLIP_CONFIGS["proxyclip_b16_dinov2"], decap_weights=paths["decap_512"],
+                  clip_weights=paths["clip_b16"], dino_weights=paths["dinov2_vitb14_reg"])
+    model = build_model(config, seed, "[proxyclip]")
+    if (model.backbone_type != "ProxyCLIP" or not model.mixes_batch
+            or model.vit_cfg.grid_size != 37 or model.vit_cfg.vfm.num_registers != 4
+            or tuple(model.bank.rows[:model.bank.num_real].shape) != (CLIP_BANK_ROWS, CLIP_D)):
+        raise AssertionError("[proxyclip] the model must be ProxyCLIP on DINOv2 B/14-reg at "
+                             "518 px over the 500,000 x 512 bank")
+    imgs, requests = _kind_requests(B, seed + 74, model.crop_dim)
+    counts = _serve_each(model, requests, ("trace", "bbox"), "proxyclip", smi)
+    from patchioner_tpu_torch.serve import CaptionServer
+
+    with CaptionServer(model, max_batch=B) as server:
+        try:
+            server.submit(imgs[0]).result(timeout=300)
+        except ValueError as e:
+            log(f"[proxyclip cls] a whole-image request raises through the server, as in "
+                f"JAX: {e}")
+        else:
+            raise AssertionError("[proxyclip cls] a whole-image request returned a caption")
+    caps = model.forward(imgs, get_cls_capt=False, get_avg_patch_capt=True)["avg_patch_capt"]
+    if len(caps) != B or not all(isinstance(c, str) for c in caps):
+        raise AssertionError(f"[proxyclip] avg_patch captions {caps!r:.200}")
+    _whole_image_split(model, imgs, "proxyclip", smi, patch_mean=True)
+    del model
+    torch.cuda.empty_cache()
+    _proxyclip_f32_gate("f32 proxyclip", config, seed)
+    _proxyclip_f32_gate("f32 proxyclip dino 296", PROXYCLIP_CONFIGS["proxyclip_b16"], seed)
+    return sum(c["memory_project"] for c in counts.values())
+
+
+def phase_dinotxt(seed: int, smi: str, paths: dict) -> int:
+    """Phase 14c: DeCap on DINO.txt's ViT-L/14-reg at 518 px
+    (configs/dinotxt.yaml) from its checkpoint, bf16, a random 591,753 x
+    1024 bank: 8 trace, 8 box, 8 region-set and 8 whole-image requests
+    served on the fused steps, A, B and C 24 launches and D one a batch; a
+    whole-image batch's split; f32 card against CPU at full width and 4
+    layers. D's served launches."""
+    config = dict(DINOTXT_CONFIG, decap_weights=paths["decap_1024"],
+                  dino_weights=paths["dinotxt"])
+    model = build_model(config, seed, "[dinotxt]")
+    cfg = model.vit_cfg
+    if (not model.supports_fused_trace_path() or (cfg.embed_dim, cfg.depth, cfg.num_heads,
+                                                  cfg.num_registers) != (LD, 24, LHEADS, 4)
+            or tuple(model.bank.rows[:model.bank.num_real].shape) != (MEMORY_ROWS, LD)):
+        raise AssertionError("[dinotxt] the model must be the fused ViT-L/14-reg over the "
+                             "591,753 x 1024 bank")
+    imgs, requests = _kind_requests(B, seed + 75, model.crop_dim)
+    counts = _serve_each(model, requests, ("trace", "bbox", "region_set", "cls"), "dinotxt",
+                         smi)
+    _whole_image_split(model, imgs, "dinotxt", smi)
+    del model
+    torch.cuda.empty_cache()
+    phase_f32_crosscheck(seed, dict(DINOTXT_CONFIG, dino_geometry={"depth": 4}), "f32 dinotxt")
+    return sum(c["memory_project"] for c in counts.values())
+
+
+def phase_backbones(seed: int, smi: str, directory: str) -> dict:
+    """Phase 14: RegionCLIP, ProxyCLIP and DINO.txt; D's served launches of
+    each."""
+    t0 = time.perf_counter()
+    paths = write_backbone_checkpoints(seed, directory)
+    log(f"[backbones] files written in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e6:.0f} MB" for k, p in paths.items()))
+    launches = {"regionclip": phase_regionclip(seed, smi, paths),
+                "proxyclip": phase_proxyclip(seed, smi, paths),
+                "dinotxt": phase_dinotxt(seed, smi, paths)}
+    for path in paths.values():
+        os.remove(path)
+    log(f"[backbones] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3457,7 +3936,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-13; the kernels' rows of the JSON summary."""
+    """Phases 2-14; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -3532,11 +4011,14 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 12")
     phase_eval(seed, smi, scratch, served["main"])
     elapsed("phase 13")
+    backbones = phase_backbones(seed, smi, scratch)
+    elapsed("phase 14")
     launches["memory_project"] = (
         launches["memory_project"][0],
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "
         f"served: {clip} launches in its 3 served kinds; served from the bank built by "
-        f"the text tower: {text_served}; text-feature training --im_proj: {text_trained}")
+        f"the text tower: {text_served}; text-feature training --im_proj: {text_trained}; "
+        f"the backbone family served: " + ", ".join(f"{k} {v}" for k, v in backbones.items()))
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -33,18 +33,24 @@
 //
 // f32 design (for the checks): SIMT, one block of 32 rows streams the
 // hidden in 32-wide chunks, LN(x) in shared memory, fc1 + bias + GELU of a
-// chunk into shared memory, its fc2 contribution added to a 4 x 24 f32
-// register tile a thread; the hidden is never written out.
+// chunk into shared memory, its fc2 contribution added to a 4 x MAX_COLS
+// f32 register tile a thread (output columns lane + 32 j); the hidden is
+// never written out. Two instantiations: MAX_COLS = 24 for D <= 768, which
+// stages a chunk's 32 rows of W2 at once (201 KiB of shared memory at
+// D = 768), and MAX_COLS = 32 for D <= 1024 (ViT-L), which stages them 8
+// at a time, since 32 rows of a 1024-wide W2 beside LN(x) would need 265
+// KiB, more than a block may have (227 KiB); 169 KiB at D = 1024.
 #include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256, BM = 32, HC = 32, MAX_COLS = 24;
+constexpr int THREADS = 256, BM = 32, HC = 32;
 
-// ---- f32: SIMT. Needs D % 32 == 0, D <= 768, H % 32 == 0.
-// Shared memory: Ys [32][D+8], W2s [32][D], W1s [32][32], Hs [32][32].
+// ---- f32: SIMT. Needs D % 32 == 0, D <= 32 * MAX_COLS, H % 32 == 0.
+// Shared memory: Ys [32][D+8], W2s [W2R][D], W1s [32][32], Hs [32][32].
+template <int MAX_COLS, int W2R>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ bg, const float* __restrict__ w1,
@@ -56,7 +62,7 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int DP = D + 8;  // padded rows: the 4 rows a warp reads hit 4 banks
   float* Ys = (float*)smem_raw;
   float* W2s = Ys + BM * DP;
-  float* W1s = W2s + HC * D;
+  float* W1s = W2s + W2R * D;
   float* Hs = W1s + 32 * HC;
   __shared__ float mean_s[BM], rstd_s[BM];
   const int m0 = blockIdx.x * BM;
@@ -89,19 +95,25 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) Hs[r1 * HC + c1 + j] = pt::gelu(hacc[j] + b1[h0 + c1 + j], approx);
-    for (int e = tid; e < HC * D; e += THREADS) W2s[e] = w2[(size_t)(h0 + e / D) * D + e % D];
-    __syncthreads();
+    // W2's rows h0 + s0 .. h0 + s0 + W2R - 1 of the chunk, W2R at a time
+    // (one pass when W2R == HC)
+    for (int s0 = 0; s0 < HC; s0 += W2R) {
+      if (W2R < HC && s0) __syncthreads();  // the previous rows are read
+      for (int e = tid; e < W2R * D; e += THREADS)
+        W2s[e] = w2[(size_t)(h0 + s0 + e / D) * D + e % D];
+      __syncthreads();
 #pragma unroll 4
-    for (int k = 0; k < HC; ++k) {
-      float hv[4];
+      for (int k = 0; k < W2R; ++k) {
+        float hv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) hv[i] = Hs[(rg * 4 + i) * HC + k];
+        for (int i = 0; i < 4; ++i) hv[i] = Hs[(rg * 4 + i) * HC + s0 + k];
 #pragma unroll
-      for (int j = 0; j < MAX_COLS; ++j) {
-        if (j < ncols) {
-          const float wv = W2s[k * D + lane + 32 * j];
+        for (int j = 0; j < MAX_COLS; ++j) {
+          if (j < ncols) {
+            const float wv = W2s[k * D + lane + 32 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(hv[i], wv, acc[i][j]);
+            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(hv[i], wv, acc[i][j]);
+          }
         }
       }
     }
@@ -158,6 +170,21 @@ struct Fc2Epilogue {
   }
 };
 
+template <int MAX_COLS, int W2R>
+int launch_f32(const void* x, const void* g, const void* bg, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* ls, void* out, int M, int D, int H,
+               float eps, int gelu_approx, cudaStream_t s) {
+  const int blocks = (M + BM - 1) / BM;
+  const size_t smem = (size_t)(BM * (D + 8) + W2R * D + 32 * HC + BM * HC) * sizeof(float);
+  cudaError_t err = pt_allow_smem(ln_mlp_f32_kernel<MAX_COLS, W2R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_f32_kernel<MAX_COLS, W2R><<<blocks, THREADS, smem, s>>>(
+      (const float*)x, (const float*)g, (const float*)bg, (const float*)w1,
+      (const float*)b1, (const float*)w2, (const float*)b2, (const float*)ls,
+      (float*)out, M, D, H, eps, gelu_approx != 0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shapes as each kernel states; the wrapper checks them. `hidden` is the
@@ -183,13 +210,8 @@ extern "C" int pt_ln_mlp(const void* x, const void* g, const void* bg,
                                 {xb, (const bf16*)b2, (const bf16*)ls, ob, D}}, s);
     return (int)err;
   }
-  const int blocks = (M + BM - 1) / BM;
-  const size_t smem = (size_t)(BM * (D + 8) + HC * D + 32 * HC + BM * HC) * sizeof(float);
-  err = pt_allow_smem(ln_mlp_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ln_mlp_f32_kernel<<<blocks, THREADS, smem, s>>>(
-      (const float*)x, (const float*)g, (const float*)bg, (const float*)w1,
-      (const float*)b1, (const float*)w2, (const float*)b2, (const float*)ls,
-      (float*)out, M, D, H, eps, gelu_approx != 0);
-  return (int)cudaGetLastError();
+  return D <= 768 ? launch_f32<24, HC>(x, g, bg, w1, b1, w2, b2, ls, out, M, D, H, eps,
+                                        gelu_approx, s)
+                  : launch_f32<32, 8>(x, g, bg, w1, b1, w2, b2, ls, out, M, D, H, eps,
+                                      gelu_approx, s);
 }

@@ -15,7 +15,7 @@ from patchioner_tpu_torch.models import decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 
 __all__ = ["to_torch", "vit_from_jax", "clip_vision_from_jax", "clip_text_from_jax",
-           "decap_from_jax",
+           "resnet_clip_from_jax", "proxyclip_from_jax", "decap_from_jax",
            "bank_from_jax", "inversion_from_jax", "mlp_w8_from_jax"]
 
 
@@ -88,6 +88,32 @@ def clip_text_from_jax(tree: dict, cfg, device="cpu") -> dict:
         raise ValueError(f"not a CLIP text tree: keys {sorted(tree)}")
     _check_clip_blocks(tree)
     return to_torch(tree, device)
+
+
+def resnet_clip_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """An `init_resnet_clip` / `port_clip_resnet` tree of the JAX package ->
+    the port's ResNet params: each convolution's HWIO kernel as torch's
+    OIHW, every other leaf as it is."""
+    if len(tree["layers"]) != len(cfg.layers) or any(
+            len(blocks) != n for blocks, n in zip(tree["layers"], cfg.layers)):
+        raise ValueError(f"tree has {[len(b) for b in tree['layers']]} blocks a layer, "
+                         f"cfg.layers={cfg.layers}")
+
+    def convs(node: dict) -> dict:
+        return {k: (to_torch(v, device).permute(3, 2, 0, 1).contiguous()
+                    if k.startswith(("conv", "down_conv")) else to_torch(v, device))
+                for k, v in node.items()}
+
+    return {"stem": convs(tree["stem"]),
+            "layers": [[convs(blk) for blk in blocks] for blocks in tree["layers"]],
+            "attnpool": to_torch(tree["attnpool"], device)}
+
+
+def proxyclip_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """ProxyCLIP's {'clip': CLIP vision tree, 'vfm': DINOv2 tree} of the JAX
+    package -> the port's, each through its tower's bridge."""
+    return {"clip": clip_vision_from_jax(tree["clip"], cfg.clip, device),
+            "vfm": vit_from_jax(tree["vfm"], cfg.vfm, device)}
 
 
 def decap_from_jax(params, device="cpu") -> decap.DecapParams:

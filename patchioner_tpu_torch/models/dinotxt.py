@@ -10,9 +10,10 @@ a CLS-aligned half then a patch-aligned half: bank rows keep all 2048
 columns, and a bank is read with its columns [1024:]. The tower is
 `clip.clip_text_forward` at this geometry, plain PyTorch.
 
-The backbone itself is not served yet: `Patchioner.from_config` refuses a
-`dinotxt` `dino_model`, which needs DINOv2 ViT-L (ROADMAP queue 1 item 5);
-`port_dinotxt_visual` ports it all the same.
+`Patchioner.from_config` serves the backbone: a `dino_model` naming
+`dinotxt` builds DINOv2 ViT-L/14 with registers on kernels A, B and C,
+its `dino_weights` ported by `port_dinotxt_visual`, and the bank read with
+its columns [1024:].
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.models import clip, vit
 
 __all__ = ["DINOTXT_TEXT_CONFIG", "init_dinotxt_text", "encode_text", "tokenize",
-           "port_dinotxt_visual", "port_dinotxt_text", "port_dinotxt", "DinotxtTextEncoder"]
+           "visual_state_dict", "port_dinotxt_visual", "port_dinotxt_text", "port_dinotxt", "DinotxtTextEncoder"]
 
 # tet1280d20h24l; output 2048 = [CLS-aligned 1024 | patch-aligned 1024]
 DINOTXT_TEXT_CONFIG = clip.ClipTextConfig(vocab_size=49408, context_length=77, width=1280,
@@ -58,13 +59,20 @@ def _strip_prefix(sd: Mapping, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
+def visual_state_dict(sd: Mapping) -> dict:
+    """The inner DINOv2 backbone's keys of a DINO.txt checkpoint (under
+    `visual_model.backbone.model.`), or the state dict as it is when it
+    has none."""
+    return _strip_prefix(sd, _VISUAL_PREFIX) or dict(sd)
+
+
 def port_dinotxt_visual(sd: Mapping, depth: int = 24, num_registers: int = 4) -> dict:
     """The inner DINOv2 backbone of a DINO.txt checkpoint (keys under
     `visual_model.backbone.model.`), or a bare DINOv2 state dict, through
     `io.torch_port.port_dinov2`."""
     from patchioner_tpu_torch.io import torch_port
 
-    inner = _strip_prefix(sd, _VISUAL_PREFIX) or dict(sd)
+    inner = visual_state_dict(sd)
     if "cls_token" not in inner:
         raise KeyError("dinotxt visual port: no 'visual_model.backbone.model.*' keys and no "
                        f"bare DINOv2 layout; got e.g. {sorted(sd)[:5]}")

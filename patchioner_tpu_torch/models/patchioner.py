@@ -1,8 +1,10 @@
-"""Patchioner: the DINOv2 and CLIP ViT subset with DeCap, ViECap, MeaCap or ClipCap, in PyTorch.
+"""Patchioner: every backbone with DeCap, ViECap, MeaCap or ClipCap, in PyTorch.
 
-Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone and
-the CLIP ViT family (`models/clip.py`: OpenAI CLIP by its timm name,
-INViTE, OpenCLIP, AlphaCLIP, DenseCLIP): `from_config`,
+Twin of `patchioner_tpu/models/patchioner.py` for the DINOv2 backbone
+(ViT-S, B, L and g, and DINO.txt's ViT-L), the CLIP ViT family
+(`models/clip.py`: OpenAI CLIP by its timm name, INViTE, OpenCLIP,
+AlphaCLIP, DenseCLIP), RegionCLIP's ResNet (`models/resnet_clip.py`) and
+ProxyCLIP (`models/proxyclip.py`): `from_config`,
 `supports_fused_trace_path`, the fused caption paths
 `caption_traces_fused` (a trace), `caption_bboxes_fused` (a caption per
 box), `caption_images_fused` (the whole image) and
@@ -14,7 +16,7 @@ drives. Each fused path is `entry.make_caption_step` with its own pool;
 all share the encoder, the projection and the decode, which the model's
 `decap.GreedyDecoder` (`decode`) runs: on the card one CUDA graph a
 batch's row count. A DeCap model over a support memory has the fused
-paths on the DINOv2 backbone; a CLIP backbone, a ViECap, MeaCap or ClipCap
+paths on the DINOv2 backbone; another backbone, a ViECap, MeaCap or ClipCap
 model, or one without a bank, captions through `forward`
 (`supports_fused_trace_path()` is False), as in the reference.
 
@@ -26,7 +28,9 @@ model, or one without a bank, captions through `forward`
 `compute_scores`, and returns the reference's keys, split per image. Only
 the DINOv2 and DenseCLIP towers' attention is read: elsewhere attention
 boxes and tracing pool uniformly and `get_avg_self_attn_capt` raises
-ValueError. AlphaCLIP captions boxes and traces by one encoder pass a
+ValueError, and on ProxyCLIP, which emits patch tokens only, so does
+`get_cls_capt`. `analyze_feature_compatibility` is RegionCLIP's layer
+diagnostic. AlphaCLIP captions boxes and traces by one encoder pass a
 region, the region as its alpha mask (`_forward_alphaclip_regions`).
 `caption_bboxes_type` routes to `caption_bboxes`, the crop-and-caption
 baseline (PIL images in, one `forward` pass a chunk of crops). The
@@ -39,8 +43,13 @@ loads what the reference's `from_config` loads for this subset
 - the backbone, in the JAX builder's order (`_backbone_type`): a DINOv2
   `dino_model` whatever other backbone key the config holds, with
   `dino_weights`, a torch.hub DINOv2 `.pth` (a `state_dict` key is
-  unwrapped) through `io.torch_port.port_dinov2`, or an `.npz` of
-  `io.checkpoints.save_params_npz`; else AlphaCLIP (`alphaclip_config`,
+  unwrapped) through `io.torch_port.port_dinov2` (a DINO.txt checkpoint
+  through `dinotxt.port_dinotxt_visual`), or an `.npz` of
+  `io.checkpoints.save_params_npz`; else RegionCLIP (`regionclip_config`,
+  its `checkpoint` an openai-CLIP ResNet or a detection checkpoint with
+  the backbone under `model` and `backbone.`), ProxyCLIP
+  (`proxyclip_clipmodel`, `clip_weights` in the openai layout and the
+  VFM's `dino_weights`), AlphaCLIP (`alphaclip_config`,
   its `checkpoint` in the openai/CLIP layout, the alpha conv drawn when
   the file lacks it), DenseCLIP (`denseclip_config`, a geometry of the
   port's data folder or a file; `denseclip_weights`, the openai layout
@@ -92,17 +101,17 @@ and uploaded once, by the constructor, as random weights are;
 The encoder keys `attn_impl`, `proj_fused` and `gelu_approx` are the
 reference's (patchioner.py:487-505), and so is its `memory_bank_int8`
 opt-in (the bank quantized per row to int8 from the f32 bank, whatever the
-model's type, and projected by kernel H). The DINOv2 backbones it takes
-are ViT-S and ViT-B (MLP FFN, kernel C: D <= 768) and ViT-g,
+model's type, and projected by kernel H). The DINOv2 backbones are ViT-S,
+ViT-B and ViT-L (MLP FFN, kernel C: D <= 1024) and ViT-g,
 `dinov2_vitg14(_reg)` (SwiGLU FFN, kernel G: D <= 1536), whose prefix and
-bank are 1536-wide as the config gives them; every `attn_impl` runs on
-each. The CLIP towers (ViT-B and ViT-L) run as plain PyTorch, as the JAX
-package runs them as plain XLA. Any key that leaves this subset raises
-NotImplementedError: other backbones (DINOv2 ViT-L, until C's f32 kernel
-takes D = 1024; DINO.txt, RegionCLIP and ProxyCLIP), argmax-text, int8
-(W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`) and a
-non-qkv attention_type. The DINOv2 encoder keys are ignored on a CLIP
-tower, as in the JAX builder. The README's
+bank are as wide as the config gives them; every `attn_impl` runs on
+each. The CLIP towers (ViT-B and ViT-L), RegionCLIP's ResNet and
+ProxyCLIP's CLIP half run as plain PyTorch, as the JAX package runs them
+as plain XLA; ProxyCLIP's VFM is the DINOv2 encoder. Any key that leaves
+this subset raises NotImplementedError: another backbone, argmax-text,
+int8 (W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`)
+and a non-qkv attention_type. The DINOv2 encoder keys are ignored on the
+other backbones, as the JAX package's `from_config` ignores them. The README's
 `kkv_attention` key is read by neither the reference's loader nor the
 JAX package: it is ignored, with a UserWarning where `attention_type` is
 absent. A config given as a Hugging Face model id is not ported
@@ -117,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pickle
@@ -131,7 +141,9 @@ from patchioner_tpu_torch import entry
 from patchioner_tpu_torch.io import checkpoints, memory_bank, torch_port
 from patchioner_tpu_torch.models import clip as clip_mod
 from patchioner_tpu_torch.models import clipcap as clipcap_mod
-from patchioner_tpu_torch.models import decap, gpt2, talk2dino, vit, viecap as viecap_mod
+from patchioner_tpu_torch.models import decap, dinotxt, gpt2, talk2dino, vit, viecap as viecap_mod
+from patchioner_tpu_torch.models import proxyclip as proxyclip_mod
+from patchioner_tpu_torch.models import resnet_clip
 from patchioner_tpu_torch.ops import memory_projection as memproj
 from patchioner_tpu_torch.ops import region_pooling as rp
 
@@ -149,9 +161,8 @@ _KEYS = {
     "kkv_attention", "clip_weights", "use_open_clip", "denseclip_config",
     "denseclip_weights", "alphaclip_config", "invite_config",
 }
-# the backbone keys `_backbone_type` reads; a RegionCLIP or ProxyCLIP
-# backbone is refused there, and its keys are ignored beside a DINOv2
-# `dino_model`, as the JAX builder ignores them
+# the RegionCLIP and ProxyCLIP keys; beside a DINOv2 `dino_model` they are
+# ignored, as the JAX package's `from_config` ignores them
 _BACKBONE_KEYS = {"regionclip_config", "proxyclip_clipmodel", "proxyclip_vfm",
                   "proxyclip_beta", "proxyclip_gamma"}
 # keys that name the bank file under $IM2TXT_MEMORY_PATH
@@ -168,9 +179,10 @@ _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {"calculate_argmax_text", "encoder_w8a8"}
 # the widest encoder each FFN kernel takes in both types: the f32 SIMT
-# kernels keep a block's output rows in registers, 24 columns a thread in C
-# (D <= 768) and 48 in G (D <= 1536); their bf16 GEMMs take any D % 128
-_MAX_EMBED_DIM = {"mlp": 768, "swiglu": 1536}
+# kernels keep a block's output rows in registers, up to 32 columns a
+# thread in C (D <= 1024, ViT-L) and 48 in G (D <= 1536); their bf16 GEMMs
+# take any D % 128
+_MAX_EMBED_DIM = {"mlp": 1024, "swiglu": 1536}
 
 
 def _backbone_type(config: dict) -> str:
@@ -216,12 +228,7 @@ def _check_config(config: dict) -> None:
             f"config key {key}={value!r} is outside the ported DINOv2 / CLIP + DeCap "
             "subset"
         )
-    dino_model = config.get("dino_model")
-    kind = _backbone_type(config)
-    if kind in ("RegionCLIP", "ProxyCLIP") or "dinotxt" in (dino_model or ""):
-        raise NotImplementedError(
-            f"backbone {dino_model!r} ({'DINO.txt' if kind == 'DINO' else kind}) is not "
-            "ported yet")
+    _backbone_type(config)
     if config.get("attention_type", "qkv") != "qkv":
         raise NotImplementedError(
             f"attention_type={config['attention_type']!r} is not ported yet")
@@ -272,9 +279,10 @@ def _torch_load(path: str, clock: _Clock):
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _load_dino(path: str, cfg: vit.ViTConfig, clock: _Clock) -> dict:
+def _load_dino(path: str, cfg: vit.ViTConfig, clock: _Clock, is_dinotxt: bool = False) -> dict:
     """`dino_weights` (a hub `.pth` or an `.npz`) as an f32 CPU tree, checked
-    against `cfg`."""
+    against `cfg`; with `is_dinotxt` a DINO.txt checkpoint, whose backbone
+    `dinotxt.port_dinotxt_visual` takes out (`patchioner.py:528-536`)."""
     if path.endswith(".npz"):
         with clock("read"):
             tree = checkpoints.load_params_npz(path)
@@ -282,9 +290,10 @@ def _load_dino(path: str, cfg: vit.ViTConfig, clock: _Clock) -> dict:
         sd = _torch_load(path, clock)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
+        inner = dinotxt.visual_state_dict(sd) if is_dinotxt else sd
         with clock("port"):
-            tree = torch_port.port_dinov2(sd, _num_blocks(sd, "blocks."),
-                                          "register_tokens" in sd)
+            port = dinotxt.port_dinotxt_visual if is_dinotxt else torch_port.port_dinov2
+            tree = port(sd, _num_blocks(inner, "blocks."), "register_tokens" in inner)
     if cfg.embed_dim % cfg.num_heads:
         raise ValueError(f"dino_weights={path!r}: the config's {cfg.num_heads} heads "
                          f"do not split its width {cfg.embed_dim}")
@@ -415,6 +424,71 @@ def _build_clip(config: dict, kind: str, dtype, generator: torch.Generator,
     if kind == "AlphaClip" and "alpha_embed_w" not in params:
         params["alpha_embed_w"] = clip_mod.init_alpha_embed(cfg, generator, device)
     return cfg, params, dict(opts, backbone_type=kind)
+
+
+def _build_regionclip(config: dict, dtype, generator: torch.Generator,
+                      allow_missing_weights: bool, device, clock: _Clock) -> tuple:
+    """RegionCLIP's ModifiedResNet (`patchioner.py:549-577`): (its config,
+    its f32 params, the Patchioner keywords). `regionclip_config.checkpoint`
+    is an openai-CLIP state dict or a RegionCLIP detection checkpoint (the
+    tensors under `model`, the backbone under detectron's `backbone.`);
+    a missing file falls back to seeded random weights only under
+    `allow_missing_weights`."""
+    rc = dict(config["regionclip_config"])
+    cfg = resnet_clip.ResNetClipConfig(img_size=int(config.get("crop_dim", 518)),
+                                       output_dim=int(rc.get("embed_dim", 1024)), dtype=dtype)
+    path = rc.get("checkpoint")
+    if path and os.path.exists(str(path)):
+        sd = _torch_load(str(path), clock)
+        sd = sd.get("model", sd)
+        # detectron-style prefixes (regionclip/loader.py:92-105)
+        sd = {"visual." + k[len("backbone."):] if k.startswith("backbone.") else k: v
+              for k, v in sd.items()}
+        with clock("port"):
+            params = resnet_clip.port_clip_resnet(sd, cfg, prefix="visual.")
+        checkpoints.check_tree(
+            "regionclip_config.checkpoint", str(path), params, resnet_clip.param_template(cfg),
+            f"layers {cfg.layers}, width {cfg.width}, {cfg.heads} heads, output_dim "
+            f"{cfg.output_dim}")
+    elif allow_missing_weights:
+        params = resnet_clip.init_resnet_clip(cfg, generator, device)
+    else:
+        raise FileNotFoundError(f"RegionCLIP checkpoint not found: {path}")
+    return cfg, params, dict(backbone_type="RegionCLIP")
+
+
+def _build_proxyclip(config: dict, dtype, generator: torch.Generator,
+                     allow_missing_weights: bool, device, clock: _Clock) -> tuple:
+    """ProxyCLIP (`patchioner.py:578-631`): the CLIP trunk of
+    `proxyclip_clipmodel` (B/16, B/32 or L/14 at 224 px) and the VFM of
+    `proxyclip_vfm`, 'dinov2' as DINOv2 ViT-B/14 with registers and 'dino'
+    as ViT-B/14 without (the JAX package's mapping of DINO v1), at
+    `crop_dim`. `clip_weights` (the openai layout) and `dino_weights` (a
+    hub `.pth` or an `.npz`) are read where they exist; a missing one falls
+    back to seeded random weights only under `allow_missing_weights`, else
+    FileNotFoundError."""
+    name = config["proxyclip_clipmodel"]
+    patch = 14 if "/14" in name else (32 if "/32" in name else 16)
+    ccfg = clip_mod.ClipVisionConfig(img_size=224, patch_size=patch, dtype=dtype,
+                                     **_clip_size("ViT-L" in name))
+    variant = "dinov2_vitb14_reg" if config.get("proxyclip_vfm", "dinov2") == "dinov2" \
+        else "dinov2_vitb14"
+    cfg = proxyclip_mod.ProxyClipConfig(
+        clip=ccfg, vfm=vit.config_for(variant, img_size=int(config.get("crop_dim", 518)),
+                                      dtype=dtype),
+        beta=float(config.get("proxyclip_beta", 1.2)),
+        gamma=float(config.get("proxyclip_gamma", 3.0)))
+    paths = [config.get(k) for k in ("clip_weights", "dino_weights")]
+    found = [bool(p) and os.path.exists(str(p)) for p in paths]
+    if not (all(found) or allow_missing_weights):
+        raise FileNotFoundError("ProxyCLIP needs 'clip_weights' (openai layout) and "
+                                "'dino_weights' locally")
+    params = {
+        "clip": (_load_clip(str(paths[0]), "openai", ccfg, clock) if found[0]
+                 else clip_mod.init_clip_vision(ccfg, generator, device)),
+        "vfm": (_load_dino(str(paths[1]), cfg.vfm, clock) if found[1]
+                else vit.init_vit(cfg.vfm, generator, device))}
+    return cfg, params, dict(backbone_type="ProxyCLIP")
 
 
 def _load_decap(path: str, cfg: gpt2.GPT2Config, prefix_size: int,
@@ -895,12 +969,19 @@ class Patchioner:
 
         kind = _backbone_type(config)
         if kind != "DINO":
-            vit_cfg, vit_params, backbone = _build_clip(config, kind, dtype, gen(0),
-                                                        allow_missing_weights, device, clock)
+            build = {"RegionCLIP": _build_regionclip, "ProxyCLIP": _build_proxyclip}.get(
+                kind, functools.partial(_build_clip, kind=kind))
+            vit_cfg, vit_params, backbone = build(config, dtype=dtype, generator=gen(0),
+                                                  allow_missing_weights=allow_missing_weights,
+                                                  device=device, clock=clock)
         else:
             backbone = {}
+            # DINO.txt serves its inner DINOv2 ViT-L/14 with registers
+            # (src/model.py:345-346); its bank is read with columns [1024:]
+            is_dinotxt = "dinotxt" in config["dino_model"]
             vit_cfg = vit.config_for(
-                config["dino_model"], img_size=int(config.get("crop_dim", 518)),
+                "dinov2_vitl14_reg" if is_dinotxt else config["dino_model"],
+                img_size=int(config.get("crop_dim", 518)),
                 dtype=dtype, **_encoder_options(config),
                 **dict(config.get("dino_geometry") or {}))
             widest = _MAX_EMBED_DIM[vit_cfg.ffn]
@@ -910,7 +991,7 @@ class Patchioner:
                     f"kernel {'G' if vit_cfg.ffn == 'swiglu' else 'C'} takes D <= {widest}")
             path = config.get("dino_weights")
             if path and os.path.exists(str(path)):
-                vit_params = _load_dino(str(path), vit_cfg, clock)
+                vit_params = _load_dino(str(path), vit_cfg, clock, is_dinotxt)
             elif allow_missing_weights:
                 vit_params = vit.init_vit(vit_cfg, gen(0), device)
             else:
@@ -1021,11 +1102,18 @@ class Patchioner:
             diag_last_layers=self.diag_last_layers, skip_ln_post=self.skip_ln_post)
 
     def supports_fused_trace_path(self) -> bool:
-        """True for DeCap over a support memory on the DINO backbone; a CLIP
+        """True for DeCap over a support memory on the DINO backbone; another
         backbone, a ViECap, MeaCap or ClipCap model, or one without a bank,
         captions through `forward` (`patchioner.py:1369-1381`)."""
         return (self.backbone_type == "DINO" and self.viecap is None and self.clipcap is None
                 and self.bank is not None)
+
+    @property
+    def mixes_batch(self) -> bool:
+        """True when an image's features depend on its batchmates:
+        ProxyCLIP's affinity takes its mean over the whole batch
+        (proxyclip.py:101-104), so the server pads no batch of it."""
+        return self.backbone_type == "ProxyCLIP"
 
     def state(self) -> dict:
         return entry.make_state(self.vit_params, self.decoder, self.bank,
@@ -1052,7 +1140,7 @@ class Patchioner:
         """One fused step with `pool` over the images and the pool's
         arrays (f32 on the model's device); a caption string per row."""
         if not self.supports_fused_trace_path():
-            raise ValueError("this model has no fused caption path (a CLIP backbone, a "
+            raise ValueError("this model has no fused caption path (a non-DINO backbone, a "
                              "ViECap, MeaCap or ClipCap decoder, or no support memory): "
                              "caption through forward()")
         step = entry.make_caption_step(
@@ -1114,9 +1202,19 @@ class Patchioner:
         uint8 normalised on the device), with `self_attn` (B, P), the
         CLS->patch attention row, and `self_attn_maps` (B, H, P) softmaxed
         per head. A CLIP tower's `x_norm_regtokens` is empty (B, 0, P), and
-        AlphaCLIP encodes the whole image (an all-ones alpha). Twin of
-        `patchioner.py:1085`."""
+        AlphaCLIP encodes the whole image (an all-ones alpha). RegionCLIP
+        gives its CLS and patch tokens alone, ProxyCLIP its patch tokens
+        alone: neither has an attention to extract (src/model.py:784-786,
+        863-866). Twin of `patchioner.py:1085`."""
         pixels = self._pixels(imgs)
+        if self.backbone_type == "RegionCLIP":
+            return resnet_clip.resnet_spatial_forward(
+                self.vit_params, pixels, self.vit_cfg,
+                use_attnpool_for_spatial_feats=(self.config.get("regionclip_config") or {}).get(
+                    "use_attnpool_for_spatial_feats", True))
+        if self.backbone_type == "ProxyCLIP":
+            return proxyclip_mod.proxyclip_forward(self.vit_params["clip"], self.vit_params["vfm"],
+                                                   pixels, self.vit_cfg)
         if self.backbone_type == "DINO":
             outs = vit.vit_forward(self.vit_params, pixels, self.vit_cfg)
         else:
@@ -1136,6 +1234,71 @@ class Patchioner:
         outs["self_attn"] = self_attn
         outs["self_attn_maps"] = torch.softmax(maps, dim=-1)
         return outs
+
+    @torch.no_grad()
+    def analyze_feature_compatibility(self, imgs, analyze_layers: bool = True) -> dict:
+        """RegionCLIP's layer3-against-layer4 diagnostic (src/model.py:1438-1528;
+        twin of `patchioner.py:1149`): per layer its spatial resolution,
+        width and patch count, and with a bank of the features' width the
+        CLS token's and the patch mean's projections (kernel D, or H over an
+        int8 bank, at unit norm, no inversion), their similarities to the
+        stored rows, their norms, and the variability of the features and
+        of the projections (Bessel-corrected, as torch.std). Under res5 both
+        rows read layer4's attention-pool features, as the reference's do
+        (its default `use_attnpool_for_spatial_feats`); only the nominal
+        patch size differs. Images as `encode_images` takes them. Another
+        backbone prints a notice and gets {}."""
+        if self.backbone_type != "RegionCLIP":
+            print("Feature compatibility analysis only available for RegionCLIP ResNet models")
+            return {}
+        pixels = self._pixels(imgs)
+        # {row name: use_layer3}; the nominal patch size names the row
+        layers = ({"layer3": True, "layer4": False} if analyze_layers else
+                  {"layer3" if self.patch_size == 16 else "layer4": self.patch_size == 16})
+        res5_out = (self.config.get("regionclip_config") or {}).get("res5_out", True)
+        results = {}
+        for name, use_layer3 in layers.items():
+            outs = resnet_clip.resnet_spatial_forward(self.vit_params, pixels, self.vit_cfg,
+                                                      use_layer3=use_layer3, res5_out=res5_out)
+            feats, cls_feats = outs["x_norm_patchtokens"], outs["x_norm_clstoken"]
+            res = {"spatial_resolution": "{0}x{0}".format(int(feats.shape[1] ** 0.5)),
+                   "embed_dim": int(feats.shape[-1]), "num_patches": int(feats.shape[1])}
+            if self.bank is not None and feats.shape[-1] == self.bank.rows.shape[-1]:
+                state = self.state()
+                patch_mean = feats.mean(dim=1)
+                proj_patches, proj_cls = (entry.project(state, x, self.bank.num_real,
+                                                        normalize=True)
+                                          for x in (patch_mean, cls_feats))
+                # against the stored rows, not at unit norm (src/model.py:1495-1496)
+                rows = self._bank_real_rows()
+                cls_sims, patch_sims = proj_cls.float() @ rows.T, proj_patches.float() @ rows.T
+
+                def norm(x):
+                    return float(torch.linalg.vector_norm(x.float(), dim=1).mean())
+
+                feature_std = float(feats.reshape(-1, feats.shape[-1]).float().std(dim=0).mean())
+                projection_std = float(proj_patches.float().std(dim=0).mean())
+                res.update({
+                    "cls_max_similarity": float(cls_sims.amax(dim=1).mean()),
+                    "cls_mean_similarity": float(cls_sims.mean()),
+                    "patch_max_similarity": float(patch_sims.amax(dim=1).mean()),
+                    "patch_mean_similarity": float(patch_sims.mean()),
+                    "cls_feature_norm": norm(cls_feats), "patch_feature_norm": norm(patch_mean),
+                    "cls_projected_norm": norm(proj_cls),
+                    "patch_projected_norm": norm(proj_patches),
+                    "feature_variability": feature_std,
+                    "projection_variability": projection_std,
+                    "projection_efficiency": projection_std / (feature_std + 1e-8)})
+            results[name] = res
+        return results
+
+    def _bank_real_rows(self) -> torch.Tensor:
+        """The bank's real rows in f32 as stored (int8 rows dequantized):
+        the reference's `im_proj.embs_dataset`."""
+        rows = self.bank.rows[:self.bank.num_real].float()
+        if isinstance(self.bank, memproj.QuantizedBank):
+            rows = rows * self.bank.scale[:self.bank.num_real]
+        return rows
 
     @torch.no_grad()
     def project_features(self, feats: torch.Tensor, project: bool = True,
@@ -1252,6 +1415,8 @@ class Patchioner:
                 outs[score_key] = [scores[i * per:(i + 1) * per] for i in range(bs)]
 
         if get_cls_capt:
+            if "x_norm_clstoken" not in enc:
+                raise ValueError(f"backbone {self.backbone_type} emits patch tokens only")
             emit("cls_capt", enc["x_norm_clstoken"])
         if get_avg_self_attn_capt:
             emit("avg_self_attn_capt", (self_attn[..., None] * patch_tokens).mean(dim=1))

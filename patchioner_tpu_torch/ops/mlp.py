@@ -202,10 +202,10 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
     bf16 = x.dtype == torch.bfloat16
     # bf16: 128-wide wgmma tiles of D and H; f32: the SIMT kernel's tiles
     if tuple(w2.shape) != (h, d) or (d % 128 or h % 128 if bf16 else
-                                     d % 32 or d > 768 or h % 32):
+                                     d % 32 or d > 1024 or h % 32):
         raise ValueError(
             f"fused_ln_mlp: needs w2 (H, D) and D % 128 == 0, H % 128 == 0 in "
-            f"bfloat16, or D % 32 == 0, D <= 768, H % 32 == 0 in float32; got "
+            f"bfloat16, or D % 32 == 0, D <= 1024, H % 32 == 0 in float32; got "
             f"{x.dtype}, D={d}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}"
         )
     rows = x.numel() // d

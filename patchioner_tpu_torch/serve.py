@@ -12,7 +12,9 @@ batch shapes) and runs the model's fused path for that kind
 without them (a CLIP backbone, a ViECap decoder, or no support memory)
 `forward`, with the flags the JAX server passes (`patchioner_tpu/serve.py:547-605`). Padding rows and
 padding boxes are cut off before delivery, so a request's caption does not
-depend on its neighbours in the batch.
+depend on its neighbours in the batch; a model whose `mixes_batch` is true
+(ProxyCLIP, whose features do depend on them) gets its batches unpadded,
+where the JAX server pads them too.
 
 `warmup` runs dummy batches of each bucket before traffic arrives, on the
 worker thread: CUDA libraries keep some state per host thread, which a
@@ -395,7 +397,10 @@ class CaptionServer:
 
     def _run_group(self, group: list, mode: str, record_stats: bool = True) -> list:
         n = len(group)
-        nb = self._bucket(n)
+        # a model whose images' features depend on their batchmates
+        # (ProxyCLIP's affinity takes its mean over the batch) gets no
+        # padding rows, which would move the real rows' captions
+        nb = n if getattr(self.model, "mixes_batch", False) else self._bucket(n)
         if record_stats:
             with self._stats_lock:
                 self.stats.batches += 1

@@ -390,10 +390,14 @@ def test_a_dinov2_model_takes_precedence_over_the_clip_keys():
     assert pm.extract_heads == pm.vit_cfg.extract_heads
 
 
+# RegionCLIP, ProxyCLIP and DINO.txt are the port's backbones; each is
+# refused with a key the port does not take
 @pytest.mark.parametrize("extra", [
-    {"dino_model": "RN50_regionclip", "regionclip_config": {"embed_dim": 1024}},
-    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "proxyclip_vfm": "dino"},
-    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l"},
+    {"dino_model": "RN50_regionclip", "regionclip_config": {"embed_dim": 1024},
+     "encoder_w8a8": True},
+    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "proxyclip_vfm": "dino",
+     "attention_type": "kkv"},
+    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "calculate_argmax_text": True},
     {"dino_model": "resnet50"},
     {"attention_type": "kkv"},
     {"encoder_w8a8": True},

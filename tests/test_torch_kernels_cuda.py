@@ -23,7 +23,9 @@ the graphs kept stay one a bucket. One decoder training step on the card
 same step on the CPU under chip_smoke's f32 gate.
 
 A CLIP-backbone DeCap model (the tower plain torch, kernel D over a
-512-wide bank) runs `forward` on the card as on the CPU in f32.
+512-wide bank) runs `forward` on the card as on the CPU in f32, and so do
+RegionCLIP (cuDNN's TF32 off), ProxyCLIP (its VFM on A, B and C) and
+DINO.txt's ViT-L (A, B, C at D = 1024 and D over a 1024-wide bank).
 
 ViECap's searches (plain torch, no kernel) run on the card as on the CPU:
 on a small f32 GPT-2 whose wte is scaled so that no step is a near-tie,
@@ -119,6 +121,31 @@ def test_ln_mlp_kernel(cuda, dtype, d, gelu_approx):
     kw = dict(eps=1e-6, gelu_approx=gelu_approx)
     got = _counted(mlp.fused_ln_mlp, lambda: mlp.fused_ln_mlp(*args, **kw))
     _check(got, mlp.ln_mlp_plain(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("d", [768, 1024])
+def test_ln_mlp_f32_kernel_at_the_flagship_and_vit_l_width(cuda, d):
+    # C's f32 SIMT body: 24 columns a thread for D <= 768 (the flagship's
+    # instantiation), 32 with W2 staged 8 rows at a time up to D = 1024
+    # (ViT-L); 154 rows, a ragged last block of 32
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, dtype = 4 * d, torch.float32
+    args = (_randn(gen, 2, 77, d, dtype=dtype), 1 + _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            _randn(gen, d, h, dtype=dtype, scale=d ** -0.5),
+            _randn(gen, h, dtype=dtype, scale=0.1),
+            _randn(gen, h, d, dtype=dtype, scale=h ** -0.5),
+            _randn(gen, d, dtype=dtype, scale=0.1),
+            1 + _randn(gen, d, dtype=dtype, scale=0.1))
+    got = _counted(mlp.fused_ln_mlp, lambda: mlp.fused_ln_mlp(*args, eps=1e-6))
+    _check(got, mlp.ln_mlp_plain(*args, eps=1e-6), dtype)
+    w = 1056  # past the widest instantiation: refused, never launched
+    wide = [_randn(gen, *shape, dtype=dtype) for shape in
+            ((1, 32, w), (w,), (w,), (w, 128), (128,), (128, w), (w,), (w,))]
+    before = mlp.fused_ln_mlp.launches
+    with pytest.raises(ValueError, match="D <= 1024"):
+        mlp.fused_ln_mlp(*wide, eps=1e-6)
+    assert mlp.fused_ln_mlp.launches == before
 
 
 # N = 200 and 1374 are ragged against the 128-query and the 64-key tiles of
@@ -468,6 +495,59 @@ def test_clip_model_on_the_card_matches_the_cpu(cuda):
               get_register_capts=True)  # a CLIP tower has none: no row to project
     out = gpu.forward(imgs, **kw)
     assert out == cpu.forward(imgs, **kw) and out["register_capts"] == [[], [], []]
+
+
+BACKBONE_FAMILY = {
+    "RegionCLIP": {"dino_model": "RN50_regionclip", "crop_dim": 64, "prefix_size": 1024,
+                   "regionclip_config": {"embed_dim": 1024}},
+    "ProxyCLIP": {"proxyclip_clipmodel": "ViT-B/16", "proxyclip_vfm": "dinov2", "crop_dim": 56,
+                  "prefix_size": 512},
+    "DINO.txt": {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "crop_dim": 56,
+                 "dino_geometry": {"depth": 2}, "prefix_size": 1024},
+}
+
+
+@pytest.mark.parametrize("name", BACKBONE_FAMILY)
+def test_backbone_family_on_the_card_matches_the_cpu(cuda, name):
+    # random weights at full width, f32 (TF32 off in the matmuls and in
+    # cuDNN's convolutions): the encoder's tokens and the projected prefix
+    # of the whole image within 1e-4 * max(1, max|ref|), and forward's
+    # captions equal; ProxyCLIP on 2 x 2 mosaics of flat colours, where
+    # every row of its affinity keeps at least 10% off the diagonal
+    from patchioner_tpu_torch.models import proxyclip
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    config = dict(BACKBONE_FAMILY[name], support_memory_size=3000, normalize=False,
+                  decap_arch={"n_layer": 2, "n_embd": 128, "n_head": 4, "vocab_size": 1000})
+    gpu = Patchioner.from_config(config, allow_missing_weights=True, device="cuda")
+    gpu.decoder.gpt2["wte"] *= 10  # sharp logits: no greedy step is a near-tie
+    gpu = gpu.to("cuda")
+    cpu = gpu.to("cpu")
+    crop = config["crop_dim"]
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, (3, crop, crop, 3), dtype=np.uint8)
+    if name == "ProxyCLIP":
+        tiles = np.repeat(np.repeat(rng.integers(0, 256, (3, 2, 2, 3)), crop // 2, 1),
+                          crop // 2, 2)
+        imgs = np.clip(tiles + rng.integers(-20, 21, tiles.shape), 0, 255).astype(np.uint8)
+        cfg = cpu.vit_cfg
+        feats = vit.vit_forward(cpu.vit_params["vfm"], cpu._pixels(imgs), cfg.vfm)
+        affinity = proxyclip.proxy_affinity(feats["x_norm_patchtokens"], cfg.beta, cfg.gamma)
+        assert (1 - torch.diagonal(affinity, dim1=-2, dim2=-1)).min() >= 0.1
+    enc, ref = gpu.encode_images(imgs), cpu.encode_images(imgs)
+    whole = "x_norm_patchtokens" if name == "ProxyCLIP" else "x_norm_clstoken"
+    for key in {"x_norm_patchtokens", whole}:
+        assert (enc[key].cpu() - ref[key]).abs().max() <= 1e-4 * max(1.0, ref[key].abs().max())
+    feats, want = enc[whole], ref[whole]
+    if name == "ProxyCLIP":
+        feats, want = feats.mean(dim=1), want.mean(dim=1)
+    got = _counted(mp.memory_project_streamed, lambda: gpu.project_features(feats)).cpu()
+    want = cpu.project_features(want)
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    kw = dict(get_cls_capt=name != "ProxyCLIP", get_avg_patch_capt=True,
+              bboxes=np.asarray([[[0, 0, 14, 14], [7, 7, 21, 20]]] * 3, np.float32),
+              traces=[[(0.2, 0.3), (0.7, 0.6)]] * 3)
+    assert gpu.forward(imgs, **kw) == cpu.forward(imgs, **kw)
 
 
 @pytest.mark.parametrize("opts", [

@@ -170,13 +170,15 @@ def test_shipped_viecap_config_builds():
 
 
 # a DINOv2 `dino_model` wins over every other backbone key, as in the JAX
-# builder, so the other backbones' cases name theirs
+# package's `from_config`, so the other backbones' cases name theirs; each
+# backbone the port takes is refused with a key it does not
 @pytest.mark.parametrize("extra", [
-    {"dino_model": "RN50_regionclip", "regionclip_config": {"config": "RN50"}},
+    {"dino_model": "RN50_regionclip", "regionclip_config": {"config": "RN50"},
+     "attention_type": "kkv"},
     {"viecap": {"hard_prompt_pad_multiple": 8}},
-    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l"},
-    {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg"},
-    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16"},
+    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "softmax_f32": False},
+    {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg", "encoder_w8a8": True},
+    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "calculate_argmax_text": True},
     {"calculate_argmax_text": True},
     {"encoder_w8a8": True}, {"softmax_f32": False},
     {"dino_model": "resnet50"}, {"an_unknown_key": 1},
@@ -196,30 +198,34 @@ CLIP_CONFIGS = ["decap_B16.k.yaml", "decap_B16_resize.k.yaml", "decap_B32.k.yaml
                 "meacap_invlm_b16_37patches.k.yaml"]
 
 
+# the backbone `_backbone_type` picks for each shipped config outside the
+# DINOv2 and CLIP ones
+OTHER_BACKBONES = {"regionclip_resnet50_p32_512.k.yaml": "RegionCLIP",
+                   "proxyclip_b16.k.yaml": "ProxyCLIP", "proxyclip_b16_dinov2.k.yaml": "ProxyCLIP",
+                   "dinotxt.yaml": "DINO"}
+
+
 @pytest.mark.parametrize("path", ["mlp.k.yaml", "mlp.k.tpu-serving.yaml", "mlp.viecap.k.yaml",
-                                  "mlp_noise.k.yaml", "mlp.meacap.k.yaml", *CLIP_CONFIGS])
-def test_the_port_takes_eighteen_shipped_configs(path):
-    """The shipped configs whose keys the port takes: on DINOv2 the flagship
+                                  "mlp_noise.k.yaml", "mlp.meacap.k.yaml", *CLIP_CONFIGS,
+                                  *OTHER_BACKBONES])
+def test_the_port_takes_all_twenty_two_shipped_configs(path):
+    """Every shipped config's keys are the port's: on DINOv2 the flagship
     and its int8 serving twin, ViECap, the noisy DeCap (`kkv_attention`,
-    ignored) and MeaCap; on the CLIP tower DeCap (OpenAI CLIP B/16 and
-    B/32, INViTE, AlphaCLIP, DenseCLIP), ViECap and MeaCap. Each builds on
-    the CPU here or in test_torch_meacap.py, test_torch_checkpoints.py and
-    test_torch_clip.py. RegionCLIP, ProxyCLIP and DINO.txt are refused."""
+    ignored), MeaCap and DINO.txt (ViT-L); on the CLIP tower DeCap (OpenAI
+    CLIP B/16 and B/32, INViTE, AlphaCLIP, DenseCLIP), ViECap and MeaCap;
+    RegionCLIP's ResNet and ProxyCLIP. Each builds on the CPU here or in
+    test_torch_meacap.py, test_torch_checkpoints.py, test_torch_clip.py and
+    test_torch_backbone_family.py."""
     with open(os.path.join(REPO, "configs", path)) as f:
         config = yaml.safe_load(f)
     patchioner._check_config(config)
     assert ("kkv_attention" in config) == (path == "mlp_noise.k.yaml")
     assert ("meacap" in (config.get("viecap") or {})) == ("meacap" in path)
-    assert (patchioner._backbone_type(config) == "DINO") == (path not in CLIP_CONFIGS)
-
-
-@pytest.mark.parametrize("path", ["regionclip_resnet50_p32_512.k.yaml", "proxyclip_b16.k.yaml",
-                                  "proxyclip_b16_dinov2.k.yaml", "dinotxt.yaml"])
-def test_the_port_refuses_the_other_four_shipped_configs(path):
-    with open(os.path.join(REPO, "configs", path)) as f:
-        config = yaml.safe_load(f)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        patchioner._check_config(config)
+    kind = patchioner._backbone_type(config)
+    if path in OTHER_BACKBONES:
+        assert kind == OTHER_BACKBONES[path]
+    else:
+        assert (kind == "DINO") == (path not in CLIP_CONFIGS)
 
 
 def test_missing_weights_need_the_explicit_opt_in():
@@ -298,11 +304,20 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
 
 
 def test_vit_l_is_refused_until_kernel_c_takes_d_1024():
-    for variant in ("dinov2_vitl14", "dinov2_vitl14_reg"):
-        with pytest.raises(NotImplementedError, match="kernel C"):
-            Patchioner.from_config(dict(SERVER_CONFIG, dino_model=variant),
-                                   allow_missing_weights=True, random_bank_size=8,
-                                   device="cpu")
+    """The rule the name states: a ViT is refused while kernel C cannot
+    take its width. C's f32 body takes D <= 1024, so both ViT-L variants
+    build (16 heads of 64, hidden 4096), and a wider MLP encoder (D =
+    1056) is refused."""
+    for variant, regs in (("dinov2_vitl14", 0), ("dinov2_vitl14_reg", 4)):
+        m = Patchioner.from_config(dict(SERVER_CONFIG, dino_model=variant, prefix_size=1024,
+                                        dino_geometry={"depth": 1}),
+                                   allow_missing_weights=True, random_bank_size=8, device="cpu")
+        assert (m.vit_cfg.embed_dim, m.vit_cfg.num_heads, m.vit_cfg.num_registers,
+                m.vit_cfg.ffn_hidden) == (1024, 16, regs, 4096)
+    with pytest.raises(NotImplementedError, match="kernel C"):
+        Patchioner.from_config(dict(SERVER_CONFIG, dino_model="dinov2_vitl14_reg",
+                                    dino_geometry={"embed_dim": 1056}),
+                               allow_missing_weights=True, random_bank_size=8, device="cpu")
 
 
 _NO_CARD = """
