@@ -258,7 +258,24 @@ then exits non-zero without the final result line:
    its checkpoint) over 591,753 x 1024: trace, box, region-set and
    whole-image requests on the fused steps, A, B and C 24 launches and D
    one a batch, a whole-image batch's split, f32 card against CPU at full
-   width and 4 layers.
+   width and 4 layers;
+15. training through the kernels (`[align grad ...]` and `[proof ...]`
+   lines): 15a, one FULL-width batch of 64 of the convergence proof's
+   contrastive alignment (ViT-S, D = 384, 12 layers, 17 tokens; the 256 x
+   4 text tower) through A, B and C's autograd Functions and through their
+   plain versions under autograd, from one init with the layerscale drawn
+   near 1: loss, accuracy and every leaf's gradient under phase 5's gate,
+   every ViT leaf's gradient within 1e-4 of its own largest (each kind's
+   range of sizes printed), finite, and every weight matrix's non-zero, A,
+   B and C 12 launches each, a backward of A, B or C with one term of its
+   derivative dropped failing that gate, A's output carrying its
+   Function's node and E refusing a grad-requiring call, with both routes' forward + backward times and a whole step's
+   device time and idle share under the profiler; 15b,
+   `scripts/convergence_proof_torch.run_proof` at FULL scale (align 800
+   steps, DeCap 4L/4H/768 through `train/cli.py`, the ViECap mapper on a
+   frozen 12L/768 GPT-2, the trace evaluator and the shuffled control),
+   every threshold of tests/test_convergence.py asserted, each stage's
+   seconds and peak memory, align steps/s.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -2664,10 +2681,11 @@ def _whole_image_split(model, imgs, label: str, smi: str, patch_mean: bool = Fal
     return ms
 
 
-def _encoder_kernels(fn, smi: str, top: int = 6) -> None:
-    """The plain CLIP tower's device time by kernel in one call of fn()
-    (torch.profiler): the total, the idle share of the call's wall, and the
-    `top` kernels by time."""
+def _encoder_kernels(fn, smi: str, top: int = 6, label: str = "clip",
+                     what: str = "encoder") -> None:
+    """The device time by kernel in one call of fn() (torch.profiler; the
+    plain CLIP tower by default): the total, the idle share of the call's
+    wall, and the `top` kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2681,11 +2699,11 @@ def _encoder_kernels(fn, smi: str, top: int = 6) -> None:
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     device = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"[clip] encoder under the profiler: {device:.2f} ms of device time in "
+    log(f"[{label}] {what} under the profiler: {device:.2f} ms of device time in "
         f"{sum(e.count for e in events)} kernels, wall {wall:.2f} ms, idle share "
         f"{max(0.0, 1 - device / wall):.3f}; {smi}")
     for e in events[:top]:
-        log(f"[clip]   {e.self_device_time_total / 1e3:8.3f} ms in {e.count:4d} x "
+        log(f"[{label}]   {e.self_device_time_total / 1e3:8.3f} ms in {e.count:4d} x "
             f"{e.key[:90]}")
 
 
@@ -3914,6 +3932,301 @@ def phase_backbones(seed: int, smi: str, directory: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 15
+
+# the convergence proof's gates, tests/test_convergence.py's thresholds:
+# (name, the value's path in the proof's info, what it is held to)
+PROOF_GATES = (
+    ("align retrieval", ("align_retrieval_acc",), lambda v, i: v >= 0.85),
+    ("decoder loss halves", ("decoder_last_epoch", "loss"),
+     lambda v, i: v < 0.5 * i["decoder_first_epoch"]["loss"]),
+    ("decoder accuracy", ("decoder_last_epoch", "acc"), lambda v, i: v >= 0.95),
+    ("train exact", ("reconstruction", "train_exact_match"), lambda v, i: v >= 0.85),
+    ("train token accuracy", ("reconstruction", "train_token_acc"), lambda v, i: v >= 0.9),
+    ("held-out exact", ("reconstruction", "held_out_exact_match"), lambda v, i: v >= 0.5),
+    ("held-out token accuracy", ("reconstruction", "held_out_token_acc"),
+     lambda v, i: v >= 0.7),
+    ("eval exact", ("eval_exact_match",), lambda v, i: v >= 0.5),
+    ("CIDEr", ("eval_scores", "CIDEr"),
+     lambda v, i: v >= 4.0 and v >= 3.0 * i["control_scores"]["CIDEr"]),
+    ("Bleu_4 over the control's", ("eval_scores", "Bleu_4"),
+     lambda v, i: v >= 2.0 * i["control_scores"]["Bleu_4"]),
+    ("mapper loss falls", ("viecap_mapper", "last_epoch", "loss"),
+     lambda v, i: v <= i["viecap_mapper"]["first_epoch"]["loss"] - 0.15),
+    ("mapper accuracy", ("viecap_mapper", "last_epoch", "acc"),
+     lambda v, i: v >= 1.5 * max(i["viecap_mapper"]["first_epoch"]["acc"], 0.05)),
+    ("held-out images Bleu_1", ("held_out_image_scores", "Bleu_1"), lambda v, i: v >= 0.5),
+)
+
+
+class _PlainEncoder:
+    """Kernels A, B and C swapped for their plain versions in the ViT while
+    the block runs (the reference run of 15a: autograd differentiates
+    them)."""
+
+    def __enter__(self):
+        from patchioner_tpu_torch.models import vit
+        from patchioner_tpu_torch.ops import attention, mlp
+
+        self.saved = (vit.fused_ln_dense, vit.fused_ln_mlp, attention.fused_qkv_attention)
+        vit.fused_ln_dense, vit.fused_ln_mlp = mlp.ln_dense_plain, mlp.ln_mlp_plain
+        attention.fused_qkv_attention = attention.qkv_attention_plain
+
+    def __exit__(self, *exc):
+        from patchioner_tpu_torch.models import vit
+        from patchioner_tpu_torch.ops import attention
+
+        vit.fused_ln_dense, vit.fused_ln_mlp, attention.fused_qkv_attention = self.saved
+
+
+def _align_setup(seed: int):
+    """The FULL proof's alignment config and one batch of its 64 train
+    combos on the card: (config, pixels, masks, tokens)."""
+    from patchioner_tpu_torch.models import clip, vit
+    from patchioner_tpu_torch.train import align, synthetic
+    from scripts import convergence_proof_torch as cp
+
+    full = cp.FULL
+    vcfg = vit.config_for("dinov2_vits14", img_size=cp.IMG_SIZE, **full.vit_geometry)
+    acfg = align.AlignConfig(
+        vit=vcfg, text=clip.ClipTextConfig(context_length=16, width=full.text_width,
+                                           depth=full.text_depth, heads=full.text_heads,
+                                           proj_dim=vcfg.embed_dim),
+        steps=full.align_steps, batch=full.align_batch)
+    combos, _ = synthetic.split_combos(synthetic.all_combos(), full.held_out, seed=seed)
+    rng = np.random.default_rng(seed + 15)
+    idx = rng.permutation(len(combos))[:acfg.batch]
+    pixels = synthetic.render_training_batch([combos[i] for i in idx], rng, cp.IMG_SIZE)
+    tokens, masks = align.tokens_and_masks(acfg, combos, vcfg.grid_size)
+    return acfg, *(torch.from_numpy(a).to("cuda") for a in (pixels, masks[idx], tokens[idx]))
+
+
+def _vit_leaf_errors(got: dict, ref: dict) -> dict:
+    """{ViT leaf: (max|got - ref|, max|ref|)} over the ViT leaves of two
+    {path: gradient} trees."""
+    out = {}
+    for name, g in got.items():
+        if name.startswith("['vit']"):
+            r = ref[name].float()
+            out[name] = ((g.detach().cpu().float() - r).abs().max().item(),
+                         r.abs().max().item())
+    return out
+
+
+def _over_own_gate(errors: dict) -> list:
+    """The ViT leaves outside the gate on their own size, max|d| <= 1e-4 *
+    max|ref| of the leaf (an all-zero reference leaf must match exactly)."""
+    return [name for name, (err, size) in errors.items() if not err <= 1e-4 * size]
+
+
+def _drop_ln_projection(gy, x_hat, rstd, scale):
+    """LayerNorm's backward without its projection term, -x_hat *
+    mean(gxh * x_hat): the mutant of A's backward in 15a."""
+    gxh = gy * scale
+    return rstd * (gxh - gxh.mean(-1, keepdim=True)), (gy * x_hat).sum(0), gy.sum(0)
+
+
+def _backward_mutants():
+    """(kernel, the term dropped, (module, attribute, replacement)) for each
+    of A, B and C: a backward with one term of its derivative dropped,
+    swapped in by attribute so that only that kernel's backward sees it."""
+    import math
+
+    from patchioner_tpu_torch.ops import attention, mlp
+
+    real_dense = mlp.ln_dense_backward
+
+    def dense_without_projection(*args, **kw):
+        real, mlp._ln_backward = mlp._ln_backward, _drop_ln_projection
+        try:
+            return real_dense(*args, **kw)
+        finally:
+            mlp._ln_backward = real
+
+    return (
+        ("A", "LayerNorm's projection term",
+         (mlp, "ln_dense_backward", dense_without_projection)),
+        ("B", "softmax's row-sum term",
+         (attention, "_softmax_backward", lambda p, gp: p * gp)),
+        ("C", "GELU's h * phi(h) term",
+         (mlp, "_gelu_grad", lambda h, approx: 0.5 * (1.0 + torch.erf(h / math.sqrt(2.0))))),
+    )
+
+
+def phase_align_gate(seed: int, smi: str) -> int:
+    """Phase 15a: one FULL-width align batch of 64 through A, B and C's
+    autograd Functions and through their plain versions under autograd, the
+    same init with the layerscale drawn near 1: loss, accuracy and every
+    leaf's gradient under the gate, every ViT leaf's gradient also within
+    1e-4 of its own largest, finite, and every weight matrix's non-zero;
+    A, B and C 12 launches each in the forward that the backward runs on;
+    a backward of A, B or C with one term dropped failing the ViT leaves'
+    gate; E refusing a grad-requiring call. Returns the layers'
+    launches."""
+    from patchioner_tpu_torch.io.checkpoints import flatten_tree
+    from patchioner_tpu_torch.ops import mlp
+    from patchioner_tpu_torch.train import align
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 15 holds the kernels to the plain versions in f32: "
+                             "TF32 must be off")
+    acfg, pixels, masks, tokens = _align_setup(seed)
+    batch = (pixels, masks, tokens)
+    params = align.init_align(acfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    # init_vit's layerscale of 1e-5 scales every gradient inside a block by
+    # about 1e-5, under the gate's floor of 1e-4; draw it per channel near 1
+    # on both copies, as phase 5 does
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    for blk in params["vit"]["blocks"]:
+        for key in ("ls1", "ls2"):
+            blk[key] = 1 + 0.1 * torch.randn(blk[key].shape, generator=gen, device="cuda")
+    for _, leaf in flatten_tree(params):
+        leaf.requires_grad_(True)
+    ref = _tree_copy(params, "cuda")
+    for _, leaf in flatten_tree(ref):
+        leaf.requires_grad_(True)
+    wrappers = _wrappers()
+    abc = ("ln_dense", "qkv_attention", "ln_mlp")
+
+    def run(p):
+        for _, leaf in flatten_tree(p):
+            leaf.grad = None
+        loss, acc = align.align_loss(p, *batch, acfg)
+        loss.backward()
+        return loss.detach(), acc
+
+    for k in wrappers:
+        wrappers[k].launches = 0
+    loss, acc = run(params)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    with _PlainEncoder():
+        ref_loss, ref_acc = run(ref)
+    torch.cuda.synchronize()
+    if any(w.launches != counts[k] for k, w in wrappers.items()):
+        raise AssertionError("[align grad] the plain run launched a kernel")
+    depth = acfg.vit.depth
+    if {k: counts[k] for k in abc} != dict.fromkeys(abc, depth) or \
+            sum(counts.values()) != 3 * depth:
+        raise AssertionError(f"[align grad] launches {counts}: {depth} each of A, B, C expected")
+    log(f"[align grad] FULL batch of {acfg.batch} (ViT-S {acfg.vit.embed_dim} x "
+        f"{depth}, {acfg.vit.num_tokens} tokens; text {acfg.text.width} x {acfg.text.depth}); "
+        f"A, B, C {depth} launches each in the forward the backward ran on")
+    _gate("align grad", loss[None], ref_loss[None], "loss, kernels vs plain", noun="align")
+    _gate("align grad", acc[None], ref_acc[None], "batch accuracy, kernels vs plain",
+          noun="align")
+    got = {name: leaf.grad for name, leaf in flatten_tree(params)}
+    want = {name: leaf.grad.cpu() for name, leaf in flatten_tree(ref)}
+    _gate_leaves("align grad", got, want, "every gradient leaf, kernels vs plain")
+    errors = _vit_leaf_errors(got, want)
+    kinds = {}
+    for name, (err, size) in errors.items():
+        kind = "['blocks'][*]" + name.split("]", 3)[-1] if "['blocks']" in name else name
+        kinds.setdefault(kind, []).append((err, size))
+    for kind, rows in sorted(kinds.items()):
+        log(f"[align grad] ViT {kind} ({len(rows)} leaves): max|ref| from "
+            f"{min(r[1] for r in rows):.3e} to {max(r[1] for r in rows):.3e}, max|d|/max|ref| "
+            f"at most {max(r[0] / max(r[1], 1e-30) for r in rows):.2e}")
+    outside = _over_own_gate(errors)
+    if outside:
+        raise AssertionError(f"[align grad] ViT leaves outside 1e-4 of their own largest "
+                             f"gradient: {outside}")
+    log(f"[align grad] {len(errors)} ViT leaves within 1e-4 of their own largest gradient")
+    vit_leaves = [(n, g) for n, g in got.items() if n.startswith("['vit']")]
+    for name, g in vit_leaves:
+        if g is None or not torch.isfinite(g).all():
+            raise AssertionError(f"[align grad] ViT leaf {name} has no finite gradient")
+        if g.dim() == 2 and not g.any():
+            raise AssertionError(f"[align grad] ViT weight {name} has an all-zero gradient")
+    log(f"[align grad] {len(vit_leaves)} ViT leaves with finite gradients, "
+        f"{sum(g.dim() == 2 for _, g in vit_leaves)} weight matrices non-zero")
+    # the gate's power: a backward with one term dropped must fail it
+    for kernel, term, (module, attr, mutant) in _backward_mutants():
+        real = getattr(module, attr)
+        setattr(module, attr, mutant)
+        try:
+            run(params)
+        finally:
+            setattr(module, attr, real)
+        errors = _vit_leaf_errors({n: leaf.grad for n, leaf in flatten_tree(params)}, want)
+        outside = _over_own_gate(errors)
+        if not outside:
+            raise AssertionError(f"[align grad] {kernel}'s backward without {term} passed "
+                                 f"the ViT leaves' gate")
+        worst = max(outside, key=lambda n: errors[n][0] / max(errors[n][1], 1e-30))
+        log(f"[align grad] {kernel}'s backward without {term}: {len(outside)} of "
+            f"{len(errors)} ViT leaves fail the gate; worst {worst} max|d|/max|ref| = "
+            f"{errors[worst][0] / max(errors[worst][1], 1e-30):.2e}")
+    x = params["vit"]["blocks"][0]
+    probe = torch.randn(2, 17, acfg.vit.embed_dim, device="cuda")
+    out = mlp.fused_ln_dense(probe, x["norm1"]["scale"], x["norm1"]["bias"], x["qkv"]["w"],
+                             x["qkv"]["b"], eps=acfg.vit.ln_eps)
+    if type(out.grad_fn).__name__ != "_LnDenseBackward":
+        raise AssertionError(f"[align grad] A's output has grad_fn {out.grad_fn}")
+    try:
+        mlp.fused_dense_residual(probe, probe, x["proj"]["w"], x["proj"]["b"], x["ls1"])
+    except NotImplementedError as e:
+        log(f"[align grad] E with a grad-requiring weight raises: {e}")
+    else:
+        raise AssertionError("[align grad] E returned a detached output from a grad-requiring "
+                             "weight")
+    kernel_ms = cuda_ms(lambda: run(params), warmup=2, iters=10)
+    with _PlainEncoder():
+        plain_ms = cuda_ms(lambda: run(ref), warmup=2, iters=10)
+    opt_state = align.make_optimizer(acfg).init(params)
+    step = align.make_align_step(acfg)
+    step_ms = cuda_ms(lambda: step(params, opt_state, *batch), warmup=2, iters=10)
+    log(f"[align grad] forward + backward of the batch: {kernel_ms:.3f} ms through A, B, C "
+        f"and their backwards, {plain_ms:.3f} ms plain; a whole step with AdamW "
+        f"{step_ms:.3f} ms ({1e3 / step_ms:.1f} steps/s without the host render) "
+        f"(CUDA events, median of 10); {smi}")
+    _encoder_kernels(lambda: step(params, opt_state, *batch), smi, top=8, label="align grad",
+                     what="an align step (forward, backward, AdamW)")
+    del params, ref, opt_state
+    torch.cuda.empty_cache()
+    return depth
+
+
+def phase_proof(seed: int, smi: str, directory: str) -> dict:
+    """Phase 15b: `scripts/convergence_proof_torch.run_proof` at FULL scale
+    on the card, every gate of tests/test_convergence.py asserted; each
+    stage's seconds and peak memory, align steps/s. Returns the kernels'
+    launches in the run."""
+    import shutil
+
+    from scripts import convergence_proof_torch as cp
+
+    wrappers = _wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    out = os.path.join(directory, "proof")
+    info = cp.run_proof(out, cp.FULL, seed=seed, device="cuda", verbose=False)
+    counts = {k: w.launches - before[k] for k, w in wrappers.items()}
+    shutil.rmtree(out)
+    for name, secs in info["stage_seconds"].items():
+        log(f"[proof] {name}: {secs:.1f} s, peak {info['peak_memory_gib'][name]:.2f} GiB "
+            f"allocated; {smi}")
+    log(f"[proof] align {cp.FULL.align_steps} steps of {cp.FULL.align_batch}: "
+        f"{info['align_steps_per_s']:.2f} steps/s after the first (host render included); "
+        f"whole proof {info['total_seconds']:.1f} s; {smi}")
+    failed = []
+    for name, path, ok in PROOF_GATES:
+        value = info
+        for key in path:
+            value = value[key]
+        good = bool(ok(value, info))
+        log(f"[proof] {name}: {value:.4f} {'ok' if good else 'FAILED'}")
+        if not good:
+            failed.append(name)
+    cs = info["control_scores"]
+    log(f"[proof] control CIDEr {cs['CIDEr']:.4f}, Bleu_4 {cs['Bleu_4']:.4f}; "
+        f"launches in the run: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if failed:
+        raise AssertionError(f"[proof] gates failed: {failed}")
+    if not all(counts[k] for k in ("ln_dense", "qkv_attention", "ln_mlp", "memory_project")):
+        raise AssertionError(f"[proof] A, B, C and D must each launch in the proof: {counts}")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3936,7 +4249,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-14; the kernels' rows of the JSON summary."""
+    """Phases 2-15; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -4013,6 +4326,12 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 13")
     backbones = phase_backbones(seed, smi, scratch)
     elapsed("phase 14")
+    aligned = phase_align_gate(seed, smi)
+    proof = phase_proof(seed, smi, scratch)
+    elapsed("phase 15")
+    for key in ("ln_dense", "qkv_attention", "ln_mlp"):
+        launches[key] = (launches[key][0], f"{launches[key][1]}; an align step (forward "
+                         f"with backward): {aligned}; the FULL proof: {proof[key]}")
     launches["memory_project"] = (
         launches["memory_project"][0],
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "

@@ -15,6 +15,7 @@ from patchioner_tpu_torch.models import decap
 from patchioner_tpu_torch.ops import memory_projection as memproj
 
 __all__ = ["to_torch", "vit_from_jax", "clip_vision_from_jax", "clip_text_from_jax",
+           "align_from_jax",
            "resnet_clip_from_jax", "proxyclip_from_jax", "decap_from_jax",
            "bank_from_jax", "inversion_from_jax", "mlp_w8_from_jax"]
 
@@ -88,6 +89,17 @@ def clip_text_from_jax(tree: dict, cfg, device="cpu") -> dict:
         raise ValueError(f"not a CLIP text tree: keys {sorted(tree)}")
     _check_clip_blocks(tree)
     return to_torch(tree, device)
+
+
+def align_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """An `align.init_align` / trained alignment tree of the JAX package ->
+    the port's (`train.align`): the ViT through `vit_from_jax`, the text
+    tower through `clip_text_from_jax`, and the scalar `logit_scale`."""
+    if set(tree) != {"vit", "text", "logit_scale"}:
+        raise ValueError(f"not an alignment tree: keys {sorted(tree)}")
+    return {"vit": vit_from_jax(tree["vit"], cfg.vit, device),
+            "text": clip_text_from_jax(tree["text"], cfg.text, device),
+            "logit_scale": _leaf(tree["logit_scale"], device)}
 
 
 def resnet_clip_from_jax(tree: dict, cfg, device="cpu") -> dict:

@@ -5,6 +5,9 @@ Nothing here runs at import time, so the CPU tests import every module
 without nvcc or a card. `check_operands` holds a wrapper's tensors to what
 every kernel takes, and `launch(name, *args)` calls one C entry point on
 the current CUDA stream and raises when it reports a CUDA error.
+`wants_grad` says when a wrapper's output must carry a graph, and
+`refuse_grad` raises in the wrappers whose backward is not ported, so that
+no wrapper returns a detached output from inputs that require grad.
 """
 
 from __future__ import annotations
@@ -74,6 +77,32 @@ def check_operands(name: str, *tensors, device=None) -> None:
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
+
+
+def wants_grad(*tensors) -> bool:
+    """True when grad mode is on and any tensor requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when the call would need a backward that is not ported: a
+    kernel writes its output through a pointer, outside autograd."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: its backward is not ported; call it under torch.no_grad() or "
+            "on tensors that do not require grad")
+
+
+def check_grad_dtype(name: str, t) -> None:
+    """The backwards of A, B and C are ported for float32 only."""
+    import torch
+
+    if t.dtype != torch.float32:
+        raise NotImplementedError(f"{name}: the backward is ported for float32 only, "
+                                  f"got {t.dtype}")
 
 
 def launch(name: str, *args) -> None:

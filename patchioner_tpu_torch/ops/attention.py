@@ -27,6 +27,11 @@ rounded to q's type T, f32 logits, keys at or beyond `num_real_k` masked
 to -1e30, f32 softmax, probabilities rounded to T before PV, the f32 PV sum
 divided by the f32 row sum. The plain versions take the exact softmax; K's
 online rescaling differs from it only in where p is rounded.
+
+Gradients: on CUDA tensors with grad on and an operand that requires
+grad, B runs its float32 kernel inside a `torch.autograd.Function` whose
+backward is `qkv_attention_backward` in torch ops; F, J and K raise
+(`kernels.refuse_grad`): their backward is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ __all__ = [
     "attention_plain",
     "qkv_attention_plain",
     "qkv_attention_proj_plain",
+    "qkv_attention_backward",
     "fused_qkv_attention",
     "fused_qkv_attention_proj",
     "flash_attention",
@@ -118,12 +124,41 @@ def _qkv_heads(name, qkv, num_heads):
     return b, n, d
 
 
-def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, scale: float,
-                        num_real_k: Optional[int] = None) -> torch.Tensor:
-    """Kernel B on CUDA tensors, `qkv_attention_plain` on CPU tensors."""
-    if qkv.device.type == "cpu":
-        return qkv_attention_plain(qkv, num_heads=num_heads, scale=scale,
-                                   num_real_k=num_real_k)
+def _softmax_backward(p: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
+    """Gradient of the logits from softmax's output p and its gradient gp,
+    along the last axis: p * (gp - rowsum(gp * p))."""
+    return p * (gp - (gp * p).sum(-1, keepdim=True))
+
+
+def qkv_attention_backward(g: torch.Tensor, qkv: torch.Tensor, *, num_heads: int,
+                           scale: float, num_real_k: Optional[int] = None) -> torch.Tensor:
+    """Gradient of `qkv_attention_plain` with respect to the fused (B, N, 3D)
+    qkv from the merged output's gradient g (B, N, D), in torch ops: the
+    probabilities recomputed from q and k (float32), then dV = P^T dO,
+    dS = P * (dO V^T - rowsum(dO * O)), dQ = scale dS K, dK = scale dS^T Q.
+    Keys at or past `num_real_k` get a zero gradient (their P is 0)."""
+    b, n, _ = qkv.shape
+    q, k, v = split_heads(qkv, num_heads)
+    go = g.reshape(b, n, num_heads, -1).transpose(1, 2)  # (B, H, N, hd)
+    s = torch.matmul(q * scale, k.transpose(-1, -2))
+    if num_real_k is not None and num_real_k < n:
+        s = s.masked_fill(torch.arange(n, device=qkv.device) >= num_real_k, -1e30)
+    p = torch.softmax(s, dim=-1)
+    gv = torch.matmul(p.transpose(-1, -2), go)
+    gp = torch.matmul(go, v.transpose(-1, -2))
+    gs = _softmax_backward(p, gp)
+    gq = torch.matmul(gs, k) * scale
+    gk = torch.matmul(gs.transpose(-1, -2), q) * scale
+    if num_real_k is not None and num_real_k < n:
+        gk[..., num_real_k:, :] = 0.0
+        gv[..., num_real_k:, :] = 0.0
+    # (3, B, H, N, hd) -> (B, N, 3, H, hd), the fused layout
+    gqkv = torch.stack([gq, gk, gv]).permute(1, 3, 0, 2, 4)
+    return gqkv.reshape(qkv.shape)
+
+
+def _qkv_attention_kernel(qkv, num_heads, scale, num_real_k):
+    """Kernel B's launch on a CUDA tensor, outside autograd."""
     kernels.check_operands("fused_qkv_attention", qkv)
     b, n, d = _qkv_heads("fused_qkv_attention", qkv, num_heads)
     nrk = _num_real_k(num_real_k, n, "fused_qkv_attention")
@@ -132,6 +167,34 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, scale: float,
                    num_heads, nrk, float(scale), kernels.dtype_code(qkv))
     fused_qkv_attention.launches += 1
     return out
+
+
+class _QkvAttention(torch.autograd.Function):
+    """Kernel B's forward, `qkv_attention_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, num_real_k):
+        ctx.save_for_backward(qkv)
+        ctx.args = dict(num_heads=num_heads, scale=scale, num_real_k=num_real_k)
+        return _qkv_attention_kernel(qkv, num_heads, scale, num_real_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return qkv_attention_backward(g, *ctx.saved_tensors, **ctx.args), None, None, None
+
+
+def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, scale: float,
+                        num_real_k: Optional[int] = None) -> torch.Tensor:
+    """Kernel B on CUDA tensors, `qkv_attention_plain` on CPU tensors. With
+    grad on and qkv requiring it (float32 only), the kernel runs inside
+    `_QkvAttention`, whose backward is `qkv_attention_backward`."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_plain(qkv, num_heads=num_heads, scale=scale,
+                                   num_real_k=num_real_k)
+    if kernels.wants_grad(qkv):
+        kernels.check_grad_dtype("fused_qkv_attention", qkv)
+        return _QkvAttention.apply(qkv, num_heads, scale, num_real_k)
+    return _qkv_attention_kernel(qkv, num_heads, scale, num_real_k)
 
 
 fused_qkv_attention.launches = 0
@@ -145,6 +208,7 @@ def fused_qkv_attention_proj(qkv, x_res, w_proj, b_proj, ls, *, num_heads: int,
     if qkv.device.type == "cpu":
         return qkv_attention_proj_plain(qkv, x_res, w_proj, b_proj, ls, **kw)
     name = "fused_qkv_attention_proj"
+    kernels.refuse_grad(name, qkv, x_res, w_proj, b_proj, ls)
     kernels.check_operands(name, qkv, x_res, w_proj, b_proj, ls)
     b, n, d = _qkv_heads(name, qkv, num_heads)
     # bf16: the out-projection GEMM's 128-wide tiles of D, an even head count
@@ -184,6 +248,7 @@ def flash_attention(q, k, v, *, scale: float, num_real_k: Optional[int] = None):
     """Kernel K on CUDA tensors, `attention_plain` on CPU tensors."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, num_real_k=num_real_k)
+    kernels.refuse_grad("flash_attention", q, k, v)
     b, h, n, _ = _bhnd("flash_attention", q, k, v)
     nrk = _num_real_k(num_real_k, n, "flash_attention")
     out = torch.empty_like(q)
@@ -208,6 +273,7 @@ def flash_attention_1pass(q, k, v, *, scale: float,
     """Kernel J on CUDA tensors, `attention_plain` on CPU tensors."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, num_real_k=num_real_k)
+    kernels.refuse_grad("flash_attention_1pass", q, k, v)
     b, h, n, _ = _bhnd("flash_attention_1pass", q, k, v)
     if q.dtype == torch.float32 and n > FLASH1P_F32_MAX_N:
         raise ValueError(f"flash_attention_1pass: N={n} > {FLASH1P_F32_MAX_N} in "

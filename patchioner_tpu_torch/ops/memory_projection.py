@@ -20,7 +20,9 @@ and every int8 bank (H) go to the tensor-core body (D % 128 == 0, D <=
 1536; one wave of blocks), an f32 bank to the SIMT body (D <= 1536;
 2048-row ranges). A bank the kernels do not take raises; nothing falls
 back. Both bodies end in the combine of their partials
-(`combine_partials`, `combine_partials_plain` on the CPU).
+(`combine_partials`, `combine_partials_plain` on the CPU). The backward of
+neither kernel is ported: on CUDA tensors with grad on and an operand that
+requires grad they raise (`kernels.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -144,6 +146,7 @@ def combine_partials(m_part: torch.Tensor, l_part: torch.Tensor, acc_part: torch
     `combine_partials_plain` on CPU tensors."""
     if m_part.device.type == "cpu":
         return combine_partials_plain(m_part, l_part, acc_part, normalize=normalize)
+    kernels.refuse_grad("combine_partials", m_part, l_part, acc_part)
     c, b, d = acc_part.shape
     if (m_part.shape != (c, b) or l_part.shape != (c, b) or d > MAX_D
             or any(t.dtype != torch.float32 or not t.is_contiguous()
@@ -177,6 +180,7 @@ def _project(name: str, features: torch.Tensor, rows, scale, inv, num_real: int,
         raise ValueError(f"{name}: no kernel for {features.device}")
     b, d = features.shape
     bank = (rows, inv) if scale is None else (rows, scale, inv)
+    kernels.refuse_grad(name, features, *bank)
     if any(t.device != features.device for t in bank):
         raise ValueError(f"{name}: bank and features on different devices")
     if (d > MAX_D or rows.shape[1] != d or inv.dtype != torch.float32

@@ -21,9 +21,19 @@ rounded to T, GELU (exact erf, or tanh with `gelu_approx`) in f32. G
 (_ln_swiglu_kernel) and I (_w8_kernel) keep their sums in f32 through the
 bias and round only `o * ls` before the residual add; their plain versions
 say where they round.
+
+Gradients: a kernel writes its output through a pointer, outside autograd.
+On CUDA tensors with grad on and an operand that requires grad, A and C
+run their float32 kernel inside a `torch.autograd.Function` whose backward
+is `ln_dense_backward` / `ln_mlp_backward` in torch ops (the JAX package
+differentiates plain XLA ops and has no backward kernel); E, G and I raise
+(`kernels.refuse_grad`). On CPU tensors the plain versions are
+differentiated by autograd.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +47,8 @@ __all__ = [
     "dense_residual_plain",
     "ln_swiglu_plain",
     "ln_mlp_w8_plain",
+    "ln_dense_backward",
+    "ln_mlp_backward",
     "quantize_symmetric_int8",
     "quantize_mlp_weights",
     "fused_ln_dense",
@@ -161,10 +173,72 @@ def ln_mlp_w8_plain(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, ls, *,
     return x + (o * ls.float()).to(x.dtype)
 
 
-def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
-    """Kernel A on CUDA tensors, `ln_dense_plain` on CPU tensors."""
-    if x.device.type == "cpu":
-        return ln_dense_plain(x, ln_scale, ln_bias, w, bias, eps=eps)
+# ------------------------------------------------------------- backward
+#
+# The float32 gradients of A and C in torch ops, from the saved inputs: the
+# LN statistics and fc1's pre-activation are recomputed, as activation
+# checkpointing would.
+
+
+def _ln_stats(x: torch.Tensor, eps: float):
+    """(x_hat, rstd) of `_ln_f32` over the last axis of f32 rows."""
+    mu = x.mean(-1, keepdim=True)
+    c = x - mu
+    rstd = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    return c * rstd, rstd
+
+
+def _ln_backward(gy, x_hat, rstd, scale):
+    """LayerNorm's backward from the gradient of its output: (dx, dscale,
+    dbias), with x_hat and rstd its forward's."""
+    gxh = gy * scale
+    gx = rstd * (gxh - gxh.mean(-1, keepdim=True)
+                 - x_hat * (gxh * x_hat).mean(-1, keepdim=True))
+    return gx, (gy * x_hat).sum(0), gy.sum(0)
+
+
+def _gelu_grad(h: torch.Tensor, approx: bool) -> torch.Tensor:
+    """d GELU(h) / dh: Phi(h) + h phi(h) for the erf GELU; the tanh form's
+    derivative under `approx`."""
+    if approx:
+        k = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(k * (h + 0.044715 * h ** 3))
+        return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * k * (1.0 + 3 * 0.044715 * h * h)
+    return (0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+            + h * torch.exp(-0.5 * h * h) * (1.0 / math.sqrt(2.0 * math.pi)))
+
+
+def ln_dense_backward(g, x, ln_scale, ln_bias, w, *, eps: float):
+    """Gradients of `LN(x) @ w + bias` from the output's gradient g:
+    (dx, dln_scale, dln_bias, dw, dbias)."""
+    d, o = w.shape
+    xf, gf = x.reshape(-1, d), g.reshape(-1, o)
+    x_hat, rstd = _ln_stats(xf, eps)
+    y = x_hat * ln_scale + ln_bias
+    gx, gs, gb_ln = _ln_backward(torch.matmul(gf, w.T), x_hat, rstd, ln_scale)
+    return gx.reshape(x.shape), gs, gb_ln, torch.matmul(y.T, gf), gf.sum(0)
+
+
+def ln_mlp_backward(g, x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
+                    gelu_approx: bool = False):
+    """Gradients of `x + ls * fc2(GELU(fc1(LN(x))))` from the output's
+    gradient g: (dx, dln_scale, dln_bias, dw1, db1, dw2, db2, dls)."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d), g.reshape(-1, d)
+    x_hat, rstd = _ln_stats(xf, eps)
+    y = x_hat * ln_scale + ln_bias
+    pre = torch.matmul(y, w1) + b1
+    h = F.gelu(pre, approximate="tanh" if gelu_approx else "none")
+    o = torch.matmul(h, w2) + b2
+    go = gf * ls
+    gpre = torch.matmul(go, w2.T) * _gelu_grad(pre, gelu_approx)
+    gx, gs, gb_ln = _ln_backward(torch.matmul(gpre, w1.T), x_hat, rstd, ln_scale)
+    return ((gf + gx).reshape(x.shape), gs, gb_ln, torch.matmul(y.T, gpre), gpre.sum(0),
+            torch.matmul(h.T, go), go.sum(0), (gf * o).sum(0))
+
+
+def _ln_dense_kernel(x, ln_scale, ln_bias, w, bias, eps: float):
+    """Kernel A's launch on CUDA tensors, outside autograd."""
     kernels.check_operands("fused_ln_dense", x, ln_scale, ln_bias, w, bias)
     d, o = w.shape
     if x.shape[-1] != d or (x.dtype == torch.bfloat16 and (d % 64 or o % 128)):
@@ -187,15 +261,38 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
     return out
 
 
+class _LnDense(torch.autograd.Function):
+    """Kernel A's forward, `ln_dense_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w, bias, eps):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w)
+        ctx.eps = eps
+        return _ln_dense_kernel(x, ln_scale, ln_bias, w, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*ln_dense_backward(g, *ctx.saved_tensors, eps=ctx.eps), None)
+
+
+def fused_ln_dense(x, ln_scale, ln_bias, w, bias, *, eps: float):
+    """Kernel A on CUDA tensors, `ln_dense_plain` on CPU tensors. With grad
+    on and an operand requiring it (float32 only), the kernel runs inside
+    `_LnDense`, whose backward is `ln_dense_backward`."""
+    if x.device.type == "cpu":
+        return ln_dense_plain(x, ln_scale, ln_bias, w, bias, eps=eps)
+    if kernels.wants_grad(x, ln_scale, ln_bias, w, bias):
+        kernels.check_grad_dtype("fused_ln_dense", x)
+        return _LnDense.apply(x, ln_scale, ln_bias, w, bias, eps)
+    return _ln_dense_kernel(x, ln_scale, ln_bias, w, bias, eps)
+
+
 fused_ln_dense.launches = 0
 
 
-def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
-                 gelu_approx: bool = False):
-    """Kernel C on CUDA tensors, `ln_mlp_plain` on CPU tensors."""
-    if x.device.type == "cpu":
-        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps=eps,
-                            gelu_approx=gelu_approx)
+def _ln_mlp_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps: float,
+                   gelu_approx: bool):
+    """Kernel C's launch on CUDA tensors, outside autograd."""
     kernels.check_operands("fused_ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
     d = x.shape[-1]
     h = w1.shape[1]
@@ -222,6 +319,35 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
     return out
 
 
+class _LnMlp(torch.autograd.Function):
+    """Kernel C's forward, `ln_mlp_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps, gelu_approx):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
+        ctx.eps, ctx.gelu_approx = eps, gelu_approx
+        return _ln_mlp_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, eps, gelu_approx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*ln_mlp_backward(g, *ctx.saved_tensors, eps=ctx.eps,
+                                 gelu_approx=ctx.gelu_approx), None, None)
+
+
+def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls, *, eps: float,
+                 gelu_approx: bool = False):
+    """Kernel C on CUDA tensors, `ln_mlp_plain` on CPU tensors. With grad
+    on and an operand requiring it (float32 only), the kernel runs inside
+    `_LnMlp`, whose backward is `ln_mlp_backward`."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2, ls)
+    if x.device.type == "cpu":
+        return ln_mlp_plain(*args, eps=eps, gelu_approx=gelu_approx)
+    if kernels.wants_grad(*args):
+        kernels.check_grad_dtype("fused_ln_mlp", x)
+        return _LnMlp.apply(*args, eps, gelu_approx)
+    return _ln_mlp_kernel(*args, eps, gelu_approx)
+
+
 fused_ln_mlp.launches = 0
 
 
@@ -229,6 +355,7 @@ def fused_dense_residual(x, residual, w, bias, ls):
     """Kernel E on CUDA tensors, `dense_residual_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return dense_residual_plain(x, residual, w, bias, ls)
+    kernels.refuse_grad("fused_dense_residual", x, residual, w, bias, ls)
     kernels.check_operands("fused_dense_residual", x, residual, w, bias, ls)
     d, o = w.shape
     if (x.shape[-1] != d or residual.shape != (*x.shape[:-1], o)
@@ -256,6 +383,7 @@ def fused_ln_swiglu(x, ln_scale, ln_bias, w12, b12, w3, b3, ls, *, eps: float):
     """Kernel G on CUDA tensors, `ln_swiglu_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return ln_swiglu_plain(x, ln_scale, ln_bias, w12, b12, w3, b3, ls, eps=eps)
+    kernels.refuse_grad("fused_ln_swiglu", x, ln_scale, ln_bias, w12, b12, w3, b3, ls)
     kernels.check_operands("fused_ln_swiglu", x, ln_scale, ln_bias, w12, b12, w3, b3, ls)
     d, h = x.shape[-1], w3.shape[0]
     bf16 = x.dtype == torch.bfloat16
@@ -294,6 +422,7 @@ def fused_ln_mlp_w8(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, ls, *,
     args = (x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, ls)
     if x.device.type == "cpu":
         return ln_mlp_w8_plain(*args, eps=eps, gelu_approx=gelu_approx)
+    kernels.refuse_grad("fused_ln_mlp_w8", *args)
     kernels.check_operands("fused_ln_mlp_w8", x, ln_scale, ln_bias, ls)
     kernels.check_operands("fused_ln_mlp_w8", w1q, w2q, device=x.device)
     kernels.check_operands("fused_ln_mlp_w8", w1s, b1, w2s, b2, device=x.device)

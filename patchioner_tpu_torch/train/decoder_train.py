@@ -34,7 +34,7 @@ from patchioner_tpu_torch.train.packing import PackedBatch
 
 __all__ = [
     "TrainConfig", "decap_loss", "decap_loss_packed", "prepare_features",
-    "linear_warmup_decay", "AdamW", "OptState", "make_optimizer",
+    "linear_warmup_decay", "cosine_decay", "AdamW", "OptState", "make_optimizer",
     "make_train_step", "make_packed_train_step", "pack_to_device",
 ]
 
@@ -217,20 +217,34 @@ def linear_warmup_decay(lr: float, warmup_steps: int, total_steps: int) -> Calla
     return schedule
 
 
+def cosine_decay(lr: float, steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(lr, steps) (alpha 0): lr * (1 + cos(pi *
+    min(count, steps) / steps)) / 2, in f32 as optax computes it."""
+    if steps <= 0:
+        raise ValueError(f"cosine_decay needs steps > 0, got {steps}")
+
+    def schedule(count: int) -> float:
+        t = np.float32(np.pi) * np.float32(min(count, steps)) / np.float32(steps)
+        decay = np.float32(0.5) * (np.float32(1) + np.cos(t))
+        return float(np.float32(lr) * decay)
+
+    return schedule
+
+
 class OptState:
     """The optimizer state of one parameter tree: `torch.optim.AdamW` over
-    its leaves (betas 0.9 / 0.999, eps 1e-8 outside the square root,
+    its leaves (betas 0.9 / 0.999 unless given, eps 1e-8 outside the square root,
     decoupled weight decay on every leaf, as optax.adamw without a mask),
     the count of updates applied, which picks the learning rate (optax
     reads the schedule at the count before the update, so the first update
     of a warmup has lr 0), and the optional global-norm clip."""
 
     def __init__(self, params, schedule: Callable[[int], float], weight_decay: float,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None, betas: tuple = (0.9, 0.999)):
         self.leaves = [leaf.requires_grad_(True) for _, leaf in flatten_tree(params)]
         self.schedule, self.grad_clip = schedule, grad_clip
         self.count = 0
-        self.opt = torch.optim.AdamW(self.leaves, lr=schedule(0), betas=(0.9, 0.999),
+        self.opt = torch.optim.AdamW(self.leaves, lr=schedule(0), betas=tuple(betas),
                                      eps=1e-8, weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
@@ -267,16 +281,17 @@ class OptState:
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
-    """The transform `optax.adamw(schedule, weight_decay)`, chained after
-    `clip_by_global_norm(grad_clip)` when grad_clip is set: `init(params)`
-    gives the tree's OptState."""
+    """The transform `optax.adamw(schedule, b1, b2, weight_decay=...)`,
+    chained after `clip_by_global_norm(grad_clip)` when grad_clip is set:
+    `init(params)` gives the tree's OptState."""
 
     schedule: Callable[[int], float]
     weight_decay: float
     grad_clip: Optional[float] = None
+    betas: tuple = (0.9, 0.999)
 
     def init(self, params) -> OptState:
-        return OptState(params, self.schedule, self.weight_decay, self.grad_clip)
+        return OptState(params, self.schedule, self.weight_decay, self.grad_clip, self.betas)
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:

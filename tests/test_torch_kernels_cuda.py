@@ -979,3 +979,113 @@ def test_eval_harness_on_the_card_equals_the_direct_calls(cuda, tmp_path):
                                            paths["images"], True, "card test", **kw)
         assert runs[label]["counts"]["ln_dense"] == 2 * runs[label]["batches"]
     chip_smoke._eval_direct_checks(model, paths, runs)
+
+
+# ------------------------------------------------ gradients (A, B, C; D-K)
+
+
+def _abc_case(gen, which):
+    """(wrapper call, plain call, its leaves) at the align path's shapes:
+    64 x 17 rows of 384 (ViT-S at 56 px), 6 heads of 64."""
+    f32 = torch.float32
+    d = 384
+
+    def leaf(*shape, scale=1.0, shift=0.0):
+        return (shift + _randn(gen, *shape, dtype=f32, scale=scale)).requires_grad_()
+
+    x = leaf(64, 17, d)
+    if which == "A":
+        args = (x, leaf(d, scale=0.1, shift=1.0), leaf(d, scale=0.1),
+                leaf(d, 3 * d, scale=d ** -0.5), leaf(3 * d, scale=0.1))
+        return (lambda: mlp.fused_ln_dense(*args, eps=1e-6),
+                lambda: mlp.ln_dense_plain(*args, eps=1e-6), args)
+    if which.startswith("B"):
+        qkv = leaf(64, 17, 3 * d)
+        kw = dict(num_heads=6, scale=0.125, num_real_k=11 if which == "B masked" else None)
+        return (lambda: attention.fused_qkv_attention(qkv, **kw),
+                lambda: attention.qkv_attention_plain(qkv, **kw), (qkv,))
+    h = 4 * d
+    args = (x, leaf(d, scale=0.1, shift=1.0), leaf(d, scale=0.1),
+            leaf(d, h, scale=d ** -0.5), leaf(h, scale=0.1), leaf(h, d, scale=h ** -0.5),
+            leaf(d, scale=0.1), leaf(d, scale=0.1, shift=1.0))
+    kw = dict(eps=1e-6, gelu_approx=which == "C tanh")
+    return (lambda: mlp.fused_ln_mlp(*args, **kw), lambda: mlp.ln_mlp_plain(*args, **kw),
+            args)
+
+
+@pytest.mark.parametrize("which", ["A", "B", "B masked", "C", "C tanh"])
+def test_abc_autograd_functions_match_autograd_of_the_plain_versions(cuda, which):
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    kernel, plain, leaves = _abc_case(gen, which)
+    wrapper = {"A": mlp.fused_ln_dense, "C": mlp.fused_ln_mlp}.get(
+        which[0], attention.fused_qkv_attention)
+    out = _counted(wrapper, kernel)
+    assert type(out.grad_fn).__name__ in ("_LnDenseBackward", "_QkvAttentionBackward",
+                                          "_LnMlpBackward")
+    ref = plain()
+    _check(out.detach(), ref.detach(), torch.float32)
+    g = _randn(gen, *out.shape, dtype=torch.float32)
+    got = torch.autograd.grad(out, leaves, g)
+    want = torch.autograd.grad(ref, leaves, g)
+    for a, b in zip(got, want):
+        _check(a, b, torch.float32)
+
+
+def test_abc_backward_is_float32_only(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    w = _randn(gen, 128, 384, dtype=torch.bfloat16).requires_grad_()
+    x = _randn(gen, 2, 17, 128, dtype=torch.bfloat16)
+    one = torch.ones(128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        mlp.fused_ln_dense(x, one, one * 0, w, one.new_zeros(384), eps=1e-6)
+
+
+def _grad_calls(gen):
+    """A call of each of D-K and the combine, on CUDA tensors of which
+    `probe` (returned) is the one operand that requires grad."""
+    f32 = torch.float32
+    d = 128
+    probe = _randn(gen, d, d, dtype=f32, scale=d ** -0.5).requires_grad_()
+    x = _randn(gen, 2, 17, d, dtype=f32)
+    vec = torch.ones(d, device="cuda")
+    qkv = _randn(gen, 2, 17, 3 * d, dtype=f32)
+    q = _randn(gen, 1, 2, 17, 64, dtype=f32)
+    w8 = mlp.quantize_mlp_weights(_randn(gen, d, 512, dtype=f32), torch.zeros(512, device="cuda"),
+                                  _randn(gen, 512, d, dtype=f32), vec * 0)
+    rows = _randn(gen, 64, d, dtype=f32)
+    feats = probe[:2]
+    m = torch.zeros(1, 2, device="cuda", requires_grad=True)
+    return probe, {
+        "memory_project": lambda: mp.memory_project_streamed(feats, mp.prepare_bank(rows)),
+        "memory_project_int8": lambda: mp.memory_project_int8(feats, mp.quantize_bank(rows)),
+        "combine_partials": lambda: mp.combine_partials(
+            m, torch.ones(1, 2, device="cuda"), torch.ones(1, 2, d, device="cuda")),
+        "dense_residual": lambda: mlp.fused_dense_residual(x, x, probe, vec * 0, vec),
+        "qkv_attention_proj": lambda: attention.fused_qkv_attention_proj(
+            qkv, x, probe, vec * 0, vec, num_heads=2, scale=0.125),
+        "ln_swiglu": lambda: mlp.fused_ln_swiglu(
+            x, vec, vec * 0, torch.cat([probe, probe], 1), torch.zeros(2 * d, device="cuda"),
+            probe, vec * 0, vec, eps=1e-6),
+        "ln_mlp_w8": lambda: mlp.fused_ln_mlp_w8(x, vec.requires_grad_(), vec * 0, *w8, vec,
+                                                 eps=1e-6),
+        "flash_attention": lambda: attention.flash_attention(
+            q.requires_grad_(), q, q, scale=0.125),
+        "flash_attention_1pass": lambda: attention.flash_attention_1pass(
+            q.requires_grad_(), q, q, scale=0.125),
+    }
+
+
+@pytest.mark.parametrize("name", ["memory_project", "memory_project_int8", "combine_partials",
+                                  "dense_residual", "qkv_attention_proj", "ln_swiglu",
+                                  "ln_mlp_w8", "flash_attention", "flash_attention_1pass"])
+def test_kernels_without_a_backward_refuse_grad(cuda, name):
+    """D-K (and the combine D and H end in) raise on a grad-requiring
+    operand rather than return a detached output; under no_grad they run."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    _, calls = _grad_calls(gen)
+    with pytest.raises(NotImplementedError, match="backward is not ported"):
+        calls[name]()
+    with torch.no_grad():
+        out = calls[name]()
+    torch.cuda.synchronize()
+    assert out.grad_fn is None and torch.isfinite(out).all()
