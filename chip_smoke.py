@@ -197,9 +197,9 @@ then exits non-zero without the final result line:
 12. the CLIP text towers (plain PyTorch, as in the JAX package), each of
    the five text spaces at full geometry written from a seed in the
    openai/CLIP layout under its checkpoint prefix (`TEXT_SPACES`), with a
-   Talk2DINO projection 512 -> 768: 12a, the flagship's support memory
-   built as `extract_features bank` builds it, without its HDF5 write (no
-   h5py on the card): 591,753 seeded captions through the CLIP ViT-B/16
+   Talk2DINO projection 512 -> 768: 12a, a quarter of the flagship's
+   support memory built as `extract_features bank` builds it, without its
+   HDF5 write (no h5py on the card): 147,938 seeded captions through the CLIP ViT-B/16
    text tower (f32, TF32 off) and Talk2DINO in batches of 1000, the
    tokenizer's and the tower's seconds apart, captions/s and peak memory;
    12b, f32 card against CPU on the same files under phase 5's gate: the
@@ -275,7 +275,25 @@ then exits non-zero without the final result line:
    steps, DeCap 4L/4H/768 through `train/cli.py`, the ViECap mapper on a
    frozen 12L/768 GPT-2, the trace evaluator and the shuffled control),
    every threshold of tests/test_convergence.py asserted, each stage's
-   seconds and peak memory, align steps/s.
+   seconds and peak memory, align steps/s;
+16. the encoder options (`[kkv ...]`, `[softmax_f32 false]`,
+   `[double-DINO]` and `[dd rerun ...]` lines): 16a, the flagship built
+   with `attention_type: kkv` served (trace and box requests after
+   `warmup()`, A, B, C and D counted), its f32 prefix and self_attn card vs
+   CPU with the layerscale drawn near 1, the rewired queries equal to the
+   keys; 16b, `softmax_f32: false` (the compute-type softmax, no B)
+   served, the encoder's ms by CUDA events beside the default route's, its
+   f32 prefix against the default route's under phase 5's gate, its bf16
+   prefix's difference and caption agreement reported; 16c, double-DINO
+   box captions through `forward` (8 images x 16 boxes, the four
+   (use_cls, return_type) cases, compute_scores) with A, B, C and D
+   counted (the re-run one A and one C beyond the encoder's), the re-run's
+   ms at 128 rows in bf16 against its plain version's, its chunk and peak
+   memory, the re-run through A and C against its plain version at 128
+   rows in both types (the output and the block's delta, the layerscale
+   near 1) and through A and G on ViT-g at 4 layers, each with a mutant
+   that drops the key mask and must fail, and `_double_dino_features`
+   card vs CPU at f32 on the card's encoding.
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -963,7 +981,9 @@ def expected_launches(model, batches: int) -> dict:
     """Launches of every kernel for `batches` batches of `model`: on a
     DINOv2 tower (ProxyCLIP's VFM too) A each layer, C (G for ViT-g's
     SwiGLU FFN) each layer, the attention kernel `attn_impl` selects each
-    layer (a CLIP tower and RegionCLIP's ResNet are plain PyTorch: none);
+    layer (none for the compute-type softmax of `softmax_f32: false`, plain
+    PyTorch as in the reference; a CLIP tower and RegionCLIP's ResNet are
+    plain PyTorch: none);
     D (H over an int8 bank) once a batch when the configuration has a
     support memory; every other kernel never."""
     config = model.config
@@ -973,7 +993,7 @@ def expected_launches(model, batches: int) -> dict:
     if kind in ("DINO", "ProxyCLIP"):
         impl = cfg.attn_impl
         layer = {"ln_dense", "ln_swiglu" if cfg.ffn == "swiglu" else "ln_mlp"}
-        if impl in ("xla", "fusedqkv"):
+        if impl in ("xla", "fusedqkv") and cfg.softmax_f32:
             layer.add("qkv_attention")
             if cfg.proj_fused:
                 layer.add("dense_residual")
@@ -2839,7 +2859,11 @@ TEXT_SPACES = {
     "denseclip": ("text_encoder.", 512, 12, 13, 512),
     "dinotxt": ("text_model.", 1280, 24, 77, 2048),
 }
-TEXT_BANK_ROWS = MEMORY_ROWS  # the flagship's COCO support memory
+# a quarter of the flagship's COCO support memory (591,753 rows): the build's
+# captions/s is a steady state of 1,000-caption batches at either size, and
+# the full build's ~150 s (PR 19) no longer fits the script's time limit
+# beside phases 15 and 16 on a card whose host is slow
+TEXT_BANK_ROWS = MEMORY_ROWS // 4
 TEXT_BANK_BATCH = 1000  # the JAX bank mode's --bs
 TEXT_GATE_ROWS = 256  # the clip space's f32 gate; the other spaces take 8
 TEXT_TRAIN_CAPTIONS = 2048
@@ -2927,7 +2951,7 @@ def write_text_checkpoints(seed: int, directory: str) -> dict:
 
 
 def phase_text_bank(seed: int, smi: str, directory: str, paths: dict):
-    """Phase 12a: the flagship's support memory built on the card as
+    """Phase 12a: a quarter of the flagship's support memory built on the card as
     `extract_features bank` builds it, without its HDF5 write (the card's
     machine has no h5py): `TEXT_BANK_ROWS` seeded captions through the
     `clip` space of the ViT-B/16 text file, Talk2DINO-projected to 768, in
@@ -4227,6 +4251,249 @@ def phase_proof(seed: int, smi: str, directory: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- phase 16
+
+DD_CASES = ((True, "cls"), (True, "avg"), (False, "avg"), (True, "gaussian_avg"))
+
+
+def _layerscale_near_one(params: dict, seed: int) -> None:
+    """Every block's ls1 and ls2 drawn per channel near 1, in place: with
+    init_vit's 1e-5 a block adds ~1e-5 of the stream, under every gate."""
+    gen = torch.Generator(device=params["blocks"][0]["ls1"].device).manual_seed(seed)
+    for blk in params["blocks"]:
+        for key in ("ls1", "ls2"):
+            blk[key] = (1 + 0.1 * torch.randn(blk[key].shape, generator=gen,
+                                              device=blk[key].device)).to(blk[key].dtype)
+
+
+def _dd_boxes(n: int, seed: int, k: int = MAX_BOXES, img: int = IMG) -> np.ndarray:
+    """(n, k, 4) pixel boxes in the layout double-DINO reads, [x1, y1, x2,
+    y2] (the reference's quirk), none empty."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 0.7, (n, k, 2))
+    hi = np.minimum(lo + rng.uniform(0.05, 0.5, (n, k, 2)), 1.0)
+    return (np.concatenate([lo, hi], -1) * (img - 1)).astype(np.float32)
+
+
+def _rerun_inputs(model, imgs, boxes):
+    """The re-run's (tokens, key mask) for `boxes` on `model`'s encoding of
+    `imgs`, as `forward(double_DINO_for_bboxes=True)` builds them (the
+    global tokens kept)."""
+    return model._double_dino_rows(model.encode_images(imgs),
+                                   torch.from_numpy(boxes).to(model.device), True)
+
+
+def _rerun_gate(label: str, params: dict, cfg, tokens, mask) -> float:
+    """The re-run through the kernels against its plain version on the
+    card: the output, and the block's own delta (out - tokens), each within
+    the type's tolerance of its largest; then the mutant, the kernels'
+    re-run with the key mask dropped, must fail the delta's gate. Returns
+    the kernels' re-run's max relative error."""
+    from patchioner_tpu_torch.models import vit
+
+    tol = TOLERANCE[tokens.dtype]
+    got = vit.last_block_rerun(params, tokens, mask, cfg)
+    ref = vit.last_block_rerun_plain(params, tokens, mask, cfg)
+    delta_ref = (ref - tokens).float()
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    derr = (((got - tokens).float() - delta_ref).abs().max() / delta_ref.abs().max()).item()
+    mutant = vit.last_block_rerun(params, tokens, torch.ones_like(mask), cfg)
+    merr = (((mutant - tokens).float() - delta_ref).abs().max()
+            / delta_ref.abs().max()).item()
+    log(f"[dd rerun] {label}: {tuple(tokens.shape)} {str(tokens.dtype)[6:]}, "
+        f"{int(mask.sum())} of {mask.numel()} keys kept; max|d|/max|ref| {err:.3e}, the "
+        f"block's delta {derr:.3e} (max|delta| {delta_ref.abs().max().item():.3e}; tol "
+        f"{tol:.0e}); the mutant without the key mask {merr:.3e}")
+    if not (err <= tol and derr <= tol):
+        raise AssertionError(f"the re-run through the kernels differs from its plain "
+                             f"version ({label}): {err:.3e}, {derr:.3e} > {tol:.0e}")
+    if not merr > tol:
+        raise AssertionError(f"the re-run gate is blind to the key mask ({label}): the "
+                             f"mutant's {merr:.3e} <= {tol:.0e}")
+    return err
+
+
+def phase_encoder_options(seed: int, smi: str, qkv_rate: float) -> dict:
+    """Phase 16: the encoder options from_config took last. 16a, the
+    flagship with `attention_type: kkv` served (trace and box requests
+    after `warmup()`), its f32 prefix and self_attn against the CPU; 16b,
+    `softmax_f32: false` (attn_impl 'xla', the compute-type softmax)
+    served, the encoder's ms beside the default route's, its f32 prefix
+    against the default route's, its bf16 prefix's difference and caption
+    agreement reported; 16c, double-DINO box captions through `forward`
+    (8 images x 16 boxes, the four (use_cls, return_type) cases) with the
+    launches counted, `_double_dino_features` card vs CPU at f32, the
+    re-run through A and C against its plain version at 128 rows in both
+    types and through G on a 4-layer giant, with a key-mask mutant, and the
+    re-run's ms, chunk and peak memory. Returns the double-DINO forwards'
+    launches of A, B and C."""
+    from patchioner_tpu_torch import entry
+    from patchioner_tpu_torch.models import vit
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    imgs, traces = _requests(B, seed + 16)
+    pts, valid = _padded(traces)
+    sets = _query_boxes(B, seed + 17)
+
+    # 16a: kkv served
+    kkv = dict(FLAGSHIP_CONFIG, attention_type="kkv")
+    model = build_model(kkv, seed, "[kkv]")
+    rates = {}
+    phase_main_path(seed, smi, "kkv", model=model, n_requests=B, rates=rates)
+    results, snap, _, wall, _ = _serve(model, [(im, {"bboxes": bs})
+                                               for im, bs in zip(imgs, sets)],
+                                       "[kkv bbox]", "bbox")
+    if not all(isinstance(r, list) and len(r) == len(bs) and all(isinstance(c, str) for c in r)
+               for r, bs in zip(results, sets)):
+        raise AssertionError("[kkv bbox] a request did not resolve to a caption a box")
+    n_boxes = sum(len(bs) for bs in sets)
+    log(f"[kkv] served {rates['kkv']:.3f} trace captions/s against phase 4's qkv "
+        f"{qkv_rate:.3f} (same run); box requests {n_boxes / wall:.3f} box captions/s, mean "
+        f"request latency {snap['mean_latency_ms']} ms; {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 16a, 16b at f32: the kkv flagship, layerscale near 1, card vs CPU
+    gpu = Patchioner.from_config(kkv, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    _layerscale_near_one(gpu.vit_params, seed + 2)
+    cpu = gpu.to("cpu")
+
+    def prefix(m, vit_cfg, n=1):
+        step = entry.make_prefix_step(vit_cfg, m.bank.num_real, use_attention=True,
+                                      normalize=m.normalize)
+        return step(m.state(), m.pixels_to_device(imgs[:n]),
+                    *(torch.from_numpy(a[:n]).to(m.device) for a in (pts, valid)))
+
+    _gate("kkv", prefix(gpu, gpu.vit_cfg).cpu(), prefix(cpu, cpu.vit_cfg), "card vs CPU")
+    enc_gpu, enc_cpu = gpu.encode_images(imgs[:1]), cpu.encode_images(imgs[:1])
+    # self_attn's rows are probabilities (~1 / 1369 each): held to its own
+    # largest, not to the prefix gate's floor of 1
+    top = enc_cpu["self_attn"].abs().max()
+    _gate("kkv", enc_gpu["self_attn"].cpu() / top, enc_cpu["self_attn"] / top, "card vs CPU",
+          "self_attn over its largest")
+    # from_config draws the tower from the generator seeded rng_seed + 0
+    plain_qkv = vit.init_vit(gpu.vit_cfg, torch.Generator(device="cuda").manual_seed(seed),
+                             "cuda")["blocks"][-1]["qkv"]["w"]
+    moved = (gpu.vit_params["blocks"][-1]["qkv"]["w"][:, :D]
+             - plain_qkv[:, D:2 * D]).abs().max().item()
+    log(f"[kkv] the rewired queries are the keys: max|d| {moved:.1e}; self_attn row 0 sums "
+        f"to {enc_gpu['self_attn'][0].sum().item():.6f}")
+    if moved != 0:
+        raise AssertionError("attention_type kkv did not put the keys in the queries' place")
+    del plain_qkv, enc_cpu
+    soft = dataclasses.replace(gpu.vit_cfg, softmax_f32=False)
+    _gate("softmax_f32 false", prefix(gpu, soft, 2), prefix(gpu, gpu.vit_cfg, 2),
+          "vs the default route on the card")
+
+    # 16b: softmax_f32 false served, bf16
+    model = build_model(dict(FLAGSHIP_CONFIG, softmax_f32=False), seed, "[softmax_f32 false]")
+    phase_main_path(seed, smi, "softmax_f32 false", model=model, n_requests=B, rates=rates)
+    px = model.pixels_to_device(imgs)
+    default = dataclasses.replace(model.vit_cfg, softmax_f32=True)
+    enc_ms = {name: cuda_ms(lambda c=c: vit.vit_forward(model.vit_params, px, c), 2, 5)
+              for name, c in (("softmax_f32 false", model.vit_cfg), ("default", default))}
+    got, ref = prefix(model, model.vit_cfg, B), prefix(model, default, B)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    agree = (model.decode(got)[0] == model.decode(ref)[0]).float().mean().item()
+    log(f"[softmax_f32 false] served {rates['softmax_f32 false']:.3f} trace captions/s; "
+        f"encoder of {B} images {enc_ms['softmax_f32 false']:.2f} ms by CUDA events against "
+        f"{enc_ms['default']:.2f} for the default route (kernel B, f32 softmax); bf16 prefix "
+        f"against the default's: max|d|/max|ref| {rel:.3e}, caption-token agreement "
+        f"{agree:.4f} (reported, not asserted); {smi}")
+    del model, got, ref
+    torch.cuda.empty_cache()
+
+    # 16c: double-DINO through forward, bf16, 8 images x 16 boxes
+    model = build_model(FLAGSHIP_CONFIG, seed, "[double-DINO]")
+    _layerscale_near_one(model.vit_params, seed + 3)
+    boxes = _dd_boxes(B, seed + 18)
+    launches = dict.fromkeys(("ln_dense", "qkv_attention", "ln_mlp"), 0)
+    depth = model.vit_cfg.depth
+    for use_cls, rtype in DD_CASES:
+        kw = dict(get_cls_capt=False, bboxes=boxes, double_DINO_for_bboxes=True,
+                  double_DINO_for_bboxes_return_type=rtype, double_DINO_use_cls=use_cls,
+                  compute_scores=True)
+        model.forward(imgs, **kw)  # first call: the decode graph's capture
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = model.forward(imgs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        rerun = 0 if rtype == "gaussian_avg" else 1
+        want = {"ln_dense": depth + rerun, "qkv_attention": depth, "ln_mlp": depth + rerun,
+                "memory_project": 1}
+        capts, scores = outs["bbox_capts"], outs["bbox_scores"]
+        shaped = ([len(r) for r in capts] == [MAX_BOXES] * B
+                  and all(isinstance(c, str) for r in capts for c in r)
+                  and np.isfinite(np.asarray(scores, np.float64)).all())
+        log(f"[double-DINO] use_cls={use_cls}, {rtype}: {B} x {MAX_BOXES} box captions in "
+            f"{wall * 1e3:.1f} ms through forward (host clock); launches {counts}; caption "
+            f"0: {capts[0][0][:60]!r}")
+        if counts != want or not shaped:
+            raise AssertionError(f"double-DINO forward ({use_cls}, {rtype}): launches "
+                                 f"{counts} != {want}, or malformed captions and scores")
+        for k in launches:
+            launches[k] += counts[k]
+
+    # the re-run alone: ms at 128 rows in bf16, its chunk and peak memory
+    tokens, mask = _rerun_inputs(model, imgs, boxes)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vit.last_block_rerun(model.vit_params, tokens, mask, model.vit_cfg)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ms = cuda_ms(lambda: vit.last_block_rerun(model.vit_params, tokens, mask, model.vit_cfg),
+                 2, 5)
+    plain_ms = cuda_ms(lambda: vit.last_block_rerun_plain(model.vit_params, tokens, mask,
+                                                          model.vit_cfg), 2, 5)
+    log(f"[dd rerun] {tokens.shape[0]} rows x {tokens.shape[1]} tokens, bf16: {ms:.2f} ms "
+        f"by CUDA events ({plain_ms:.2f} through the plain versions), chunk "
+        f"{vit.RERUN_CHUNK} rows, peak {peak:.2f} GiB above the {base / 2 ** 30:.2f} GiB "
+        f"held; {smi}")
+    _rerun_gate("bf16, 128 rows, A and C", model.vit_params, model.vit_cfg, tokens, mask)
+    del model, tokens, mask
+    torch.cuda.empty_cache()
+
+    # f32: the re-run gate at 128 rows, and _double_dino_features card vs CPU
+    tokens, mask = _rerun_inputs(gpu, imgs, boxes)
+    _rerun_gate("f32, 128 rows, A and C", gpu.vit_params, gpu.vit_cfg, tokens, mask)
+    del tokens, mask
+    small = boxes[:1, :3]
+    enc_gpu = gpu.encode_images(imgs[:1])
+    enc_cpu = {k: v.cpu() for k, v in enc_gpu.items()}
+    for use_cls, rtype in DD_CASES:
+        kw = dict(return_type=rtype, use_cls=use_cls)
+        _gate("double-DINO", gpu._double_dino_features(enc_gpu, torch.from_numpy(small).cuda(),
+                                                       **kw).cpu(),
+              cpu._double_dino_features(enc_cpu, torch.from_numpy(small), **kw),
+              f"({use_cls}, {rtype}) card vs CPU on the card's encoding", "features")
+    del gpu, cpu, enc_gpu, enc_cpu
+    torch.cuda.empty_cache()
+
+    # the giant block (SwiGLU, G) at 4 layers, both types, 2 images x 16 boxes
+    for dtype in (torch.bfloat16, torch.float32):
+        gmodel = Patchioner.from_config(dict(GIANT_CONFIG, dino_geometry={"depth": 4}),
+                                        rng_seed=seed, allow_missing_weights=True,
+                                        random_bank_size=64, dtype=dtype, device="cuda")
+        _layerscale_near_one(gmodel.vit_params, seed + 4)
+        tokens, mask = _rerun_inputs(gmodel, imgs[:2], boxes[:2])
+        wrappers["ln_swiglu"].launches = 0
+        _rerun_gate(f"giant at 4 layers, {str(dtype)[6:]}, A and G", gmodel.vit_params,
+                    gmodel.vit_cfg, tokens, mask)
+        if not wrappers["ln_swiglu"].launches:
+            raise AssertionError("the giant re-run did not launch G")
+        del gmodel, tokens, mask
+        torch.cuda.empty_cache()
+    log(f"[time] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4249,7 +4516,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-15; the kernels' rows of the JSON summary."""
+    """Phases 2-16; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -4329,9 +4596,12 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     aligned = phase_align_gate(seed, smi)
     proof = phase_proof(seed, smi, scratch)
     elapsed("phase 15")
+    double_dino = phase_encoder_options(seed, smi, served["main"])
+    elapsed("phase 16")
     for key in ("ln_dense", "qkv_attention", "ln_mlp"):
         launches[key] = (launches[key][0], f"{launches[key][1]}; an align step (forward "
-                         f"with backward): {aligned}; the FULL proof: {proof[key]}")
+                         f"with backward): {aligned}; the FULL proof: {proof[key]}; the four "
+                         f"double-DINO box forwards: {double_dino[key]}")
     launches["memory_project"] = (
         launches["memory_project"][0],
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "

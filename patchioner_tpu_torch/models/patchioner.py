@@ -33,9 +33,13 @@ ValueError, and on ProxyCLIP, which emits patch tokens only, so does
 diagnostic. AlphaCLIP captions boxes and traces by one encoder pass a
 region, the region as its alpha mask (`_forward_alphaclip_regions`).
 `caption_bboxes_type` routes to `caption_bboxes`, the crop-and-caption
-baseline (PIL images in, one `forward` pass a chunk of crops). The
-context cleaner (`cleaning_type`), double-DINO boxes,
-`get_attn_heads_capt` and `return_n_best_sims` raise NotImplementedError.
+baseline (PIL images in, one `forward` pass a chunk of crops).
+`double_DINO_for_bboxes` (with `double_DINO_for_bboxes_return_type` and
+`double_DINO_use_cls`) captions each box from the last encoder block
+re-run on its tokens alone (`_double_dino_features`, DINOv2 backbones
+only: elsewhere ValueError, as in the reference). The context cleaner
+(`cleaning_type`), `get_attn_heads_capt` and `return_n_best_sims` raise
+NotImplementedError.
 
 `from_config` takes the reference YAML schema (a path or a dict) and
 loads what the reference's `from_config` loads for this subset
@@ -98,8 +102,10 @@ raises ValueError, naming both. The files are ported into f32 CPU trees
 and uploaded once, by the constructor, as random weights are;
 `load_seconds` holds the seconds spent reading, porting and uploading.
 
-The encoder keys `attn_impl`, `proj_fused` and `gelu_approx` are the
-reference's (patchioner.py:487-505), and so is its `memory_bank_int8`
+The encoder keys `attn_impl`, `proj_fused`, `gelu_approx` and
+`softmax_f32` are the reference's (patchioner.py:487-505; `softmax_f32:
+false` is the compute-type softmax of `attn_impl: xla`, and ValueError at
+the first encoder pass under any other `attn_impl`), and so is its `memory_bank_int8`
 opt-in (the bank quantized per row to int8 from the f32 bank, whatever the
 model's type, and projected by kernel H). The DINOv2 backbones are ViT-S,
 ViT-B and ViT-L (MLP FFN, kernel C: D <= 1024) and ViT-g,
@@ -108,10 +114,13 @@ bank are as wide as the config gives them; every `attn_impl` runs on
 each. The CLIP towers (ViT-B and ViT-L), RegionCLIP's ResNet and
 ProxyCLIP's CLIP half run as plain PyTorch, as the JAX package runs them
 as plain XLA; ProxyCLIP's VFM is the DINOv2 encoder. Any key that leaves
-this subset raises NotImplementedError: another backbone, argmax-text,
-int8 (W8A8) encoders, the compute-dtype softmax (`softmax_f32: false`)
-and a non-qkv attention_type. The DINOv2 encoder keys are ignored on the
-other backbones, as the JAX package's `from_config` ignores them. The README's
+this subset raises NotImplementedError: another backbone, argmax-text and
+int8 (W8A8) encoders. The DINOv2 encoder keys are ignored on the other
+backbones, as the JAX package's `from_config` ignores them. An
+`attention_type` other than 'qkv' (the README's KKV mode is 'kkv')
+reorders the built tower's last-block qkv (`vit.reorder_qkv_params`) on
+the DINOv2 and CLIP ViT towers, and raises ValueError on RegionCLIP and
+ProxyCLIP, which have no fused last-block qkv, as in the JAX package. The README's
 `kkv_attention` key is read by neither the reference's loader nor the
 JAX package: it is ignored, with a UserWarning where `attention_type` is
 absent. A config given as a Hugging Face model id is not ported
@@ -174,8 +183,9 @@ _BANK_NAME_KEYS = {
 # the reference's encoder kernel-stack switches (configs/*tpu-serving.yaml):
 # numerics-preserving; the port always runs kernels A and C on CUDA
 _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
-# encoder keys read into ViTConfig (vit.py:93-104 of the reference)
-_ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx"}
+# encoder keys read into ViTConfig on the DINOv2 branch (patchioner.py:489-505
+# of the reference)
+_ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx", "softmax_f32"}
 # keys whose only ported value is "off" (None or False)
 _OFF_ONLY_KEYS = {"calculate_argmax_text", "encoder_w8a8"}
 # the widest encoder each FFN kernel takes in both types: the f32 SIMT
@@ -220,8 +230,6 @@ def _check_config(config: dict) -> None:
             raise NotImplementedError(f"attn_impl={value!r} is not ported")
         if key in _ENCODER_KEYS:
             continue
-        if key == "softmax_f32" and value in (None, True):
-            continue
         if key in _OFF_ONLY_KEYS and value in (None, False):
             continue
         raise NotImplementedError(
@@ -229,15 +237,29 @@ def _check_config(config: dict) -> None:
             "subset"
         )
     _backbone_type(config)
-    if config.get("attention_type", "qkv") != "qkv":
-        raise NotImplementedError(
-            f"attention_type={config['attention_type']!r} is not ported yet")
     if (config.get("viecap") or {}).get("hard_prompt_pad_multiple"):
         # the JAX package's shape buckets for its per-shape compiles; the
         # port's searches run eagerly and pad to the batch's longest
         raise NotImplementedError(
             "viecap.hard_prompt_pad_multiple is not ported: the hard prompt pads to "
             "the batch's longest")
+
+
+def _rewire_attention(vit_params, attention_type, kind: str):
+    """The tower's params with the last block's qkv reordered for a non-qkv
+    `attention_type` (`patchioner.py:798-814`): wherever the params carry a
+    fused last-block qkv, as every DINOv2 and CLIP ViT tree of both
+    packages does; RegionCLIP's ResNet and ProxyCLIP's pair of towers have
+    none and raise ValueError, where the reference's
+    `.blocks[-1].attn.qkv` access crashes."""
+    if attention_type == "qkv":
+        return vit_params
+    blocks = vit_params.get("blocks") if isinstance(vit_params, dict) else None
+    if blocks and isinstance(blocks[-1], dict) and "qkv" in blocks[-1]:
+        return vit.reorder_qkv_params(vit_params, attention_type)
+    raise ValueError(f"attention_type={attention_type!r} needs a tower with a fused "
+                     f"last-block qkv; {kind} has none (the reference's "
+                     ".blocks[-1].attn.qkv access crashes there too)")
 
 
 def _encoder_options(config: dict) -> dict:
@@ -998,6 +1020,8 @@ class Patchioner:
                 raise FileNotFoundError("no local DINOv2 weights (set 'dino_weights' or pass "
                                         "allow_missing_weights=True)")
 
+        vit_params = _rewire_attention(vit_params, config.get("attention_type", "qkv"), kind)
+
         prefix_size = int(config["prefix_size"])
         da = dict(config.get("decap_arch") or {})
         gpt2_cfg = gpt2.GPT2Config(
@@ -1363,7 +1387,8 @@ class Patchioner:
         and per-image nesting (`patchioner.py:1959-2216`, the DINO
         backbone): `cls_capt`, `avg_self_attn_capt`, `avg_patch_capt`,
         `patch_tokens_capts`, `register_capts`, `bbox_capts` (pixel
-        `[x1, y1, w, h]` boxes; uniform, Gaussian or attention-map weights),
+        `[x1, y1, w, h]` boxes; uniform, Gaussian or attention-map weights, or
+        double-DINO features),
         `set_controllable_capts` (one caption per box set) and `trace_capts`
         (a list of traces, or padded (points, valid)); with `compute_scores`
         each caption list but the last two has a `_scores` twin.
@@ -1372,8 +1397,9 @@ class Patchioner:
         themselves."""
         assert clean_from in ("cls", "avg_self_attn")
         assert cleaning_type in (None, "orthogonal_projection", "contrastive_mask")
+        if double_DINO_for_bboxes and self.backbone_type != "DINO":
+            raise ValueError("double_DINO_for_bboxes requires a DINO backbone")
         refused = {"cleaning_type": cleaning_type is not None,
-                   "double_DINO_for_bboxes": double_DINO_for_bboxes,
                    "get_attn_heads_capt": get_attn_heads_capt,
                    "return_n_best_sims": return_n_best_sims is not None}
         for flag, asked in refused.items():
@@ -1437,6 +1463,11 @@ class Patchioner:
             if get_controllable_capts:
                 outs["set_controllable_capts"] = self.caption_tokens(
                     rp.extract_bbox_features_single(patch_tokens, boxes, **weight_kw))
+            elif double_DINO_for_bboxes:
+                emit_per_image("bbox_capts", "bbox_scores", self._double_dino_features(
+                    enc, boxes, return_type=double_DINO_for_bboxes_return_type,
+                    use_cls=double_DINO_use_cls,
+                    gaussian_bbox_variance=float(gaussian_bbox_variance)), boxes.shape[1])
             else:
                 emit_per_image("bbox_capts", "bbox_scores",
                                rp.extract_bbox_features(patch_tokens, boxes, **weight_kw),
@@ -1452,6 +1483,65 @@ class Patchioner:
             outs["trace_capts"] = self.caption_tokens(rp.trace_pool(
                 patch_tokens, grid, self_attn if use_attention_tracing else None))
         return outs
+
+    @torch.no_grad()
+    def _double_dino_features(self, enc: dict, bboxes: torch.Tensor, *,
+                              return_type: str = "avg", use_cls: bool = False,
+                              gaussian_bbox_variance: float = 0.5) -> torch.Tensor:
+        """Double-DINO box features, (B, NB, D) f32: the last encoder block
+        re-run on each box's tokens alone (reference src/bbox_utils.py:300-403),
+        every (image, box) pair in one `vit.last_block_rerun` over key-masked
+        rows. Twin of `patchioner.py:2218`, with the reference's quirks: the
+        re-run takes the final normalised tokens; a box's grid span is
+        `floor([x1, y1, x2, y2] / patch)` with both ends inclusive (the
+        elements read as corners, not xywh); the global tokens are keys only
+        under `use_cls`; 'cls' reads row 0 of the output, 'avg' the mean over
+        the box's patches (an empty box gives zeros); 'gaussian_avg' weights
+        the box's INPUT patches by `bbox_weight_maps` on grid-unit boxes and
+        does not read the re-run, so it does not run it."""
+        if return_type not in ("cls", "avg", "gaussian_avg"):
+            raise ValueError(f"unknown double-DINO return type: {return_type}")
+        patches = enc["x_norm_patchtokens"]
+        bs, n_patches, d = patches.shape
+        if return_type == "gaussian_avg":
+            g = int(round(n_patches ** 0.5))
+            x1, y1, x2, y2 = self._box_grid(bboxes).unbind(-1)
+            pseudo = torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1).float()
+            w = rp.bbox_weight_maps(pseudo, g, 1, gaussian_avg=True,
+                                    gaussian_bbox_variance=gaussian_bbox_variance)
+            return torch.einsum("bkyx,byxd->bkd", w, patches.float().reshape(bs, g, g, d))
+        tokens, key_mask = self._double_dino_rows(enc, bboxes, use_cls)
+        out = vit.last_block_rerun(self.vit_params, tokens, key_mask, self.vit_cfg)
+        if return_type == "cls":
+            feats = out[:, 0].float()
+        else:
+            ng = self.num_global_tokens
+            w = key_mask[:, ng:, None].float()
+            feats = (out[:, ng:].float() * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)
+        return feats.reshape(bs, bboxes.shape[1], d)
+
+    def _box_grid(self, bboxes: torch.Tensor) -> torch.Tensor:
+        """(..., 4) pixel boxes -> int32 `floor([x1, y1, x2, y2] / patch)`."""
+        return torch.floor(bboxes.float() / self.patch_size).to(torch.int32)
+
+    def _double_dino_rows(self, enc: dict, bboxes: torch.Tensor, use_cls: bool):
+        """The re-run's rows for (B, NB, 4) boxes: (tokens (B * NB, T, D),
+        the normalised [cls, registers, patches] of each box's image, and
+        key_mask (B * NB, T), the box's patches with both grid ends
+        inclusive, and the global tokens under `use_cls`)."""
+        patches = enc["x_norm_patchtokens"]
+        bs, n_patches, _ = patches.shape
+        nb = bboxes.shape[1]
+        x1, y1, x2, y2 = self._box_grid(bboxes).unbind(-1)
+        idx = torch.arange(int(round(n_patches ** 0.5)), dtype=torch.int32,
+                           device=patches.device)
+        in_y = (idx >= y1[..., None]) & (idx <= y2[..., None])
+        in_x = (idx >= x1[..., None]) & (idx <= x2[..., None])
+        inside = (in_y[..., :, None] & in_x[..., None, :]).reshape(bs * nb, n_patches)
+        tokens = torch.cat([enc["x_norm_clstoken"][:, None], enc["x_norm_regtokens"], patches],
+                           dim=1).repeat_interleave(nb, dim=0)
+        globals_ = inside.new_full((bs * nb, self.num_global_tokens), bool(use_cls))
+        return tokens, torch.cat([globals_, inside], dim=1)
 
     @torch.no_grad()
     def caption_bboxes(self, imgs, bboxes, capt_type: str = "cls_capt",

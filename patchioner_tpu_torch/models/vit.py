@@ -23,7 +23,19 @@ path:
   port's counterpart of jax's bundled kernel), merged back, then the plain
   out-projection.
 
-The token axis is not padded, so no key is masked.
+`softmax_f32=False` under 'xla' keeps the logits and the softmax in the
+compute type, as the reference's plain XLA attention does (vit.py:449-467):
+no TPU kernel computes that function, so it runs as plain torch between
+kernels A and C; every other `attn_impl` raises ValueError on it, as in the
+reference. The token axis is not padded, so no key is masked.
+
+`reorder_qkv_params` rewires the last block's fused qkv for an
+`attention_type` such as 'kkv' (a weight permutation: the block runs the
+same kernels), and `last_block_rerun` re-runs the last block over a
+key-masked token set, the double-DINO box features' encoder
+(vit.py:821-874): A for LN + qkv, key-masked attention in plain torch
+(kernel B masks only keys past one count a call), the plain out-projection,
+then C (G on a SwiGLU block). `last_block_rerun_plain` is its plain twin.
 """
 
 from __future__ import annotations
@@ -39,11 +51,13 @@ import torch.nn.functional as F
 from patchioner_tpu_torch.ops import attention
 from patchioner_tpu_torch.ops.mlp import (dense_residual_plain, fused_dense_residual,
                                           fused_ln_dense, fused_ln_mlp, fused_ln_swiglu,
-                                          ln_rows)
+                                          ln_dense_plain, ln_mlp_plain, ln_rows,
+                                          ln_swiglu_plain)
 
 __all__ = ["ViTConfig", "VARIANTS", "config_for", "init_vit", "param_template",
            "cast_params", "interpolate_pos_embed", "patch_embed", "vit_forward",
-           "process_self_attention"]
+           "process_self_attention", "reorder_qkv_params", "last_block_rerun",
+           "last_block_rerun_plain", "RERUN_CHUNK"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +84,8 @@ class ViTConfig:
     proj_fused: bool = False
     # tanh GELU in kernel C, a numerics change opted into by config
     gelu_approx: bool = False
+    # f32 attention softmax; False keeps it in the compute type ('xla' only)
+    softmax_f32: bool = True
     dtype: torch.dtype = torch.float32
 
     ATTN_IMPLS = ("xla", "fusedqkv", "fusedqkv_proj", "flash", "flash1p",
@@ -246,10 +262,36 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int, dst_grid: int,
     return torch.cat([cls_pos, grid.to(pos_embed.dtype)], dim=1)
 
 
+def _softmax_f32_refused(cfg: ViTConfig) -> None:
+    """`softmax_f32=False` names a compute-type softmax, which only the
+    'xla' impl has: every kernel runs an f32 softmax (the reference's
+    messages, vit.py:355-359, 388-396, 553-557)."""
+    if cfg.softmax_f32 or cfg.attn_impl == "xla":
+        return
+    if cfg.attn_impl == "fusedqkv_proj":
+        raise ValueError("attn_impl='fusedqkv_proj' always runs an f32 softmax in-kernel; "
+                         "use attn_impl='xla' for a compute-dtype softmax")
+    raise ValueError(f"attn_impl={cfg.attn_impl!r} always runs an f32 softmax in-kernel; "
+                     "softmax_f32=False has no effect there — use attn_impl='xla' for a "
+                     "compute-dtype softmax")
+
+
+def _compute_type_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The reference's 'xla' attention under softmax_f32=False
+    (vit.py:449-467): q scaled and the logits, the softmax and its product
+    with v all in qkv's type."""
+    q, k, v = attention.split_heads(qkv, num_heads)
+    logits = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2))
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return attention.merge_heads(torch.matmul(e / e.sum(dim=-1, keepdim=True), v))
+
+
 def _merged_attention(qkv: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """The merged (B, N, D) attention output of every impl but fusedqkv_proj."""
     nh = cfg.num_heads
     scale = (qkv.shape[-1] // 3 // nh) ** -0.5
+    if not cfg.softmax_f32:
+        return _compute_type_attention(qkv, nh)
     if cfg.attn_impl in ("xla", "fusedqkv"):
         return attention.fused_qkv_attention(qkv, num_heads=nh, scale=scale)
     q, k, v = attention.split_heads(qkv, nh)
@@ -263,6 +305,7 @@ def _merged_attention(qkv: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, blk: dict, cfg: ViTConfig):
+    _softmax_f32_refused(cfg)
     d = x.shape[-1]
     qkv = fused_ln_dense(x, blk["norm1"]["scale"], blk["norm1"]["bias"],
                          blk["qkv"]["w"], blk["qkv"]["b"], eps=cfg.ln_eps)
@@ -284,16 +327,19 @@ def _block(x: torch.Tensor, blk: dict, cfg: ViTConfig):
                     "plain out-projection", stacklevel=3)
             x = dense_residual_plain(merged, x, *proj)
     ls2 = blk["ls2"] if cfg.layerscale else torch.ones_like(blk["norm2"]["bias"])
-    if cfg.ffn == "swiglu":
-        x = fused_ln_swiglu(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
-                            blk["w12"]["w"], blk["w12"]["b"], blk["w3"]["w"],
-                            blk["w3"]["b"], ls2, eps=cfg.ln_eps)
-    else:
-        x = fused_ln_mlp(x, blk["norm2"]["scale"], blk["norm2"]["bias"],
-                         blk["fc1"]["w"], blk["fc1"]["b"], blk["fc2"]["w"],
-                         blk["fc2"]["b"], ls2, eps=cfg.ln_eps,
-                         gelu_approx=cfg.gelu_approx)
-    return x, qkv
+    return _ffn(x, blk, ls2, cfg, fused_ln_mlp, fused_ln_swiglu), qkv
+
+
+def _ffn(x: torch.Tensor, blk: dict, ls2: torch.Tensor, cfg: ViTConfig, ln_mlp,
+         ln_swiglu) -> torch.Tensor:
+    """The FFN half, `x + ls2 * FFN(LN(x))`: `ln_swiglu` on a SwiGLU block
+    (w12, w3), else `ln_mlp` with the config's GELU."""
+    norm = (blk["norm2"]["scale"], blk["norm2"]["bias"])
+    if "w12" in blk:
+        return ln_swiglu(x, *norm, blk["w12"]["w"], blk["w12"]["b"], blk["w3"]["w"],
+                         blk["w3"]["b"], ls2, eps=cfg.ln_eps)
+    return ln_mlp(x, *norm, blk["fc1"]["w"], blk["fc1"]["b"], blk["fc2"]["w"],
+                  blk["fc2"]["b"], ls2, eps=cfg.ln_eps, gelu_approx=cfg.gelu_approx)
 
 
 def patch_embed(params: dict, pixels: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -307,10 +353,13 @@ def patch_embed(params: dict, pixels: torch.Tensor, patch_size: int) -> torch.Te
     return torch.matmul(x, params["w"]) + params["b"]
 
 
-def vit_forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> dict:
+def vit_forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig,
+                return_block_input: bool = False) -> dict:
     """(B, H, W, 3) normalised NHWC pixels -> dict of x_norm_clstoken (B, D),
     x_norm_regtokens (B, R, D), x_norm_patchtokens (B, G*G, D), x_prenorm
-    (B, T, D) and qkv_last (B, T, 3D), the last block's fused qkv."""
+    (B, T, D) and qkv_last (B, T, 3D), the last block's fused qkv; with
+    `return_block_input` also last_block_input (B, T, D), the stream the
+    last block took in."""
     params = cast_params(params, cfg.dtype)
     b, hh, _, _ = pixels.shape
     g = hh // cfg.patch_size
@@ -323,19 +372,89 @@ def vit_forward(params: dict, pixels: torch.Tensor, cfg: ViTConfig) -> dict:
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
     x = x.contiguous()
 
-    qkv = None
+    qkv = last_input = None
     for blk in params["blocks"]:
+        last_input = x
         x, qkv = _block(x, blk, cfg)
 
     x_norm = ln_rows(x, params["norm"]["scale"], params["norm"]["bias"], cfg.ln_eps)
     ng = cfg.num_global_tokens
-    return {
+    out = {
         "x_norm_clstoken": x_norm[:, 0],
         "x_norm_regtokens": x_norm[:, 1:ng],
         "x_norm_patchtokens": x_norm[:, ng:],
         "x_prenorm": x,
         "qkv_last": qkv,
     }
+    if return_block_input:
+        out["last_block_input"] = last_input
+    return out
+
+
+# rows of a last-block re-run whose attention runs at once: its f32 logits
+# take rows x H x T^2 x 4 bytes, 1.45 GB at 16 rows of the flagship's 12
+# heads over 1374 tokens (11.6 GB for a box batch's 128 rows at once)
+RERUN_CHUNK = 16
+
+
+def _masked_attention(qkv: torch.Tensor, key_mask: torch.Tensor, num_heads: int,
+                      chunk: int) -> torch.Tensor:
+    """(B', T, 3D) fused qkv -> the merged (B', T, D) attention output with
+    the keys outside `key_mask` (B', T) masked, `chunk` rows at a time: the
+    logits of q scaled by hd^-0.5 in qkv's type, then in f32 with masked keys
+    at -1e30 (a row with every key masked gets the uniform softmax over all
+    T keys, as in the reference, not NaN), the weights back in qkv's type
+    before their product with v (vit.py:857-860)."""
+    b, n, three_d = qkv.shape
+    out = qkv.new_empty(b, n, three_d // 3)
+    for s in range(0, b, chunk):
+        q, k, v = attention.split_heads(qkv[s:s + chunk], num_heads)
+        logits = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2)).float()
+        logits.masked_fill_(~key_mask[s:s + chunk, None, None, :], -1e30)
+        w = torch.softmax(logits, dim=-1).to(qkv.dtype)
+        del logits
+        out[s:s + chunk] = attention.merge_heads(torch.matmul(w, v))
+    return out
+
+
+def _rerun(params: dict, tokens: torch.Tensor, key_mask: torch.Tensor, cfg: ViTConfig,
+           chunk: int, ln_dense, ln_mlp, ln_swiglu) -> torch.Tensor:
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be at least 1")
+    blk = cast_params(params["blocks"][-1], tokens.dtype)
+    ones = torch.ones_like(blk["norm1"]["bias"])
+    qkv = ln_dense(tokens, blk["norm1"]["scale"], blk["norm1"]["bias"], blk["qkv"]["w"],
+                   blk["qkv"]["b"], eps=cfg.ln_eps)
+    merged = _masked_attention(qkv, key_mask.to(device=tokens.device, dtype=torch.bool),
+                               cfg.num_heads, chunk)
+    del qkv
+    x = dense_residual_plain(merged, tokens, blk["proj"]["w"], blk["proj"]["b"],
+                             blk["ls1"] if cfg.layerscale else ones)
+    return _ffn(x, blk, blk["ls2"] if cfg.layerscale else ones, cfg, ln_mlp, ln_swiglu)
+
+
+def last_block_rerun(params: dict, tokens: torch.Tensor, key_mask: torch.Tensor,
+                     cfg: ViTConfig, *, chunk: int = RERUN_CHUNK) -> torch.Tensor:
+    """The last block re-run over a key-masked token set, twin of
+    `vit.py:821 last_block_rerun` (double-DINO box features): tokens
+    (B', T, D), key_mask (B', T) bool -> (B', T, D). Attention over the
+    keys a row's mask keeps equals the reference's block over that row's
+    compacted token list (attention is permutation-equivariant over keys);
+    the masked positions' outputs are garbage the caller does not read.
+    LN + qkv in kernel A, the key-masked attention `chunk` rows at a time
+    (the output does not depend on it), the out-projection, layerscale and
+    residual plain, then the FFN half in kernel C (G on a SwiGLU block, as
+    the reference dispatches on `w12`). On CUDA tensors a kernel that does
+    not build or launch raises."""
+    return _rerun(params, tokens, key_mask, cfg, chunk, fused_ln_dense, fused_ln_mlp,
+                  fused_ln_swiglu)
+
+
+def last_block_rerun_plain(params: dict, tokens: torch.Tensor, key_mask: torch.Tensor,
+                           cfg: ViTConfig, *, chunk: int = RERUN_CHUNK) -> torch.Tensor:
+    """`last_block_rerun` through the kernels' plain versions on any device."""
+    return _rerun(params, tokens, key_mask, cfg, chunk, ln_dense_plain, ln_mlp_plain,
+                  ln_swiglu_plain)
 
 
 def process_self_attention(qkv: torch.Tensor, *, num_heads: int,
@@ -355,3 +474,25 @@ def process_self_attention(qkv: torch.Tensor, *, num_heads: int,
         attn = attn[:, :, :num_real_k]
     maps = attn[:, :, num_global_tokens:]
     return torch.softmax(maps.mean(dim=1), dim=-1), maps
+
+
+def reorder_qkv_params(params: dict, attention_type: str) -> dict:
+    """KKV-style rewiring (reference src/model.py:569-582): the last block's
+    fused qkv rebuilt in the order `attention_type` names, e.g. 'kkv' takes
+    the keys as queries. 'qkv' returns `params` itself; anything but three
+    letters of q, k and v raises ValueError. A shallow copy: the caller's
+    tree is left as it was. Twin of `vit.py:915`."""
+    if attention_type == "qkv":
+        return params
+    if (not isinstance(attention_type, str) or len(attention_type) != 3
+            or any(c not in "qkv" for c in attention_type)):
+        raise ValueError(f"invalid attention_type: {attention_type!r}")
+    blk = params["blocks"][-1]
+    w, bias = blk["qkv"]["w"], blk["qkv"]["b"]  # (D, 3D), (3D,)
+    d = w.shape[0]
+    w3, b3 = w.reshape(d, 3, d), bias.reshape(3, d)
+    part = {"q": 0, "k": 1, "v": 2}
+    new_blk = dict(blk, qkv={
+        "w": torch.cat([w3[:, part[c]] for c in attention_type], dim=-1),
+        "b": torch.cat([b3[part[c]] for c in attention_type], dim=-1)})
+    return dict(params, blocks=[*params["blocks"][:-1], new_blk])

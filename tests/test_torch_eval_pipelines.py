@@ -180,8 +180,7 @@ def test_crop_and_caption_equals_jax(models, data):  # noqa: F811
 
 def test_forward_still_refuses_the_flags_not_ported(models):  # noqa: F811
     imgs = np.zeros((2, 56, 56, 3), np.uint8)
-    for flag in (dict(cleaning_type="orthogonal_projection"),
-                 dict(double_DINO_for_bboxes=True), dict(get_attn_heads_capt=True),
+    for flag in (dict(cleaning_type="orthogonal_projection"), dict(get_attn_heads_capt=True),
                  dict(return_n_best_sims=3)):
         with pytest.raises(NotImplementedError, match=next(iter(flag))):
             models[1].forward(imgs, **flag)

@@ -1089,3 +1089,38 @@ def test_kernels_without_a_backward_refuse_grad(cuda, name):
         out = calls[name]()
     torch.cuda.synchronize()
     assert out.grad_fn is None and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ffn,gelu_approx", [("mlp", False), ("mlp", True), ("swiglu", False)])
+def test_last_block_rerun_through_the_kernels(cuda, dtype, ffn, gelu_approx):
+    """The double-DINO re-run through A and C (G on a SwiGLU block) against
+    its plain version on key-masked rows (one with every key masked), the
+    layerscale near 1: the output and the block's own delta (out - tokens)
+    within the tolerance of their largest; the same re-run with the key
+    mask dropped must fail the delta's."""
+    # hidden 512, or SwiGLU's 1024: the bf16 GEMMs' 128-wide (G's fc1: 64) tiles
+    d = 128 if ffn == "mlp" else 384
+    cfg = vit.ViTConfig(img_size=56, embed_dim=d, depth=1, num_heads=2, ffn=ffn,
+                        gelu_approx=gelu_approx, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = vit.init_vit(cfg, gen, "cuda")
+    blk = params["blocks"][-1]
+    blk["ls1"], blk["ls2"] = 1 + 0.1 * torch.randn(2, d, generator=gen, device="cuda")
+    params = vit.cast_params(params, dtype)
+    tokens = torch.randn(6, 21, d, generator=gen, device="cuda").to(dtype)
+    mask = torch.rand(6, 21, generator=gen, device="cuda") < 0.4
+    mask[2] = False
+    counts = (mlp.fused_ln_dense.launches, mlp.fused_ln_mlp.launches,
+              mlp.fused_ln_swiglu.launches)
+    got = vit.last_block_rerun(params, tokens, mask, cfg, chunk=4)
+    ffn_fn = mlp.fused_ln_swiglu if ffn == "swiglu" else mlp.fused_ln_mlp
+    assert mlp.fused_ln_dense.launches == counts[0] + 1
+    assert ffn_fn.launches == counts[2 if ffn == "swiglu" else 1] + 1
+    ref = vit.last_block_rerun_plain(params, tokens, mask, cfg, chunk=4)
+    delta = (ref - tokens).float()
+    tol = TOLERANCE[dtype]
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+    assert (((got - tokens).float() - delta).abs().max() / delta.abs().max()).item() <= tol
+    mutant = vit.last_block_rerun(params, tokens, torch.ones_like(mask), cfg)
+    assert (((mutant - tokens).float() - delta).abs().max() / delta.abs().max()).item() > tol

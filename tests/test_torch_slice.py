@@ -173,14 +173,11 @@ def test_shipped_viecap_config_builds():
 # package's `from_config`, so the other backbones' cases name theirs; each
 # backbone the port takes is refused with a key it does not
 @pytest.mark.parametrize("extra", [
-    {"dino_model": "RN50_regionclip", "regionclip_config": {"config": "RN50"},
-     "attention_type": "kkv"},
     {"viecap": {"hard_prompt_pad_multiple": 8}},
-    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "softmax_f32": False},
-    {"attention_type": "kkv"}, {"dino_model": "dinov2_vitl14_reg", "encoder_w8a8": True},
+    {"dino_model": "dinov2_vitl14_reg", "encoder_w8a8": True},
     {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "calculate_argmax_text": True},
     {"calculate_argmax_text": True},
-    {"encoder_w8a8": True}, {"softmax_f32": False},
+    {"encoder_w8a8": True},
     {"dino_model": "resnet50"}, {"an_unknown_key": 1},
 ])
 def test_keys_outside_the_subset_raise(extra):
