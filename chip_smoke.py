@@ -293,7 +293,29 @@ then exits non-zero without the final result line:
    rows in both types (the output and the block's delta, the layerscale
    near 1) and through A and G on ViT-g at 4 layers, each with a mutant
    that drops the key mask and must fail, and `_double_dino_features`
-   card vs CPU at f32 on the card's encoding.
+   card vs CPU at f32 on the card's encoding;
+17. the rest of `forward` (`[argmax ...]`, `[n-best]`, `[cleaning ...]`,
+   `[heads]` and `[f32 modes]` lines), on the flagship at full width:
+   17a, the flagship built with `calculate_argmax_text: true` (no decoder,
+   no decode graph) captions 8 images by their CLS token, their
+   attention-weighted mean, 8 x 16 boxes with their top-5 similarities and
+   every patch (10,952 rows against the whole bank, chunked) through
+   `forward`, and serves 8 trace requests, which the server routes through
+   `forward`: A, B and C 12 launches an encoder pass, D and H none; each
+   call's ms, the chunk's rows and the peak memory; 17b, the DeCap
+   flagship's 8 x 16 boxes with `return_n_best_sims=5` (one D launch),
+   the top-k's ms beside the box batch's; 17d, per-head captions (8 x 16
+   rows, one D launch); 17c, the cleaning grid (both types x both orders x
+   both sources) on 2 images with patch and box captions (D two launches
+   after the projection, one before), one combination on 8 images (10,952
+   rows through D at unit norm, then that bucket's decode graph), D's ms
+   at that row count with its first 64 rows against the plain version,
+   and the int8-bank flagship once (H in D's place); 17e, f32 with TF32
+   off, card vs CPU on the card's encoding: the cleaned patch features
+   `caption_tokens` receives in both orders and the per-head features
+   under phase 5's gate, the top-5 similarities of 16 patch rows against
+   the whole bank within 1e-5, their argmax equal on every row whose CPU
+   top-2 gap exceeds 1e-5 (the rows inside it counted).
 
 Nothing of JAX or of the JAX package `patchioner_tpu` is imported.
 
@@ -985,7 +1007,8 @@ def expected_launches(model, batches: int) -> dict:
     PyTorch as in the reference; a CLIP tower and RegionCLIP's ResNet are
     plain PyTorch: none);
     D (H over an int8 bank) once a batch when the configuration has a
-    support memory; every other kernel never."""
+    support memory and the model decodes (none in the argmax-text mode,
+    which reads the bank's texts); every other kernel never."""
     config = model.config
     kind = model.backbone_type
     cfg = model.vit_cfg.vfm if kind == "ProxyCLIP" else model.vit_cfg
@@ -1000,7 +1023,8 @@ def expected_launches(model, batches: int) -> dict:
         layer |= {"fusedqkv_proj": {"qkv_attention_proj"}, "flash": {"flash_attention"},
                   "flash1p": {"flash_attention_1pass"}}.get(impl, set())
         counts.update({name: cfg.depth * batches for name in layer})
-    if int(config.get("support_memory_size", 0)) > 0:  # a ViECap model has no bank
+    if (int(config.get("support_memory_size", 0)) > 0  # a ViECap model has no bank
+            and not getattr(model, "calculate_argmax_text", False)):
         counts["memory_project_int8" if config.get("memory_bank_int8")
                else "memory_project"] = batches
     return counts
@@ -1093,7 +1117,8 @@ def _serve(model, requests: list, tag: str,
                       region_set=kind == "region_set", pixel_dtype=np.uint8)
         for fn in wrappers.values():
             fn.launches = 0
-        graphs = model.decode.captures, model.decode.replays
+        decode = model.decode  # None on an argmax-text model, which has no decoder
+        graphs = None if decode is None else (decode.captures, decode.replays)
         t0 = time.perf_counter()
         futures = [server.submit(im, **kw) for im, kw in requests]
         results = [f.result(timeout=900) for f in futures]
@@ -1106,11 +1131,14 @@ def _serve(model, requests: list, tag: str,
         f"launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
-    if model.viecap is None and model.clipcap is None:
-        _check_graphs(model.decode, graphs, batches, tag)
-    elif (model.decode.captures, model.decode.replays) != graphs:
-        raise AssertionError(f"{tag} the DeCap decoder ran on a ViECap, MeaCap or ClipCap "
-                             "model")
+    if decode is None:
+        if "decode_captures" in snap:
+            raise AssertionError(f"{tag} a model without a decoder reported decode graphs")
+    elif model.viecap is None and model.clipcap is None and not model.calculate_argmax_text:
+        _check_graphs(decode, graphs, batches, tag)
+    elif (decode.captures, decode.replays) != graphs:
+        raise AssertionError(f"{tag} the DeCap decoder ran on a ViECap, MeaCap, ClipCap or "
+                             "argmax-text model")
     return results, snap, batches, wall, counts
 
 
@@ -4494,6 +4522,299 @@ def phase_encoder_options(seed: int, smi: str, qkv_rate: float) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 17
+
+CLEANING_GRID = tuple((ct, after, src) for ct in ("orthogonal_projection", "contrastive_mask")
+                      for after in (True, False) for src in ("cls", "avg_self_attn"))
+
+
+def _xywh_boxes(n: int, seed: int, k: int = MAX_BOXES, img: int = IMG) -> np.ndarray:
+    """(n, k, 4) pixel `[x1, y1, w, h]` boxes, seeded, as phase 4g's."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, img / 2, (n, k, 2))
+    wh = rng.uniform(14, img / 2, (n, k, 2))
+    return np.concatenate([xy, wh], -1).astype(np.float32)
+
+
+def _counted_forward(model, imgs, label: str, want: dict, **kw):
+    """One `forward` with every launch counter zeroed just before it: (its
+    outputs, its host-clock ms with the card synchronised, the card's peak
+    memory above what was held, GiB); raises unless the kernels launched
+    are exactly `want`."""
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = model.forward(imgs, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    return outs, ms, peak
+
+
+def _nested(rows: list, shape: tuple) -> bool:
+    """`rows` is a list of len(shape[0]) lists of shape[1] strings."""
+    return ([len(r) for r in rows] == [shape[1]] * shape[0]
+            and all(isinstance(c, str) for r in rows for c in r))
+
+
+def _encoder_counts(model) -> dict:
+    depth = model.vit_cfg.depth
+    return {"ln_dense": depth, "qkv_attention": depth, "ln_mlp": depth}
+
+
+def _capture_caption_inputs(model) -> list:
+    """Make `model.caption_tokens` record the f32 CPU copy of each feature
+    batch it is given and return empty captions (no decode): the inputs
+    `forward` hands it. Undo with `del model.caption_tokens`."""
+    seen = []
+
+    def record(feats, project=True, return_n_best_sims=None, compute_scores=False):
+        seen.append(feats.float().cpu())
+        capts = [""] * feats.shape[0]
+        return (capts, [0.0] * len(capts)) if compute_scores else capts
+
+    model.caption_tokens = record
+    return seen
+
+
+def phase_forward_modes(seed: int, smi: str) -> dict:
+    """Phase 17: the rest of `forward` on the flagship at full width (the
+    module docstring's 17a-17e). Returns the D launches of its counted
+    forwards."""
+    from patchioner_tpu_torch import entry
+    from patchioner_tpu_torch.models import decap
+    from patchioner_tpu_torch.models.patchioner import Patchioner
+    from patchioner_tpu_torch.ops import memory_projection as mp
+    from patchioner_tpu_torch.ops import region_pooling as rp
+
+    t_phase = time.perf_counter()
+    imgs, traces = _requests(B, seed + 60)
+    boxes = _xywh_boxes(B, seed + 61)
+    n_patches = (IMG // 14) ** 2
+    d_launches = 0
+
+    # 17a: argmax-text, no decoder
+    model = build_model(dict(FLAGSHIP_CONFIG, calculate_argmax_text=True), seed, "[argmax]")
+    if model.decoder is not None or model.decode is not None or model.supports_fused_trace_path():
+        raise AssertionError("[argmax] the argmax-text flagship built a decoder or a fused path")
+    texts = set(model.bank_texts)
+    kw = dict(get_cls_capt=True, get_avg_self_attn_capt=True, get_patch_capts=True,
+              bboxes=boxes, return_n_best_sims=5)
+    model.forward(imgs[:1], **dict(kw, bboxes=boxes[:1]))  # first call: each op's set-up
+    outs, ms, peak = _counted_forward(model, imgs, "[argmax] forward", _encoder_counts(model),
+                                      **kw)
+    sims = np.asarray(outs["bbox_sims"], np.float64)
+    shaped = (len(outs["cls_capt"]) == len(outs["avg_self_attn_capt"]) == B
+              and _nested(outs["patch_tokens_capts"], (B, n_patches))
+              and _nested(outs["bbox_capts"], (B, MAX_BOXES)) and sims.shape == (B, MAX_BOXES, 5)
+              and np.isfinite(sims).all() and (np.diff(sims, axis=-1) <= 0).all()
+              and all(c in texts for key in ("cls_capt", "avg_self_attn_capt")
+                      for c in outs[key])
+              and all(c in texts for key in ("patch_tokens_capts", "bbox_capts")
+                      for r in outs[key] for c in r))
+    if not shaped:
+        raise AssertionError("[argmax] malformed captions or similarities")
+    enc = model.encode_images(imgs)
+    patches = enc["x_norm_patchtokens"].reshape(-1, D)
+    rows = model._bank_real_rows()
+    chunk = mp.SIM_CHUNK_BYTES // (4 * rows.shape[0])
+    # the similarities' f32 GEMM (TF32 off) over the SIMT pipes' peak
+    sim_bound = 2 * patches.shape[0] * D * rows.shape[0] / PEAK_FLOPS[torch.float32] * 1e3
+    call_ms = {
+        f"argmax {patches.shape[0]} rows": cuda_ms(lambda: mp.memory_argmax(patches, rows), 1, 3),
+        f"argmax {B} rows": cuda_ms(lambda: mp.memory_argmax(enc["x_norm_clstoken"], rows), 1, 3),
+        f"top-5 {B * MAX_BOXES} rows": cuda_ms(
+            lambda: mp.memory_topk_sims(patches[:B * MAX_BOXES], rows, 5), 1, 3),
+        "the bank's f32 rows": cuda_ms(model._bank_real_rows, 1, 3)}
+    log(f"[argmax] forward of {B} images (cls, avg_self_attn, {B} x {MAX_BOXES} boxes with "
+        f"top-5 sims, {patches.shape[0]} patch rows): {ms:.1f} ms (host clock), launches "
+        f"{_encoder_counts(model)} and no D or H; peak {peak:.2f} GiB above what was held; "
+        f"chunk {chunk} feature rows ({mp.SIM_CHUNK_BYTES / 2 ** 30:.0f} GiB of f32 sims); "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in call_ms.items())
+        + f" (CUDA events, the bank's f32 copy and norms inside each call; the argmax's "
+          f"similarity GEMM alone is bound by {sim_bound:.2f} ms of f32 operations); caption 0: "
+          f"{outs['cls_capt'][0]!r}; {smi}")
+    del enc, patches, rows
+    results, snap, batches, wall, _ = _serve(
+        model, [(im, {"trace": tr}) for im, tr in zip(imgs, traces)], "[argmax served]")
+    if not all(isinstance(c, str) and c in texts for c in results):
+        raise AssertionError("[argmax served] a trace request did not resolve to a bank text")
+    log(f"[argmax served] {len(results) / wall:.3f} trace captions/s through forward, mean "
+        f"request latency {snap['mean_latency_ms']} ms, {batches} batches; {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 17b: n-best sims on the DeCap flagship, 8 x 16 boxes
+    model = build_model(FLAGSHIP_CONFIG, seed, "[n-best]")
+    want = dict(_encoder_counts(model), memory_project=1)
+    kw = dict(get_cls_capt=False, bboxes=boxes, return_n_best_sims=5, compute_scores=True)
+    model.forward(imgs, **kw)  # first call: the 128-row decode graph's capture
+    outs, ms, _ = _counted_forward(model, imgs, "[n-best]", want, **kw)
+    d_launches += 1
+    sims = np.asarray(outs["bbox_sims"], np.float64)
+    if not (_nested(outs["bbox_capts"], (B, MAX_BOXES)) and sims.shape == (B, MAX_BOXES, 5)
+            and np.isfinite(sims).all() and (np.diff(sims, axis=-1) <= 0).all()):
+        raise AssertionError("[n-best] malformed box captions or similarities")
+    feats = rp.extract_bbox_features(model.encode_images(imgs)["x_norm_patchtokens"],
+                                     torch.from_numpy(boxes).cuda(), patch_size=14).reshape(-1, D)
+    topk_ms = cuda_ms(lambda: mp.memory_topk_sims(feats, model._bank_real_rows(), 5), 1, 3)
+    log(f"[n-best] {B} x {MAX_BOXES} box captions with top-5 sims through forward: {ms:.1f} ms "
+        f"(host clock), launches {want}; the top-5 of {feats.shape[0]} rows alone {topk_ms:.2f} "
+        f"ms (CUDA events, the bank's f32 copy included); sims of box 0 "
+        f"{np.round(sims[0, 0], 4).tolist()}; {smi}")
+
+    # 17d: per-head captions, 8 x 16 rows
+    outs, ms, _ = _counted_forward(model, imgs, "[heads]", want, get_cls_capt=False,
+                                   get_attn_heads_capt=True, compute_scores=True)
+    d_launches += 1
+    heads = model.extract_heads
+    if not (_nested(outs["attn_heads_capts"], (B, heads))
+            and np.isfinite(np.asarray(outs["attn_heads_scores"], np.float64)).all()):
+        raise AssertionError("[heads] malformed per-head captions or scores")
+    log(f"[heads] {B} x {heads} per-head captions through forward: {ms:.1f} ms (host clock), "
+        f"launches {want}; caption 0: {outs['attn_heads_capts'][0][0]!r}; {smi}")
+
+    # 17c: the cleaning grid on 2 images, patch and box captions
+    grid_ms = []
+    for ct, after, src in CLEANING_GRID:
+        want = dict(_encoder_counts(model), memory_project=2 if after else 1)
+        kw = dict(get_cls_capt=False, get_patch_capts=True, bboxes=boxes[:2], cleaning_type=ct,
+                  clean_after_projection=after, clean_from=src, alpha=0.7)
+        outs, ms, _ = _counted_forward(model, imgs[:2], f"[cleaning] {ct}, {after}, {src}",
+                                       want, **kw)
+        d_launches += want["memory_project"]
+        grid_ms.append(ms)
+        if not (_nested(outs["patch_tokens_capts"], (2, n_patches))
+                and _nested(outs["bbox_capts"], (2, MAX_BOXES))):
+            raise AssertionError(f"[cleaning] {ct}, {after}, {src}: malformed captions")
+    log(f"[cleaning] grid of {len(CLEANING_GRID)} (types x orders x sources), 2 images, "
+        f"{2 * n_patches} patch and {2 * MAX_BOXES} box captions each: D 2 launches after the "
+        f"projection, 1 before; {min(grid_ms):.1f}-{max(grid_ms):.1f} ms a forward (host "
+        f"clock; the first captures its buckets' decode graphs); {smi}")
+    before = model.decode.captures, model.decode.replays
+    want = dict(_encoder_counts(model), memory_project=2)
+    kw = dict(get_cls_capt=False, get_patch_capts=True, cleaning_type="orthogonal_projection",
+              clean_after_projection=True, alpha=0.7)
+    outs, ms, peak = _counted_forward(model, imgs, "[cleaning] 8 images", want, **kw)
+    d_launches += 2
+    if not _nested(outs["patch_tokens_capts"], (B, n_patches)):
+        raise AssertionError("[cleaning] 8 images: malformed patch captions")
+    captured = model.decode.captures - before[0]
+    state = model.state()
+    patches = model.encode_images(imgs)["x_norm_patchtokens"].reshape(-1, D)
+    project = lambda: entry.project(state, patches, model.bank.num_real,  # noqa: E731
+                                    normalize=True)
+    got = project()
+    # 64 rows spread over every image, the last row included: D's row tiles
+    # from the first to the last at this row count
+    held = torch.linspace(0, patches.shape[0] - 1, 64, device="cuda").long()
+    ref = mp.memory_project_plain(patches[held], model.bank, normalize=True)
+    err = ((got[held] - ref).abs().max() / ref.abs().max()).item()
+    proj_ms = cuda_ms(project, 1, 3)
+    # the library call for D's function at this row count: SDPA over the
+    # bank (its backends never hold the (rows, bank) matrix)
+    library = _bank_sdpa(patches, model.bank, _unit_rows(model.bank, torch.bfloat16),
+                         torch.bfloat16)
+    library_ms, backend = cuda_ms(library, 1, 3), library.backend
+    del library
+    # D's bound by operations: the scores and the weighted sum, each
+    # 2 x rows x bank x D, at the bf16 tensor-core rate (phase 3's rule)
+    proj_bound = 4 * patches.shape[0] * model.bank.num_real * D / PEAK_FLOPS[torch.bfloat16] * 1e3
+    log(f"[cleaning] 8 images, orthogonal after the projection: {patches.shape[0]} patch rows "
+        f"through D at unit norm then the decode graph of bucket "
+        f"{decap.row_bucket(patches.shape[0])} ({captured} captured, "
+        f"{model.decode.replays - before[1]} replayed): {ms:.1f} ms (host clock, the capture "
+        f"included), peak {peak:.2f} GiB above what was held; "
+        f"D at {patches.shape[0]} rows {proj_ms:.2f} ms (CUDA events; bound {proj_bound:.2f} "
+        f"ms by operations; scaled_dot_product_attention bf16 over the bank, backend "
+        f"{backend}, {library_ms:.2f} ms), 64 rows spread over the 8 images "
+        f"against its plain version max|d|/max|ref| {err:.3e} (tol 1e-4); {smi}")
+    if not err <= 1e-4:
+        raise AssertionError(f"[cleaning] D at {patches.shape[0]} rows differs from its plain "
+                             f"version: {err:.3e}")
+    del model, state, patches, got, ref, feats
+    torch.cuda.empty_cache()
+    model = build_model(dict(FLAGSHIP_CONFIG, memory_bank_int8=True), seed, "[cleaning int8]")
+    want = dict(_encoder_counts(model), memory_project_int8=2)
+    outs, ms, _ = _counted_forward(model, imgs[:2], "[cleaning int8]", want,
+                                   get_cls_capt=False, get_patch_capts=True, bboxes=boxes[:2],
+                                   cleaning_type="contrastive_mask")
+    if not (_nested(outs["patch_tokens_capts"], (2, n_patches))
+            and _nested(outs["bbox_capts"], (2, MAX_BOXES))):
+        raise AssertionError("[cleaning int8] malformed captions")
+    log(f"[cleaning int8] contrastive_mask after the projection on the int8 bank, 2 images: "
+        f"{ms:.1f} ms (host clock, the first call: its decode graphs captured), launches "
+        f"{want}; {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 17e: f32 gates, card vs CPU on the card's encoding, TF32 off
+    gpu = Patchioner.from_config(FLAGSHIP_CONFIG, rng_seed=seed, allow_missing_weights=True,
+                                 dtype=torch.float32, device="cuda")
+    _layerscale_near_one(gpu.vit_params, seed + 5)
+    enc = {k: v.cpu() for k, v in gpu.encode_images(imgs[:1]).items()}
+    pick = torch.linspace(0, n_patches - 1, 16).long()
+    patches, src = enc["x_norm_patchtokens"][0, pick], enc["x_norm_clstoken"]
+    cpu_bank = mp.PreparedBank(gpu.bank.rows.cpu(), gpu.bank.inv_norm.cpu(), gpu.bank.num_real)
+
+    def proj_cpu(x):
+        return mp.memory_project_plain(x, cpu_bank, normalize=True)
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    seen = _capture_caption_inputs(gpu)
+    for after in (True, False):
+        seen.clear()
+        gpu.forward(imgs[:1], get_cls_capt=False, get_patch_capts=True,
+                    cleaning_type="orthogonal_projection", clean_after_projection=after,
+                    alpha=0.7)
+        if after:
+            both = proj_cpu(torch.cat([patches, src]))
+            ref = rp.ctx_cleaner(both[None, :16], both[16:], "orthogonal_projection", 0.7)[0]
+        else:
+            ref = proj_cpu(rp.ctx_cleaner(unit(patches)[None], unit(src),
+                                          "orthogonal_projection", 0.7)[0])
+        _gate("f32 modes", seen[0][pick], ref, f"clean_after_projection={after}, card vs CPU on "
+              "the card's encoding, 16 rows", "cleaned patch features")
+    seen.clear()
+    gpu.forward(imgs[:1], get_cls_capt=False, get_attn_heads_capt=True)
+    # x 1369: the attention-weighted sums, each row as large as a token, so
+    # that the gate's floor of 1 does not hide a mean ~1e-3 large
+    ref = torch.einsum("bhp,bpd->bhd", enc["self_attn_maps"], enc["x_norm_patchtokens"])[0]
+    _gate("f32 modes", seen[0] * n_patches, ref, "card vs CPU on the card's encoding, x "
+          f"{n_patches}", "per-head features")
+    del gpu.caption_tokens
+    rows_gpu = gpu._bank_real_rows()
+    rows_cpu = rows_gpu.cpu()
+    sims_gpu = mp.memory_topk_sims(patches.cuda(), rows_gpu, 5).cpu()
+    sims_cpu = mp.memory_topk_sims(patches, rows_cpu, 5)
+    idx_gpu = mp.memory_argmax(patches.cuda(), rows_gpu).cpu()
+    idx_cpu = mp.memory_argmax(patches, rows_cpu)
+    err = (sims_gpu - sims_cpu).abs().max().item()
+    gap = sims_cpu[:, 0] - sims_cpu[:, 1]
+    clear = gap > 1e-5
+    wrong = int((idx_gpu != idx_cpu)[clear].sum())
+    log(f"[f32 modes] top-5 sims of 16 patch rows against the {rows_cpu.shape[0]}-row bank, "
+        f"card vs CPU: max|d| {err:.3e} (tol 1e-5); argmax {wrong} of {int(clear.sum())} rows "
+        f"differ where the CPU's top-2 gap exceeds 1e-5, {int((~clear).sum())} rows inside "
+        f"it (reported); smallest gap {gap.min().item():.3e}")
+    if not err <= 1e-5 or wrong:
+        raise AssertionError(f"[f32 modes] top-k sims {err:.3e} > 1e-5 or {wrong} argmax rows "
+                             "differ outside the tie gap")
+    del gpu, enc, cpu_bank, rows_gpu, rows_cpu
+    torch.cuda.empty_cache()
+    log(f"[time] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {"memory_project": d_launches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4516,7 +4837,7 @@ def main() -> None:
 
 
 def run_phases(seed: int, smi: str, scratch: str) -> list:
-    """Phases 2-16; the kernels' rows of the JSON summary."""
+    """Phases 2-17; the kernels' rows of the JSON summary."""
     t0 = time.perf_counter()
 
     def elapsed(phase):
@@ -4598,6 +4919,8 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
     elapsed("phase 15")
     double_dino = phase_encoder_options(seed, smi, served["main"])
     elapsed("phase 16")
+    modes = phase_forward_modes(seed, smi)
+    elapsed("phase 17")
     for key in ("ln_dense", "qkv_attention", "ln_mlp"):
         launches[key] = (launches[key][0], f"{launches[key][1]}; an align step (forward "
                          f"with backward): {aligned}; the FULL proof: {proof[key]}; the four "
@@ -4607,7 +4930,9 @@ def run_phases(seed: int, smi: str, scratch: str) -> list:
         f"main; training --im_proj: {trained} launches in its timed steps; CLIP DeCap "
         f"served: {clip} launches in its 3 served kinds; served from the bank built by "
         f"the text tower: {text_served}; text-feature training --im_proj: {text_trained}; "
-        f"the backbone family served: " + ", ".join(f"{k} {v}" for k, v in backbones.items()))
+        f"the backbone family served: " + ", ".join(f"{k} {v}" for k, v in backbones.items())
+        + f"; the forward modes' counted forwards (n-best, per-head, cleaning): "
+          f"{modes['memory_project']}")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "patchioner_tpu"))
     if reference:

@@ -24,7 +24,13 @@ model, or one without a bank, captions through `forward`
 `get_avg_self_attn_capt`, `get_avg_patch_capt`, `get_patch_capts`,
 `get_register_capts`, `bboxes` (with `gaussian_avg`,
 `gaussian_bbox_variance`, `use_attn_map_for_bboxes`),
-`get_controllable_capts`, `traces` (with `use_attention_tracing`) and
+`get_controllable_capts`, `traces` (with `use_attention_tracing`),
+`get_attn_heads_capt` (a caption per extracted head, from the patch tokens
+weighted by that head's attention), `cleaning_type` (with
+`clean_after_projection`, `clean_from` and `alpha`: the context cleaner,
+`ops.region_pooling.ctx_cleaner`, on the patch tokens, projected through
+the bank at unit norm before or after it), `return_n_best_sims` (each
+box's top-k cosine similarities to the bank, `bbox_sims`) and
 `compute_scores`, and returns the reference's keys, split per image. Only
 the DINOv2 and DenseCLIP towers' attention is read: elsewhere attention
 boxes and tracing pool uniformly and `get_avg_self_attn_capt` raises
@@ -37,9 +43,11 @@ baseline (PIL images in, one `forward` pass a chunk of crops).
 `double_DINO_for_bboxes` (with `double_DINO_for_bboxes_return_type` and
 `double_DINO_use_cls`) captions each box from the last encoder block
 re-run on its tokens alone (`_double_dino_features`, DINOv2 backbones
-only: elsewhere ValueError, as in the reference). The context cleaner
-(`cleaning_type`), `get_attn_heads_capt` and `return_n_best_sims` raise
-NotImplementedError.
+only: elsewhere ValueError, as in the reference). With
+`calculate_argmax_text` (a config key, or the attribute set on a built
+model) a caption is the text of the bank row nearest the feature
+(`ops.memory_projection.memory_argmax`), its score 1.0; such a model has
+no decoder and no fused path.
 
 `from_config` takes the reference YAML schema (a path or a dict) and
 loads what the reference's `from_config` loads for this subset
@@ -114,8 +122,9 @@ bank are as wide as the config gives them; every `attn_impl` runs on
 each. The CLIP towers (ViT-B and ViT-L), RegionCLIP's ResNet and
 ProxyCLIP's CLIP half run as plain PyTorch, as the JAX package runs them
 as plain XLA; ProxyCLIP's VFM is the DINOv2 encoder. Any key that leaves
-this subset raises NotImplementedError: another backbone, argmax-text and
-int8 (W8A8) encoders. The DINOv2 encoder keys are ignored on the other
+this subset raises NotImplementedError: another backbone and int8 (W8A8)
+encoders. `calculate_argmax_text: true` builds no DeCap decoder (so
+`decap_weights` is not read). The DINOv2 encoder keys are ignored on the other
 backbones, as the JAX package's `from_config` ignores them. An
 `attention_type` other than 'qkv' (the README's KKV mode is 'kkv')
 reorders the built tower's last-block qkv (`vit.reorder_qkv_params`) on
@@ -168,7 +177,7 @@ _KEYS = {
     "normalize", "support_memory_size", "decap_weights", "dino_weights",
     "talk2dino_weights", "memory_bank_int8", "memory_bank_path", "viecap", "clipcap",
     "kkv_attention", "clip_weights", "use_open_clip", "denseclip_config",
-    "denseclip_weights", "alphaclip_config", "invite_config",
+    "denseclip_weights", "alphaclip_config", "invite_config", "calculate_argmax_text",
 }
 # the RegionCLIP and ProxyCLIP keys; beside a DINOv2 `dino_model` they are
 # ignored, as the JAX package's `from_config` ignores them
@@ -187,7 +196,7 @@ _KERNEL_STACK_KEYS = {"qkv_fused", "mlp_fused"}
 # of the reference)
 _ENCODER_KEYS = {"attn_impl", "proj_fused", "gelu_approx", "softmax_f32"}
 # keys whose only ported value is "off" (None or False)
-_OFF_ONLY_KEYS = {"calculate_argmax_text", "encoder_w8a8"}
+_OFF_ONLY_KEYS = {"encoder_w8a8"}
 # the widest encoder each FFN kernel takes in both types: the f32 SIMT
 # kernels keep a block's output rows in registers, up to 32 columns a
 # thread in C (D <= 1024, ViT-L) and 48 in G (D <= 1536); their bf16 GEMMs
@@ -901,7 +910,7 @@ def _traces_to_arrays(traces, device):
 
 class Patchioner:
     def __init__(self, *, vit_cfg, vit_params: dict,
-                 gpt2_cfg: gpt2.GPT2Config, decoder: decap.DecapParams,
+                 gpt2_cfg: gpt2.GPT2Config, decoder: Optional[decap.DecapParams],
                  bank=None, normalize: bool = True, bank_texts: Optional[list] = None,
                  inversion: Optional[dict] = None, config: Optional[dict] = None,
                  device="cuda", tokenizer=None,
@@ -909,7 +918,7 @@ class Patchioner:
                  viecap: Optional[viecap_mod.VieCap] = None,
                  clipcap: Optional[clipcap_mod.ClipCap] = None,
                  backbone_type: str = "DINO", diag_last_layers: int = 0,
-                 skip_ln_post: bool = False):
+                 skip_ln_post: bool = False, calculate_argmax_text: bool = False):
         # a vit.ViTConfig for the DINO backbone, else a
         # clip.ClipVisionConfig, with the tower options of
         # `clip_visual_forward`
@@ -921,10 +930,15 @@ class Patchioner:
         self.device = entry.resolve_device(device)
         self.vit_params = vit.cast_params(vit_params, vit_cfg.dtype, self.device)
         # the f32 master, which `to()` copies; `decode` holds the weights
-        # cast to the decoder's type and its CUDA graphs
-        self.decoder = decap.DecapParams(
-            *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
-        self.decode = decap.GreedyDecoder(self.decoder, gpt2_cfg, entry_length)
+        # cast to the decoder's type and its CUDA graphs. An argmax-text
+        # model built by `from_config` has neither
+        self.decoder = self.decode = None
+        if decoder is not None:
+            self.decoder = decap.DecapParams(
+                *(vit.cast_params(p, torch.float32, self.device) for p in decoder))
+            self.decode = decap.GreedyDecoder(self.decoder, gpt2_cfg, entry_length)
+        # captions are the bank's texts at the nearest row (`caption_tokens`)
+        self.calculate_argmax_text = calculate_argmax_text
         # a PreparedBank, a QuantizedBank (int8 rows, per-row scales), or
         # None: no support memory, the features decode as they are
         self.bank = None if bank is None else type(bank)(
@@ -1022,6 +1036,9 @@ class Patchioner:
 
         vit_params = _rewire_attention(vit_params, config.get("attention_type", "qkv"), kind)
 
+        # the argmax-text mode reads the bank's texts and builds no decoder
+        # (`patchioner.py:816,836`)
+        calculate_argmax_text = bool(config.get("calculate_argmax_text", False))
         prefix_size = int(config["prefix_size"])
         da = dict(config.get("decap_arch") or {})
         gpt2_cfg = gpt2.GPT2Config(
@@ -1030,7 +1047,9 @@ class Patchioner:
             vocab_size=int(da.get("vocab_size", gpt2.GPT2Config.vocab_size)),
             dtype=dtype)
         path = config.get("decap_weights")
-        if path and os.path.isdir(str(path)):
+        if calculate_argmax_text:
+            decoder = None
+        elif path and os.path.isdir(str(path)):
             # a directory of the port's `train/cli.py`: its latest step
             with clock("read"):
                 decoder = checkpoints.load_decap_from_train_dir(str(path), gpt2_cfg,
@@ -1069,7 +1088,8 @@ class Patchioner:
                         decoder=decoder, bank=bank, bank_texts=bank_texts,
                         normalize=bool(config.get("normalize", True)),
                         inversion=inversion, config=config, device=device, viecap=viecap,
-                        clipcap=clipcap, **backbone)
+                        clipcap=clipcap, calculate_argmax_text=calculate_argmax_text,
+                        **backbone)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         model.load_seconds = dict(clock)
@@ -1123,14 +1143,17 @@ class Patchioner:
             inversion=self.inversion, config=self.config, device=device,
             tokenizer=self.tokenizer, entry_length=self.entry_length, viecap=self.viecap,
             clipcap=self.clipcap, backbone_type=self.backbone_type,
-            diag_last_layers=self.diag_last_layers, skip_ln_post=self.skip_ln_post)
+            diag_last_layers=self.diag_last_layers, skip_ln_post=self.skip_ln_post,
+            calculate_argmax_text=self.calculate_argmax_text)
 
     def supports_fused_trace_path(self) -> bool:
         """True for DeCap over a support memory on the DINO backbone; another
-        backbone, a ViECap, MeaCap or ClipCap model, or one without a bank,
-        captions through `forward` (`patchioner.py:1369-1381`)."""
+        backbone, a ViECap, MeaCap or ClipCap model, the argmax-text mode,
+        or a model without a bank or a decoder, captions through `forward`
+        (`patchioner.py:1366-1379`)."""
         return (self.backbone_type == "DINO" and self.viecap is None and self.clipcap is None
-                and self.bank is not None)
+                and not self.calculate_argmax_text and self.bank is not None
+                and self.decoder is not None)
 
     @property
     def mixes_batch(self) -> bool:
@@ -1344,29 +1367,52 @@ class Patchioner:
                        compute_scores: bool = False):
         """(N, D) features -> N captions (with `compute_scores` also N
         scores): ViECap's (or MeaCap's), else ClipCap's, before any
-        projection, when the model has one; else projected (when there is a
-        bank) and decoded by DeCap. Twin of `patchioner.py:1301-1363`;
-        `return_n_best_sims` and the argmax-text mode are not ported."""
+        projection, when the model has one; else, in the argmax-text mode,
+        the texts of the nearest bank rows (scores 1.0); else projected
+        (when there is a bank) and decoded by DeCap. `return_n_best_sims`
+        = k makes the captions (captions, each feature's top-k cosine
+        similarities to the bank rows, before any projection); the
+        argmax-text mode adds them only for k > 0, as the reference.
+        Without a bank, the argmax-text mode and `return_n_best_sims`
+        raise ValueError. Twin of `patchioner.py:1301-1363`."""
         feats = torch.as_tensor(feats).to(self.device)
-        if feats.shape[0] == 0:
-            # a CLIP tower's register tokens: no row, nothing to launch
-            return ([], []) if compute_scores else []
         for name, family in (("viecap", self.viecap), ("clipcap", self.clipcap)):
             if family is not None:
                 if return_n_best_sims:
                     raise ValueError(f"return_n_best_sims is not supported with {name}")
+                if feats.shape[0] == 0:
+                    return ([], []) if compute_scores else []
                 return family.forward(feats, compute_scores=compute_scores)
-        if return_n_best_sims is not None:
-            raise NotImplementedError("return_n_best_sims is not ported yet (it needs "
-                                      "memory_topk_sims)")
+        if self.bank is None and (return_n_best_sims is not None
+                                  or self.calculate_argmax_text):
+            raise ValueError("return_n_best_sims / calculate_argmax_text require a support "
+                             "memory bank (support_memory_size > 0)")
+        if feats.shape[0] == 0:
+            # a CLIP tower's register tokens: no row, nothing to launch
+            body = ([], []) if return_n_best_sims is not None else []
+            return (body, []) if compute_scores else body
+        # the stored rows in f32, scored at their own unit norm
+        rows = (self._bank_real_rows()
+                if self.calculate_argmax_text or return_n_best_sims is not None else None)
+
+        def n_best(capts):
+            sims = memproj.memory_topk_sims(feats, rows, return_n_best_sims)
+            return capts, sims.cpu().numpy().tolist()
+
+        if self.calculate_argmax_text:
+            idx = memproj.memory_argmax(feats, rows).cpu().numpy()
+            capts = [self.bank_texts[i] for i in idx]
+            body = n_best(capts) if return_n_best_sims else capts
+            return (body, [1.0] * len(capts)) if compute_scores else body
         prefix = self.project_features(feats, project=project)
         # DeCap's eager loop in the reference; the graph decoder replays its
         # very launches on the card
         tokens, scores = self.decode(prefix.float())
         capts = [self.tokenizer.decode_caption(row) for row in tokens.cpu().numpy()]
+        body = capts if return_n_best_sims is None else n_best(capts)
         if compute_scores:
-            return capts, scores.cpu().numpy().tolist()
-        return capts
+            return body, scores.cpu().numpy().tolist()
+        return body
 
     @torch.no_grad()
     def forward(self, imgs, get_cls_capt: bool = True, get_avg_self_attn_capt: bool = False,
@@ -1386,32 +1432,41 @@ class Patchioner:
         """Every caption the flags ask for, in the reference's output keys
         and per-image nesting (`patchioner.py:1959-2216`, the DINO
         backbone): `cls_capt`, `avg_self_attn_capt`, `avg_patch_capt`,
+        `attn_heads_capts` (B x extract_heads: the patch tokens weighted by
+        each head's CLS attention, averaged over the patches),
         `patch_tokens_capts`, `register_capts`, `bbox_capts` (pixel
         `[x1, y1, w, h]` boxes; uniform, Gaussian or attention-map weights, or
-        double-DINO features),
-        `set_controllable_capts` (one caption per box set) and `trace_capts`
-        (a list of traces, or padded (points, valid)); with `compute_scores`
-        each caption list but the last two has a `_scores` twin.
-        `caption_bboxes_type` returns `caption_bboxes`' result on PIL
-        images. Flags not ported raise NotImplementedError naming
-        themselves."""
+        double-DINO features; with `return_n_best_sims` = k also `bbox_sims`,
+        B x NB lists of each box feature's top-k cosine similarities to the
+        bank), `set_controllable_capts` (one caption per box set) and
+        `trace_capts` (a list of traces, or padded (points, valid)); with
+        `compute_scores` each caption list but the last two has a `_scores`
+        twin. `caption_bboxes_type` returns `caption_bboxes`' result on PIL
+        images.
+
+        `cleaning_type` cleans the patch tokens of the context of
+        `clean_from` ('cls', or 'avg_self_attn', which falls back to the
+        CLS token where the tower's attention is not read) with
+        `rp.ctx_cleaner` and `alpha`: with `clean_after_projection` the
+        patch tokens and the context are each projected through the bank
+        at unit norm (kernel D, or H over an int8 bank; no Talk2DINO
+        inversion) and then cleaned, else normalised, cleaned and then
+        projected. The reference's routing is kept: patch and box captions
+        of the cleaned tokens skip the caption's projection, the
+        whole-image mean, traces and box sets are projected once more, and
+        the attention-head and double-DINO features come from the
+        uncleaned tokens."""
         assert clean_from in ("cls", "avg_self_attn")
         assert cleaning_type in (None, "orthogonal_projection", "contrastive_mask")
         if double_DINO_for_bboxes and self.backbone_type != "DINO":
             raise ValueError("double_DINO_for_bboxes requires a DINO backbone")
-        refused = {"cleaning_type": cleaning_type is not None,
-                   "get_attn_heads_capt": get_attn_heads_capt,
-                   "return_n_best_sims": return_n_best_sims is not None}
-        for flag, asked in refused.items():
-            if asked:
-                raise NotImplementedError(f"forward({flag}=...) is not ported yet")
         if caption_bboxes_type is not None:
             return self.caption_bboxes(imgs, bboxes, capt_type=caption_bboxes_type,
                                        compute_scores=compute_scores)
         if self.backbone_type == "AlphaClip" and (bboxes is not None or traces is not None):
             return self._forward_alphaclip_regions(
                 imgs, bboxes, traces, get_controllable_capts=get_controllable_capts,
-                compute_scores=compute_scores)
+                compute_scores=compute_scores, return_n_best_sims=return_n_best_sims)
 
         outs: dict[str, Any] = {}
         enc = self.encode_images(imgs)
@@ -1419,11 +1474,44 @@ class Patchioner:
         bs, n_patches, embed_dim = patch_tokens.shape
         # only the DINO and DenseCLIP towers' attention is read
         # (`patchioner.py:2014-2021`): elsewhere boxes and traces pool
-        # uniformly and the attention-weighted mean raises
+        # uniformly, the attention-weighted mean and the head captions
+        # raise, and cleaning from it falls back to the CLS token
         has_attention = self.backbone_type in ("DINO", "DenseClip")
         self_attn = enc["self_attn"] if has_attention else None
-        if get_avg_self_attn_capt and not has_attention:
+        if (get_avg_self_attn_capt or get_attn_heads_capt) and not has_attention:
             raise ValueError(f"backbone {self.backbone_type} exposes no self-attention")
+        avg_self_attn = None
+        if has_attention and (get_avg_self_attn_capt or (
+                cleaning_type is not None and clean_from == "avg_self_attn")):
+            avg_self_attn = (self_attn[..., None] * patch_tokens).mean(dim=1)
+        if get_attn_heads_capt:
+            # (B, H, D): the mean over patches of the tokens times each
+            # head's map, from the uncleaned tokens
+            disentangled = torch.einsum("bhp,bpd->bhd", enc["self_attn_maps"].float(),
+                                        patch_tokens.float()) / n_patches
+
+        if cleaning_type is not None:
+            def proj_norm(x):
+                if self.bank is None:
+                    return x
+                return entry.project(self.state(), x, self.bank.num_real, normalize=True)
+
+            src = (avg_self_attn if clean_from != "cls" and avg_self_attn is not None
+                   else enc["x_norm_clstoken"])
+            if clean_after_projection:
+                proj = proj_norm(patch_tokens.reshape(-1, embed_dim)).reshape(bs, n_patches, -1)
+                patch_tokens = rp.ctx_cleaner(proj, proj_norm(src), cleaning_type, alpha)
+            else:
+                unit = patch_tokens / torch.linalg.vector_norm(patch_tokens, dim=-1, keepdim=True)
+                src = src / torch.linalg.vector_norm(src, dim=-1, keepdim=True)
+                cleaned = rp.ctx_cleaner(unit, src, cleaning_type, alpha)
+                patch_tokens = proj_norm(cleaned.reshape(-1, cleaned.shape[-1])).reshape(
+                    bs, n_patches, -1)
+            embed_dim = patch_tokens.shape[-1]
+        # the cleaned tokens are in the bank's space already: their patch
+        # and box captions skip the caption's projection
+        # (`patchioner.py:2126,2173`)
+        project = cleaning_type is None
 
         def emit(key, feats):
             ret = self.caption_tokens(feats, compute_scores=compute_scores)
@@ -1432,25 +1520,37 @@ class Patchioner:
             else:
                 outs[key] = ret
 
-        def emit_per_image(key, score_key, feats, per):
-            ret = self.caption_tokens(feats.reshape(-1, embed_dim),
+        def emit_per_image(key, score_key, feats, per, project=True, n_best=None):
+            # (B * per) captions nested B x per; `n_best` adds `bbox_sims`
+            ret = self.caption_tokens(feats.reshape(-1, embed_dim), project=project,
+                                      return_n_best_sims=n_best,
                                       compute_scores=compute_scores)
-            capts, scores = ret if compute_scores else (ret, None)
-            outs[key] = [capts[i * per:(i + 1) * per] for i in range(bs)]
+            body, scores = ret if compute_scores else (ret, None)
+            capts, sims = body if n_best is not None else (body, None)
+
+            def nest(xs):
+                return [xs[i * per:(i + 1) * per] for i in range(bs)]
+
+            outs[key] = nest(capts)
             if compute_scores:
-                outs[score_key] = [scores[i * per:(i + 1) * per] for i in range(bs)]
+                outs[score_key] = nest(scores)
+            if sims is not None:
+                outs["bbox_sims"] = nest(sims)
 
         if get_cls_capt:
             if "x_norm_clstoken" not in enc:
                 raise ValueError(f"backbone {self.backbone_type} emits patch tokens only")
             emit("cls_capt", enc["x_norm_clstoken"])
         if get_avg_self_attn_capt:
-            emit("avg_self_attn_capt", (self_attn[..., None] * patch_tokens).mean(dim=1))
+            emit("avg_self_attn_capt", avg_self_attn)
         if get_avg_patch_capt:
             emit("avg_patch_capt", rp.compute_region_means(patch_tokens, gaussian_img_variance))
+        if get_attn_heads_capt:
+            emit_per_image("attn_heads_capts", "attn_heads_scores", disentangled,
+                           disentangled.shape[1])
         if get_patch_capts:
             emit_per_image("patch_tokens_capts", "patch_tokens_scores", patch_tokens,
-                           n_patches)
+                           n_patches, project=project)
         if get_register_capts:
             regs = enc["x_norm_regtokens"]
             emit_per_image("register_capts", "register_scores", regs, regs.shape[1])
@@ -1463,15 +1563,16 @@ class Patchioner:
             if get_controllable_capts:
                 outs["set_controllable_capts"] = self.caption_tokens(
                     rp.extract_bbox_features_single(patch_tokens, boxes, **weight_kw))
-            elif double_DINO_for_bboxes:
-                emit_per_image("bbox_capts", "bbox_scores", self._double_dino_features(
-                    enc, boxes, return_type=double_DINO_for_bboxes_return_type,
-                    use_cls=double_DINO_use_cls,
-                    gaussian_bbox_variance=float(gaussian_bbox_variance)), boxes.shape[1])
             else:
-                emit_per_image("bbox_capts", "bbox_scores",
-                               rp.extract_bbox_features(patch_tokens, boxes, **weight_kw),
-                               boxes.shape[1])
+                if double_DINO_for_bboxes:  # from the uncleaned encoder output
+                    feats = self._double_dino_features(
+                        enc, boxes, return_type=double_DINO_for_bboxes_return_type,
+                        use_cls=double_DINO_use_cls,
+                        gaussian_bbox_variance=float(gaussian_bbox_variance))
+                else:
+                    feats = rp.extract_bbox_features(patch_tokens, boxes, **weight_kw)
+                emit_per_image("bbox_capts", "bbox_scores", feats, boxes.shape[1],
+                               project=project, n_best=return_n_best_sims)
 
         if traces is not None:
             if isinstance(traces, (list, tuple)):
@@ -1577,7 +1678,8 @@ class Patchioner:
     @torch.no_grad()
     def _forward_alphaclip_regions(self, imgs, bboxes=None, traces=None, *,
                                    get_controllable_capts: bool = False,
-                                   compute_scores: bool = False) -> dict:
+                                   compute_scores: bool = False,
+                                   return_n_best_sims: Optional[int] = None) -> dict:
         """AlphaCLIP's region captions (`patchioner.py:2297-2420`): every
         (image, box) pair, or each image's trace, through one batched
         encoder pass with the region as the alpha mask. The encoder's mask
@@ -1585,8 +1687,9 @@ class Patchioner:
         `use_cls_for_localized_captions: false` the patch tokens are
         averaged under the region's patch-grid mask, else the CLS token is
         captioned. A dummy box (negative coordinate sum) gets "", a score
-        of 0.0. `get_controllable_capts` captions the OR of each image's
-        boxes and trace."""
+        of 0.0 and, under `return_n_best_sims`, no similarities (`[]`) in
+        `bbox_sims`. `get_controllable_capts` captions the OR of each
+        image's boxes and trace."""
         pixels = self._pixels(imgs)
         bs, hw = pixels.shape[0], pixels.shape[1]
         grid = self.vit_cfg.grid_size
@@ -1637,15 +1740,20 @@ class Patchioner:
             ret = self.caption_tokens(
                 encode_with_masks(pixels.repeat_interleave(n_boxes, dim=0), masks,
                                   pmasks.reshape(-1, grid, grid)),
-                compute_scores=compute_scores)
-            capts, scores = ret if compute_scores else (ret, None)
+                compute_scores=compute_scores, return_n_best_sims=return_n_best_sims)
+            body, scores = ret if compute_scores else (ret, None)
+            capts, sims = body if return_n_best_sims is not None else (body, None)
             dummy = (boxes.sum(dim=-1) < 0).cpu().numpy()
-            rows = range(bs)
-            outs["bbox_capts"] = [["" if dummy[i, j] else capts[i * n_boxes + j]
-                                   for j in range(n_boxes)] for i in rows]
+
+            def per_box(values, empty):
+                return [[empty if dummy[i, j] else values[i * n_boxes + j]
+                         for j in range(n_boxes)] for i in range(bs)]
+
+            outs["bbox_capts"] = per_box(capts, "")
             if compute_scores:
-                outs["bbox_scores"] = [[0.0 if dummy[i, j] else scores[i * n_boxes + j]
-                                        for j in range(n_boxes)] for i in rows]
+                outs["bbox_scores"] = per_box(scores, 0.0)
+            if sims is not None:
+                outs["bbox_sims"] = per_box(sims, [])
         if traces is not None:
             ret = self.caption_tokens(
                 encode_with_masks(pixels, trace_masks(hw), trace_masks(grid)),

@@ -23,6 +23,12 @@ back. Both bodies end in the combine of their partials
 (`combine_partials`, `combine_partials_plain` on the CPU). The backward of
 neither kernel is ported: on CUDA tensors with grad on and an operand that
 requires grad they raise (`kernels.refuse_grad`).
+
+`memory_argmax` and `memory_topk_sims` (the argmax-text and n-best modes)
+are plain PyTorch on every device, as their JAX twins are plain XLA: each
+is its own plain version. They score the bank's rows as given, at unit
+norm by their OWN norms (not `inv_norm`), in f32, a chunk of feature rows
+at a time so that one chunk's similarities stay near `SIM_CHUNK_BYTES`.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ __all__ = [
     "memory_project_int8",
     "combine_partials_plain",
     "combine_partials",
+    "memory_argmax",
+    "memory_topk_sims",
 ]
 
 DEFAULT_TEMPERATURE = 0.01
@@ -58,6 +66,9 @@ MAX_D = 1536
 # width its 8 warps split into 16-column steps
 ROW_TILE = 16
 TC_D_MULTIPLE = 128
+# one chunk of feature rows' f32 similarities to the whole bank: 907 rows
+# of the flagship's 591,753
+SIM_CHUNK_BYTES = 2 << 30
 
 
 class PreparedBank(NamedTuple):
@@ -128,6 +139,35 @@ def memory_project_int8_plain(features: torch.Tensor, bank: QuantizedBank, *,
     rows = bank.rows[:n].float() * bank.scale[:n]
     return memory_project_plain(features, PreparedBank(rows, bank.inv_norm[:n], n),
                                 temperature=temperature, normalize=normalize)
+
+
+def _similarity_chunks(features: torch.Tensor, bank: torch.Tensor):
+    """The f32 cosine similarities of (B, D) features to (M, D) bank rows,
+    both at unit norm by their own norms, as many feature rows at a time as
+    fit in `SIM_CHUNK_BYTES`. Chunks cut the feature rows only, so each row
+    sees the whole bank at once."""
+    f = _l2_normalize(features.float())
+    b = _l2_normalize(bank.float())
+    rows = max(1, SIM_CHUNK_BYTES // (4 * max(1, b.shape[0])))
+    for lo in range(0, f.shape[0], rows):
+        yield f[lo:lo + rows] @ b.T
+
+
+def memory_argmax(features: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 index of each feature's nearest bank row by cosine
+    similarity, the lowest index on a tie, as `jnp.argmax`. Twin of
+    `memory_projection.py:86`; its own plain version."""
+    parts = [s.argmax(dim=-1) for s in _similarity_chunks(features, bank)]
+    return torch.cat(parts) if parts else features.new_zeros(0, dtype=torch.int64)
+
+
+def memory_topk_sims(features: torch.Tensor, bank: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, k) f32 top-k cosine similarities of each feature to the bank
+    rows, descending. Twin of `memory_projection.py:93`; its own plain
+    version."""
+    parts = [s.topk(k, dim=-1).values
+             for s in _similarity_chunks(features, bank)]
+    return torch.cat(parts) if parts else features.new_zeros(0, k, dtype=torch.float32)
 
 
 def combine_partials_plain(m_part: torch.Tensor, l_part: torch.Tensor,

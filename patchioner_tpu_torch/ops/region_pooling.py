@@ -16,6 +16,9 @@ the JAX module pins hold here too:
 * AlphaCLIP's pixel masks floor and clamp a box's corners and end it
   exclusively; a dummy box (negative coordinate sum) masks nothing.
 
+`ctx_cleaner` removes the global context from patch embeddings (the
+reference's cleaning, `forward(cleaning_type=...)`).
+
 Where the JAX module takes a PRNG key (`even_center="random"`), these take
 a `torch.Generator`; they cannot reproduce JAX's draws.
 """
@@ -35,6 +38,7 @@ __all__ = [
     "traces_to_grid",
     "trace_pool",
     "boxes_to_pixel_masks",
+    "ctx_cleaner",
 ]
 
 
@@ -258,3 +262,22 @@ def boxes_to_pixel_masks(bboxes: torch.Tensor, size: int) -> torch.Tensor:
     in_y = (xs >= y1[..., None]) & (xs < y2[..., None])
     mask = in_y[..., :, None] & in_x[..., None, :]
     return mask.to(torch.float32) * valid[..., None, None]
+
+
+def ctx_cleaner(dirty_embeds: torch.Tensor, ctx_embed: torch.Tensor,
+                cleaning_type: str = "orthogonal_projection", alpha: float = 1.0,
+                epsilon: float = 1e-6) -> torch.Tensor:
+    """Remove the global context `ctx_embed` (B, D) from `dirty_embeds`
+    (B, N, D): 'orthogonal_projection' subtracts `alpha` times each row's
+    projection on the context, 'contrastive_mask' scales each row by
+    1 - ctx / (|ctx| + epsilon); another type raises ValueError. Twin of
+    `region_pooling.py:436` (reference src/model.py:1425-1436)."""
+    ctx = ctx_embed[:, None, :]
+    if cleaning_type == "orthogonal_projection":
+        denom = (ctx * ctx).sum(dim=-1, keepdim=True)
+        proj = (dirty_embeds * ctx).sum(dim=-1, keepdim=True) / denom
+        return dirty_embeds - alpha * proj * ctx
+    if cleaning_type == "contrastive_mask":
+        norm = torch.linalg.vector_norm(ctx, dim=-1, keepdim=True) + epsilon
+        return dirty_embeds * (1.0 - ctx / norm)
+    raise ValueError(f"unknown cleaning_type: {cleaning_type}")

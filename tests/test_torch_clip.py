@@ -391,14 +391,15 @@ def test_a_dinov2_model_takes_precedence_over_the_clip_keys():
 
 
 # RegionCLIP, ProxyCLIP and DINO.txt are the port's backbones; each is
-# refused with a key the port does not take
+# refused with a key the port does not take (argmax-text is taken since it
+# was ported: beside it `encoder_w8a8` still refuses)
 @pytest.mark.parametrize("extra", [
     {"dino_model": "RN50_regionclip", "regionclip_config": {"embed_dim": 1024},
      "encoder_w8a8": True},
-    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "calculate_argmax_text": True},
+    {"dino_model": "dinov2_vitl14_reg4_dinotxt_tet1280d20h24l", "encoder_w8a8": True},
     {"dino_model": "resnet50"},
     {"encoder_w8a8": True},
-    {"calculate_argmax_text": True},
+    {"calculate_argmax_text": True, "encoder_w8a8": True},
 ])
 def test_what_the_port_still_refuses(extra):
     with pytest.raises(NotImplementedError):

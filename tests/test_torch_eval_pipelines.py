@@ -179,11 +179,22 @@ def test_crop_and_caption_equals_jax(models, data):  # noqa: F811
 
 
 def test_forward_still_refuses_the_flags_not_ported(models):  # noqa: F811
-    imgs = np.zeros((2, 56, 56, 3), np.uint8)
-    for flag in (dict(cleaning_type="orthogonal_projection"), dict(get_attn_heads_capt=True),
-                 dict(return_n_best_sims=3)):
-        with pytest.raises(NotImplementedError, match=next(iter(flag))):
-            models[1].forward(imgs, **flag)
+    # the flags this test once showed refused are ported: on the
+    # evaluators' model each gives the JAX outputs
+    jm, pm = models
+    imgs = np.random.default_rng(5).integers(0, 256, (2, 56, 56, 3), dtype=np.uint8)
+    boxes = np.asarray([[[0, 0, 28, 28], [14, 14, 30, 30]], [[7, 7, 42, 42], [0, 0, 56, 20]]],
+                       np.float32)
+    for flag in (dict(cleaning_type="orthogonal_projection", get_patch_capts=True),
+                 dict(get_attn_heads_capt=True, compute_scores=True),
+                 dict(return_n_best_sims=3, bboxes=boxes)):
+        got, want = pm.forward(imgs, **flag), jm.forward(imgs, **flag)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            if key.endswith(("_scores", "_sims")):
+                np.testing.assert_allclose(got[key], want[key], rtol=1e-4)
+            else:
+                assert got[key] == want[key], key
 
 
 def _csv(path):

@@ -7,7 +7,7 @@ vocabulary with the JAX tests' `WordTokenizer`.
 
 - every ported flag of `forward` gives the JAX outputs, key for key and
   string for string (scores within 1e-4 relative), for a ViECap model, for DeCap without a bank and for
-  DeCap over a bank; the flags not ported raise NotImplementedError;
+  DeCap over a bank, the cleaning, per-head and n-best flags among them;
 - the port's `CaptionServer` serves a ViECap model through `forward` for
   each request kind, as the JAX server does;
 - `from_config` loads a ViECap `.pt` written in the published layout
@@ -166,12 +166,20 @@ def test_forward_equals_jax(models, imgs, kind, flags):
         _equal(got[key], want[key], key)
 
 
+# the three flags this test once showed refused: each is ported now and
+# gives the JAX outputs (tests/test_torch_forward_modes.py covers the rest)
 @pytest.mark.parametrize("flag", [dict(cleaning_type="orthogonal_projection"),
                                   dict(get_attn_heads_capt=True),
                                   dict(return_n_best_sims=3, bboxes=BOXES)])
 def test_flags_not_ported_raise(models, imgs, flag):
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        models["decap bank"][1].forward(imgs, **flag)
+    jm, pm = models["decap bank"]
+    kw = dict(flag, get_patch_capts="cleaning_type" in flag, compute_scores=True)
+    got, want = pm.forward(imgs, **kw), jm.forward(imgs, **kw)
+    assert sorted(got) == sorted(want)
+    assert {"cleaning_type": "patch_tokens_capts", "get_attn_heads_capt": "attn_heads_capts",
+            "return_n_best_sims": "bbox_sims"}[next(iter(flag))] in want
+    for key in want:
+        _equal(got[key], want[key], key)
 
 
 def test_encode_and_project_equal_jax(models, imgs):

@@ -22,6 +22,12 @@ the graphs kept stay one a bucket. One decoder training step on the card
 (kernel D's --im_proj step, and the packed step) is held against the
 same step on the CPU under chip_smoke's f32 gate.
 
+The argmax-text and n-best modes' `memory_argmax` and `memory_topk_sims`
+(plain torch, no kernel) run on the card as on the CPU: the top-5
+similarities within 1e-5, the argmax equal wherever the CPU's top-2 gap
+exceeds 1e-5. Kernel D at unit norm at a flagship batch's 10,952 patch
+rows (the context cleaner's projection) holds D's bound.
+
 A CLIP-backbone DeCap model (the tower plain torch, kernel D over a
 512-wide bank) runs `forward` on the card as on the CPU in f32, and so do
 RegionCLIP (cuDNN's TF32 off), ProxyCLIP (its VFM on A, B and C) and
@@ -268,6 +274,43 @@ def test_memory_project_bf16_kernel(cuda, d, b, bank_rows):
                        lambda: mp.memory_project_streamed(feats, bank, normalize=normalize))
         _check(got, mp.memory_project_plain(feats, bank, normalize=normalize),
                torch.float32)
+
+
+def test_memory_project_bf16_kernel_at_a_batch_of_patch_rows(cuda):
+    # a flagship batch's patch rows (8 x 1369 = 10,952), as `forward`'s
+    # context cleaning projects them: at unit norm, over a 50,000-row bf16
+    # bank (the plain version's (rows, bank) f32 matrices must fit twice)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bank = mp.prepare_bank(torch.randn(50000, 768, generator=gen, device="cuda"),
+                           dtype=torch.bfloat16)
+    feats = torch.randn(8 * 1369, 768, generator=gen, device="cuda")
+    got = _counted(mp.memory_project_streamed,
+                   lambda: mp.memory_project_streamed(feats, bank, normalize=True))
+    _check(got, mp.memory_project_plain(feats, bank, normalize=True), torch.float32)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 7])
+def test_memory_argmax_and_topk_sims_card_vs_cpu(cuda, chunk_rows, monkeypatch):
+    # plain torch on both devices (no kernel): the card's f32 products (TF32
+    # off) against the CPU's. The top-5 similarities within 1e-5; the argmax
+    # equal on every row whose CPU top-2 gap exceeds 1e-5 (a row inside it
+    # may take the other index on another summation order); duplicated
+    # rows are an exact tie, which takes the lower index on both
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bank = torch.randn(50000, 768, generator=gen, device="cuda").to(torch.bfloat16).float()
+    bank[41000] = bank[17]
+    feats = torch.cat([torch.randn(62, 768, generator=gen, device="cuda"), bank[[17, 3]]])
+    cpu_idx = mp.memory_argmax(feats.cpu(), bank.cpu())
+    cpu_sims = mp.memory_topk_sims(feats.cpu(), bank.cpu(), 5)
+    if chunk_rows is not None:  # the card's side in chunks of 7 feature rows
+        monkeypatch.setattr(mp, "SIM_CHUNK_BYTES", chunk_rows * 4 * bank.shape[0])
+    idx = mp.memory_argmax(feats, bank)
+    sims = mp.memory_topk_sims(feats, bank, 5)
+    assert idx.is_cuda and sims.shape == (64, 5)
+    assert (sims.cpu() - cpu_sims).abs().max().item() <= 1e-5
+    clear = (cpu_sims[:, 0] - cpu_sims[:, 1]) > 1e-5
+    assert torch.equal(idx.cpu()[clear], cpu_idx[clear])
+    assert idx[-2].item() == cpu_idx[-2].item() == 17 and idx[-1].item() == 3
 
 
 @pytest.mark.parametrize("d", [96, 1664])

@@ -171,12 +171,13 @@ def test_shipped_viecap_config_builds():
 
 # a DINOv2 `dino_model` wins over every other backbone key, as in the JAX
 # package's `from_config`, so the other backbones' cases name theirs; each
-# backbone the port takes is refused with a key it does not
+# backbone the port takes is refused with a key it does not (argmax-text
+# is taken since it was ported: beside it `encoder_w8a8` still refuses)
 @pytest.mark.parametrize("extra", [
     {"viecap": {"hard_prompt_pad_multiple": 8}},
     {"dino_model": "dinov2_vitl14_reg", "encoder_w8a8": True},
-    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "calculate_argmax_text": True},
-    {"calculate_argmax_text": True},
+    {"dino_model": None, "proxyclip_clipmodel": "ViT-B/16", "encoder_w8a8": True},
+    {"calculate_argmax_text": True, "encoder_w8a8": True},
     {"encoder_w8a8": True},
     {"dino_model": "resnet50"}, {"an_unknown_key": 1},
 ])
